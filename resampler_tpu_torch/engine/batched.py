@@ -1,0 +1,201 @@
+"""Batched multi-stream FIR resampler: PyTorch port of
+``resampler_tpu.engine.batched.BatchedResamplerFir``, phase-locked
+time-major fleet (``synchronized=True, sync_variant="tm"``) only.
+
+Every other variant raises ``NotImplementedError`` naming the ROADMAP item
+that ports it; none falls back to another engine.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..types import Attenuation, Latency, reduce_ratio
+from .fir import FirConfig, fir_coefficients, fir_cutoff, resolve_device
+from .fir_fleets import fir_fleet_init_sync_tm, make_fir_fleet_step_sync_tm
+
+__all__ = ["BatchedResamplerFir"]
+
+
+class BatchedResamplerFir:
+    """``n_streams`` FIR resamplers stepped as one fleet on ``device``.
+
+    All streams share one configuration and, in the synchronized fleet,
+    one exact schedule (the common fleet-serving case: every stream is fed
+    the same number of frames per step).  Chunks arrive batch-major
+    ``[B, n, C]`` and are relaid to the ring's time-major ``[n, B*C]``
+    feed (lane ``b*C + c``).
+    """
+
+    def __init__(
+        self,
+        n_streams: int,
+        channels: int,
+        input_rate,
+        output_rate,
+        latency: Latency = Latency.Sample64,
+        attenuation: Attenuation = Attenuation.Db120,
+        *,
+        mesh=None,
+        path: str = "auto",
+        synchronized: bool = False,
+        sync_variant: str = "tm",
+        max_chunk: int = 2048,
+        horizon: int = 16,
+        device="cpu",
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh sharding is not ported yet (ROADMAP A11)"
+            )
+        if not synchronized:
+            raise NotImplementedError(
+                "the vmapped fleet (synchronized=False) is not ported yet "
+                "(ROADMAP A6)"
+            )
+        if sync_variant == "slide":
+            raise NotImplementedError(
+                "sync_variant='slide' is not ported yet (ROADMAP A6)"
+            )
+        if sync_variant == "async_tm":
+            raise NotImplementedError(
+                "sync_variant='async_tm' is not ported yet (ROADMAP A8)"
+            )
+        if sync_variant != "tm":
+            raise ValueError(f"unknown sync_variant {sync_variant!r}")
+        L, M = reduce_ratio(int(input_rate), int(output_rate))
+        self._config = FirConfig(
+            channels=channels, taps=latency.taps, ratio_num=L, ratio_den=M
+        )
+        self._device = resolve_device(device)
+        self.n_streams = n_streams
+        self.synchronized = synchronized
+        self.max_chunk = max_chunk
+        cutoff = fir_cutoff(
+            latency.taps, attenuation, int(input_rate) / int(output_rate)
+        )
+        coeffs = fir_coefficients(latency.taps, attenuation, cutoff)
+        self._tm_step = make_fir_fleet_step_sync_tm(
+            self._config, coeffs, n_streams,
+            max_chunk=max_chunk, horizon=horizon, path=path,
+            device=self._device,
+        )
+        self._state = fir_fleet_init_sync_tm(
+            self._config, n_streams, max_chunk=max_chunk, horizon=horizon,
+            device=self._device,
+        )
+
+    @property
+    def config(self) -> FirConfig:
+        return self._config
+
+    @property
+    def state(self) -> dict:
+        """Fleet state: ring ``buffer`` tensor plus host-int ``start``,
+        ``fill`` and ``pos_num``."""
+        return self._state
+
+    @state.setter
+    def state(self, value: dict) -> None:
+        self._state = value
+
+    def buffer_size_output(self) -> int:
+        return self._config.out_capacity * self._config.channels
+
+    def slew(self, samples) -> float:
+        """Shift the fleet's shared sampling phase by ``samples`` input
+        samples (a scalar: the synchronized fleet shares one schedule).
+        Resolution 1/M input samples, clamped to the buffered history and
+        the int32 schedule envelope; returns the applied slew."""
+        if np.ndim(samples) != 0:
+            raise ValueError(
+                "synchronized fleets share one phase; per-stream slew "
+                "needs the async tm fleet (sync_variant='async_tm') "
+                "or the general (vmapped) fleet"
+            )
+        M = self._config.ratio_den
+        pos = self._state["pos_num"]
+        delta = int(np.round(np.float64(samples) * M))
+        ceiling = self._config.input_capacity * M
+        applied = min(max(delta, -pos), max(0, ceiling - pos))
+        if applied:
+            self._state = dict(self._state, pos_num=pos + applied)
+        return applied / M
+
+    def _step(self, chunks, n_valid: int):
+        n = chunks.shape[1]
+        tm = chunks.permute(1, 0, 2).reshape(n, -1)
+        self._state, out, consumed, produced = self._tm_step(
+            self._state, tm, n_valid
+        )
+        return out, consumed, produced, out.abs().amax()
+
+    def _chunks(self, chunks, ndim: int):
+        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self._device)
+        if chunks.ndim != ndim or chunks.shape[-3] != self.n_streams or (
+            chunks.shape[-1] != self._config.channels
+        ):
+            raise ValueError(
+                f"chunks must be [..., {self.n_streams}, n, "
+                f"{self._config.channels}], got {tuple(chunks.shape)}"
+            )
+        if chunks.shape[-2] > self.max_chunk:
+            raise ValueError(
+                f"chunk of {chunks.shape[-2]} frames exceeds max_chunk="
+                f"{self.max_chunk} (set max_chunk at construction for "
+                "larger feeds)"
+            )
+        return chunks
+
+    def resample(self, chunks, n_valid=None):
+        """Step all streams once.
+
+        - ``chunks``: ``[n_streams, frames, channels]`` f32 (numpy, or a
+          tensor, ideally already on the fleet's device)
+        - ``n_valid``: optional ``[n_streams]`` valid frame counts; the
+          shared schedule takes their minimum (defaults to full chunks)
+
+        Returns ``(out [n_streams, out_cap, channels], consumed [B],
+        produced [B], fleet_peak)``: ``out`` and the peak ``max|out|``
+        stay on the device; ``consumed``/``produced`` are int32 numpy
+        arrays, frames per channel."""
+        chunks = self._chunks(chunks, 3)
+        B, n, _ = chunks.shape
+        nv = n if n_valid is None else int(np.min(n_valid))
+        out, consumed, produced, peak = self._step(chunks, nv)
+        return (
+            out,
+            np.full((B,), consumed, np.int32),
+            np.full((B,), produced, np.int32),
+            peak,
+        )
+
+    def resample_many(self, chunks, n_valid=None):
+        """Step ``T`` consecutive chunks per stream: ``chunks [T, B, n, C]``
+        -> ``(out [T, B, out_cap, C], consumed [T], produced [T], peak)``.
+        ``n_valid``: optional ``[T]`` (or ``[T, B]``, reduced by min)
+        valid counts.  The same steps as ``T`` calls of ``resample``."""
+        chunks = self._chunks(chunks, 4)
+        T, _, n, _ = chunks.shape
+        if n_valid is None:
+            nv = np.full((T,), n, np.int64)
+        else:
+            nv = np.asarray(n_valid, np.int64)
+            if nv.ndim == 2:
+                nv = nv.min(axis=1)
+            if nv.shape != (T,):
+                raise ValueError(f"n_valid must be [T] or [T, B], got {nv.shape}")
+        outs, cs, ps, peaks = [], [], [], []
+        for t in range(T):
+            out, c, p, peak = self._step(chunks[t], int(nv[t]))
+            outs.append(out)
+            cs.append(c)
+            ps.append(p)
+            peaks.append(peak)
+        return (
+            torch.stack(outs),
+            np.asarray(cs, np.int32),
+            np.asarray(ps, np.int32),
+            torch.stack(peaks).amax(),
+        )

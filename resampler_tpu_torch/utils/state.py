@@ -1,0 +1,70 @@
+"""Carry stream state between numpy (and so the JAX package or a
+``resampler_tpu.utils.checkpoint`` ``.npz``) and the port.
+
+The port keeps a state as a dict: ``buffer`` is a float32 tensor, the
+schedule scalars are Python ints.  The numpy form follows the JAX
+package's keys and dtypes exactly: ``buffer`` f32, and ``available_frames``
+/ ``pos_num`` (per-stream ``FirState``) or ``start`` / ``fill`` /
+``pos_num`` (sync tm fleet state) as 0-d int32 arrays.  So
+``jax.tree.map(np.asarray, jax_state)`` loads into the port, and
+``state_to_numpy`` output saves with ``save_state`` unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..engine.fir import resolve_device
+
+__all__ = ["state_from_numpy", "state_to_numpy"]
+
+_INT_KEYS = frozenset({"available_frames", "pos_num", "start", "fill"})
+
+
+def state_from_numpy(state_np: dict, device="cpu") -> dict:
+    """A port state on ``device`` from a dict of numpy arrays (the buffer
+    is copied, never aliased)."""
+    dev = resolve_device(device)
+    if "buffer" not in state_np:
+        raise ValueError("state has no 'buffer'")
+    state = {}
+    for key, value in state_np.items():
+        arr = np.asarray(value)
+        if key == "buffer":
+            if arr.dtype != np.float32 or arr.ndim != 2:
+                raise TypeError(
+                    f"buffer must be 2-D float32, got {arr.ndim}-D {arr.dtype}"
+                )
+            state[key] = torch.tensor(arr, dtype=torch.float32, device=dev)
+        elif key in _INT_KEYS:
+            if arr.shape != () or arr.dtype != np.int32:
+                raise TypeError(
+                    f"{key} must be a 0-d int32 array (shared schedule), got "
+                    f"shape {arr.shape} {arr.dtype}; per-stream schedules "
+                    "belong to the vmapped fleet (ROADMAP A6)"
+                )
+            state[key] = int(arr)
+        elif key in ("pos_hi", "pos_lo"):
+            raise NotImplementedError(
+                "wide u32 schedule states are not ported yet (ROADMAP A5)"
+            )
+        else:
+            raise ValueError(f"unknown state key {key!r}")
+    return state
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The numpy form of a port state: ``buffer`` f32 on the host, each
+    schedule scalar a 0-d int32 array (raises if one left int32)."""
+    out = {}
+    for key, value in state.items():
+        if key == "buffer":
+            out[key] = value.detach().cpu().numpy().astype(np.float32, copy=True)
+        elif key in _INT_KEYS:
+            if not -(1 << 31) <= value < (1 << 31):
+                raise OverflowError(f"{key}={value} does not fit int32")
+            out[key] = np.asarray(value, np.int32)
+        else:
+            raise ValueError(f"unknown state key {key!r}")
+    return out
