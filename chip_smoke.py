@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (``resampler_tpu_torch``).
 
-Drives the port's FIR serving path on one NVIDIA card and holds it
-against the port's plain PyTorch versions.  Run from the repository root
-on a machine with one CUDA GPU, nvcc and PyTorch built for CUDA:
+Drives the port's FIR serving paths on one NVIDIA card and holds them
+against the port's plain PyTorch versions and the CPU.  Run from the
+repository root on a machine with one CUDA GPU, nvcc and PyTorch built
+for CUDA:
 
     python3 chip_smoke.py
 
@@ -11,21 +12,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and precision: a CUDA card, both TF32 flags off, the card's
    name and power limit from nvidia-smi;
-2. build kernel B1 (csrc/fir_banded_contract.cu) with nvcc for sm_90a;
-3. kernel B1 against its plain version on the card at the main path's
-   shapes (plus a grouped small-M shape and a ragged fleet), timed with
-   CUDA events;
-4. the main path at full width: 1024 stereo streams, 44.1 -> 48 kHz,
-   Latency.Sample64 / Attenuation.Db90, max_chunk 4096, horizon 16:
-   40 ``resample`` calls and one ``resample_many`` of T = 8; every step
-   must launch the kernel, the schedule must be exact, and streams 0-3
-   must match a CPU fleet;
-5. card against CPU: a 3-stream stereo fleet, 36 steps, ragged feeds
+2. build kernels B1 (csrc/fir_banded_contract.cu) and B2/B3
+   (csrc/fir_farrow_contract.cu) with nvcc for sm_90a, one nvcc per
+   source, started together;
+3. each kernel against its plain version on the card at the main paths'
+   shapes (plus a grouped small-M shape and ragged fleets), odd bases and
+   the top bound, timed with CUDA events against its bound; B1 also
+   against one PyTorch ``matmul`` over the overlapping window view;
+4. full width, 1024 stereo streams, Latency.Sample64 / Attenuation.Db90,
+   max_chunk 4096, horizon 16, 40 ``resample`` calls and one
+   ``resample_many`` of T = 8 per path: 44.1 -> 48 kHz (periodic, B1),
+   44.1 -> 44.101 kHz farrow and lerp (B2), 600011 -> 600013 Hz wide u32
+   (B2), 367500 -> 1601 Hz heavy downsampling (B3).  Each checks the
+   exact schedule, one kernel launch per emitting step (counts set to 0
+   just before the path, read just after), >= 2 compactions, and streams
+   0-3 against a CPU fleet of those streams; then profiles 10 more steps;
+5. card against CPU: small periodic, farrow and wide fleets, ragged feeds
    with NaN junk past the valid frames: ints equal, ring bit-equal,
    samples within 5e-5;
-6. alias rejection through the kernel (48 -> 44.1 kHz, 23 kHz tone)
-   >= 100 dB;
-7. the per-stream ``ResamplerFir.process`` on the card against the CPU.
+6. alias rejection of a 23 kHz tone through B1 (48 -> 44.1 kHz, >= 100
+   dB) and through B2 (48000 -> 44101 Hz, equal to the CPU port's value
+   within 0.5 dB, and >= 100 dB if that is);
+7. the per-stream ``ResamplerFir.process`` on the card against the CPU,
+   periodic and coprime.
 
 It prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -58,8 +67,18 @@ from resampler_tpu_torch.types import reduce_ratio
 KERNEL_ATOL = 1e-5
 #: card vs CPU on fleet outputs: bench.py's device-vs-CPU quality gate
 DEVICE_ATOL = 5e-5
-#: f32 CUDA-core peak of an H100 SXM (data sheet), for the roofline share
+#: H100 SXM data sheet: f32 CUDA-core peak and HBM3 rate, for the bounds
 F32_PEAK_TFLOPS = 67.0
+HBM_TBPS = 3.35
+
+SOURCES = {
+    "dma_banded_contract": ("resampler_tpu_torch/csrc/fir_banded_contract.cu",
+                            "resampler_tpu/ops/fir_dma_kernel.py:277"),
+    "dma_farrow_contract": ("resampler_tpu_torch/csrc/fir_farrow_contract.cu",
+                            "resampler_tpu/ops/fir_dma_kernel.py:225"),
+    "dma_farrow_contract_packed": ("resampler_tpu_torch/csrc/fir_farrow_contract.cu",
+                                   "resampler_tpu/ops/fir_dma_kernel.py:170"),
+}
 
 
 def check(cond, what: str) -> None:
@@ -67,28 +86,30 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"FAILED: {what}")
 
 
-def elapsed_ms(fn, reps: int, device: torch.device) -> float:
-    """Mean milliseconds per call of ``fn(i)`` over ``reps`` calls: CUDA
-    events on the card, the host clock on the CPU."""
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for i in range(reps):
-            fn(i)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-    t0 = time.perf_counter()
+def elapsed_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn(i)`` over ``reps`` calls, with
+    CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
     for i in range(reps):
         fn(i)
-    return (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+def bound_ms(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the f32 peak and the compulsory bytes over the memory rate."""
+    t_op = flop / (F32_PEAK_TFLOPS * 1e9)
+    t_by = nbytes / (HBM_TBPS * 1e9)
+    return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def coeffs_for(in_hz, out_hz, taps):
+    return fir_coefficients(taps, Attenuation.Db90, fir_cutoff(taps, Attenuation.Db90, in_hz / out_hz))
 
 
 # --------------------------------------------------------------------------
@@ -118,21 +139,31 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    kern.build()
-    print(f"[2] built kernel B1 with nvcc (sm_90a) in {time.perf_counter() - t0:.2f} s")
+    libs = kern.build()
+    print(f"[2] built {sorted(libs)} with nvcc (sm_90a) in {time.perf_counter() - t0:.2f} s")
     for line in kern.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+        if line.startswith("==") or "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"    {line.strip()}")
 
 
 # --------------------------------------------------------------------------
-# phase 3: kernel vs plain version at the main path's shapes
+# phase 3: kernels vs plain versions at the main paths' shapes
 # --------------------------------------------------------------------------
 
 
-def kernel_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
-    """The ring, atlas window and geometry ``make_fir_fleet_step_sync_tm``
-    hands the kernel for one fleet configuration."""
+def timed_pair(kernel, plain, reps=20):
+    """Kernel and plain ms per call, in turns plain, kernel, kernel,
+    plain (``fn(i)`` rotates its bases over the ring so successive calls
+    do not find their rows in the 50 MB L2)."""
+    for fn in (kernel, plain):
+        fn(0)
+    t = [elapsed_ms(fn, reps) for fn in (plain, kernel, kernel, plain)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def banded_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
+    """The ring, atlas windows and geometry ``make_fir_fleet_step_sync_tm``
+    hands B1 for one fleet configuration."""
     L, M = reduce_ratio(in_hz, out_hz)
     cfg = FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
     g = _periodic_group_factor(L, M)
@@ -140,14 +171,12 @@ def kernel_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
     span = Lg + taps + 1
     K = -(-cfg.out_capacity // Mg)
     ring = fir_fleets._ring_rows(cfg, max_chunk, horizon)
-    coeffs = fir_coefficients(taps, Attenuation.Db90, fir_cutoff(taps, Attenuation.Db90, in_hz / out_hz))
     a2 = fir_fleets._sync_atlas(
-        dataclasses.replace(cfg, ratio_num=Lg, ratio_den=Mg) if g > 1 else cfg, coeffs
+        dataclasses.replace(cfg, ratio_num=Lg, ratio_den=Mg) if g > 1 else cfg,
+        coeffs_for(in_hz, out_hz, taps),
     )
     rng = np.random.default_rng(seed)
-    buf = torch.from_numpy(
-        rng.standard_normal((ring, lanes), dtype=np.float32)
-    ).to(device)
+    buf = torch.from_numpy(rng.standard_normal((ring, lanes), dtype=np.float32)).to(device)
     atlases = []
     for i0 in (0, int(rng.integers(1, M)) if M > 1 else 0, M - 1):
         c0 = (i0 * L) // M
@@ -155,65 +184,146 @@ def kernel_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
     top = ring - ((K - 1) * Lg + span)
     # odd bases, one in the ring's middle, and the top bound
     bases = [1, 3, 4097, 2 * (ring // 4) + 1, top]
-    geo = dict(L=Lg, M=Mg, span=span, K=K)
-    return buf, atlases, bases, geo
+    return buf, atlases, bases, dict(L=Lg, M=Mg, span=span, K=K)
 
 
-def phase_kernel(device, cases, reps=20):
-    """Max |kernel - plain| over every case, atlas window and base, and
-    each case's time per call (kernel and plain, in turns); returns the
-    worst error and the first (main-path) case's times."""
-    worst = 0.0
-    timing = None
+def phase_banded_kernel(device, cases):
+    """B1: max |kernel - plain| over every case, atlas window and base;
+    each case's times; for the main case also the bound and one
+    ``torch.matmul`` over the overlapping window view (the library
+    yardstick, never called by the port)."""
+    worst, entry = 0.0, None
     for n, (name, args) in enumerate(cases):
-        buf, atlases, bases, geo = kernel_case(*args, device=device, seed=n)
+        buf, atlases, bases, geo = banded_case(*args, device=device, seed=n)
         err = 0.0
         for a in atlases:
             for base in bases:
                 got = kern.dma_banded_contract(buf, base, a, **geo)
                 ref = kern.dma_banded_contract_reference(buf, base, a, **geo)
                 err = max(err, float((got - ref).abs().max()))
-        sync(device)
-        check(err <= KERNEL_ATOL, f"kernel vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
+        torch.cuda.synchronize()
+        check(err <= KERNEL_ATOL, f"B1 vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
         worst = max(worst, err)
         ring, R = buf.shape
-        print(f"[3] {name}: ring [{ring}, {R}] {geo}: max |kernel - plain| = {err:.3e} "
+        print(f"[3] B1 {name}: ring [{ring}, {R}] {geo}: max |kernel - plain| = {err:.3e} "
               f"over {len(atlases) * len(bases)} calls")
         a = atlases[1]
-        # rotate bases over the ring so successive calls do not find their
-        # rows in L2 (the 50 MB L2 would hold one full-width window)
+        L, M, span, K = geo["L"], geo["M"], geo["span"], geo["K"]
         rot = np.linspace(0, bases[-1], 8).astype(int).tolist()
+        ms, plain_ms, t = timed_pair(
+            lambda i: kern.dma_banded_contract(buf, rot[i % 8], a, **geo),
+            lambda i: kern.dma_banded_contract_reference(buf, rot[i % 8], a, **geo),
+        )
+        flop = 2 * K * M * span * R
+        nbytes = 4 * (((K - 1) * L + span) * R + M * span + K * M * R)
+        b_ms, b_by = bound_ms(flop, nbytes)
+        print(f"    kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per call; "
+              f"kernel {flop / ms / 1e9:.2f} TFLOP/s ({100 * flop / ms / 1e9 / F32_PEAK_TFLOPS:.1f}% "
+              f"of the f32 peak); bound {b_ms:.4f} ms ({b_by}: {flop / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        if entry is None:
+            def library(i):
+                base = rot[i % 8]
+                view = buf[base:].as_strided((K, span, R), (L * R, R, 1))
+                return torch.matmul(a, view)
 
-        def k(i):
-            kern.dma_banded_contract(buf, rot[i % 8], a, **geo)
-
-        def p(i):
-            kern.dma_banded_contract_reference(buf, rot[i % 8], a, **geo)
-
-        for fn in (k, p):
-            fn(0)
-        # plain, kernel, kernel, plain
-        t = [elapsed_ms(fn, reps, device) for fn in (p, k, k, p)]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        flop = 2 * geo["K"] * geo["M"] * geo["span"] * R
-        if timing is None:
-            timing = dict(ms=ms, plain_ms=plain_ms)
-        print(f"    timing: kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms "
-              f"per call; kernel {flop / ms / 1e9:.2f} TFLOP/s "
-              f"({100 * flop / ms / 1e9 / F32_PEAK_TFLOPS:.1f}% of the f32 peak), "
-              f"plain {flop / plain_ms / 1e9:.2f} TFLOP/s")
+            ref = kern.dma_banded_contract_reference(buf, rot[3], a, **geo)
+            library(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            got = library(3)
+            extra = torch.cuda.max_memory_allocated() - held - got.numel() * 4
+            lib_err = float((got - ref).abs().max())
+            del got, ref
+            lib_ms = elapsed_ms(library, 20)
+            copied = extra >= K * span * R * 4
+            print(f"    library torch.matmul(a, as_strided window view): {lib_ms:.4f} ms, "
+                  f"max |library - plain| {lib_err:.3e}; {extra / 1e6:.1f} MB of scratch beyond the "
+                  f"outputs: PyTorch {'COPIED' if copied else 'did not copy'} the overlapping view "
+                  f"({K * span * R * 4 / 1e6:.1f} MB)")
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del buf, atlases
-    return worst, timing
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def farrow_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
+    """The ring, per-block weights (the fleet's own positioning matmul at
+    three positions) and block table the fleet hands B2 / B3."""
+    L, M = reduce_ratio(in_hz, out_hz)
+    cfg = FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
+    fp = fir_fleets._farrow_tm_plan(cfg, coeffs_for(in_hz, out_hz, taps))
+    ashift2 = torch.from_numpy(fp["ashift2"]).to(device)
+    ring = fir_fleets._ring_rows(cfg, max_chunk, horizon)
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.standard_normal((ring, lanes), dtype=np.float32)).to(device)
+    if cfg.wide:
+        positions = [(0, 0), (3, int(rng.integers(1, M))), (1, M - 1)]
+    else:
+        positions = [0, int(rng.integers(1, M)), M - 1]
+    weights = [fir_fleets.farrow_weights(fp, M, pos, ashift2) for pos in positions]
+    top = ring - (int(fp["block_base"].max()) + fp["w_blk"])
+    bases = [1, 3, 4097, 2 * (ring // 4) + 1, top]
+    return buf, weights, bases, fp
+
+
+def phase_farrow_kernels(device, cases):
+    """B2 and B3 against their plain version over every case, weight set
+    and base; times and bounds at each kernel's main case (the first of
+    its cases).  No single PyTorch call computes them (``block_base`` is
+    no uniform stride), so they have no library time."""
+    entries = {}
+    for n, (name, args) in enumerate(cases):
+        buf, weights, bases, fp = farrow_case(*args, device=device, seed=10 + n)
+        K, q, w = fp["K"], fp["q"], fp["w_blk"]
+        bb = fp["block_base"]
+        kname = "dma_farrow_contract" if q >= 8 else "dma_farrow_contract_packed"
+        fn = getattr(kern, kname)
+        err = 0.0
+        for a_blk in weights:
+            for base in bases:
+                got = fn(buf, base, a_blk, bb)
+                ref = kern.dma_farrow_contract_reference(buf, base, a_blk, bb)
+                err = max(err, float((got - ref).abs().max()))
+        torch.cuda.synchronize()
+        check(err <= KERNEL_ATOL, f"{kname} vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
+        ring, R = buf.shape
+        print(f"[3] {'B2' if q >= 8 else 'B3'} {name}: ring [{ring}, {R}] K {K} q {q} w {w}: "
+              f"max |kernel - plain| = {err:.3e} over {len(weights) * len(bases)} calls")
+        a_blk = weights[1]
+        rot = np.linspace(0, bases[-1], 8).astype(int).tolist()
+        ms, plain_ms, t = timed_pair(
+            lambda i: fn(buf, rot[i % 8], a_blk, bb),
+            lambda i: kern.dma_farrow_contract_reference(buf, rot[i % 8], a_blk, bb),
+        )
+        covered = np.zeros(int(bb.max()) + w, bool)
+        for b in bb:
+            covered[b : b + w] = True
+        flop = 2 * K * q * w * R
+        nbytes = 4 * (int(covered.sum()) * R + K * q * w + K * q * R) + 8 * K
+        b_ms, b_by = bound_ms(flop, nbytes)
+        print(f"    kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per call; "
+              f"kernel {flop / ms / 1e9:.3f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s; bound "
+              f"{b_ms:.4f} ms ({b_by}: {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+              f"{100 * b_ms / ms:.1f}% of it reached)")
+        entry = entries.setdefault(kname, dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        ))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        del buf, weights
+    return entries
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 4: the serving paths at full width
 # --------------------------------------------------------------------------
 
 
 def expected_schedule(cfg: FirConfig, n_valids):
-    """The exact shared schedule, as plain integer arithmetic:
-    ``(to_copy, n_out)`` per step."""
+    """The exact shared schedule, as plain integer arithmetic on one
+    unbounded position: ``(to_copy, n_out)`` per step.  (The wide u32
+    schedule equals it away from its saturation corner.)"""
     L, M, cap, taps, out_cap = (
         cfg.ratio_num, cfg.ratio_den, cfg.input_capacity, cfg.taps, cfg.out_capacity
     )
@@ -230,75 +340,128 @@ def expected_schedule(cfg: FirConfig, n_valids):
         yield to_copy, n_out
 
 
-def phase_main_path(device, smi, B=1024, C=2, max_chunk=4096, horizon=16,
-                    n_steps=40, T=8, nbuf=8, mirror=4, warm=8, latency=Latency.Sample64):
-    kw = dict(synchronized=True, max_chunk=max_chunk, horizon=horizon)
-    fleet = BatchedResamplerFir(B, C, 44100, 48000, latency, Attenuation.Db90, device=device, **kw)
+def profile_steps(fleet, chunks, n=10):
+    """Device time per step by kernel over ``n`` warm steps
+    (torch.profiler, kernel events only), the device's busy share of the
+    wall time, and the host ops that take the most host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fleet.resample(chunks[i % len(chunks)])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / n
+    events = prof.key_averages()
+    kernels = sorted(
+        ((getattr(ev, "self_device_time_total", 0) / n, ev.key) for ev in events
+         if ev.device_type == DeviceType.CUDA),
+        reverse=True,
+    )
+    dev_us = sum(us for us, _ in kernels)
+    if dev_us <= 0:
+        print("    profile: no device time recorded (not measured)")
+        return
+    print(f"    profile over {n} warm steps: device {dev_us:.1f} us/step of {wall_us:.1f} us/step "
+          f"wall under the profiler (busy {100 * dev_us / wall_us:.1f}%); kernels, us/step:")
+    for us, key in kernels[:7]:
+        print(f"      {us:9.1f}  {100 * us / dev_us:5.1f}%  {key[:90]}")
+    host = sorted(
+        ((ev.self_cpu_time_total / n, ev.count // n, ev.key) for ev in events
+         if ev.device_type == DeviceType.CPU),
+        reverse=True,
+    )
+    print(f"    host: {sum(us for us, _, _ in host):.1f} us/step in {sum(c for _, c, _ in host)} "
+          "profiled ops; top by self time, us/step (calls/step):")
+    for us, count, key in host[:6]:
+        print(f"      {us:9.1f}  ({count})  {key[:60]}")
+
+
+def phase_fleet(device, smi, label, in_hz, out_hz, kernel_name, path="auto", B=1024, C=2,
+                max_chunk=4096, horizon=16, n_steps=40, T=8, nbuf=8, mirror=4, warm=8,
+                latency=Latency.Sample64):
+    kw = dict(synchronized=True, max_chunk=max_chunk, horizon=horizon, path=path)
+    torch.cuda.reset_peak_memory_stats()
+    fleet = BatchedResamplerFir(B, C, in_hz, out_hz, latency, Attenuation.Db90, device=device, **kw)
     rng = np.random.default_rng(7)
     chunks_np = [rng.standard_normal((B, max_chunk, C), dtype=np.float32) for _ in range(nbuf)]
     chunks = [torch.from_numpy(c).to(device) for c in chunks_np]
     many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
-    sync(device)
+    torch.cuda.synchronize()
 
-    kern.LAUNCHES = 0  # count only the main path's own launches
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0  # count only this path's own launches
     small, steps, fills, peaks = [], [], [], []
     t0 = time.perf_counter()
     for i in range(n_steps):
         if i == warm:
-            sync(device)  # the first steps grow the device allocator
+            torch.cuda.synchronize()  # the first steps grow the device allocator
             t_warm = time.perf_counter()
         out, c, p, peak = fleet.resample(chunks[i % nbuf])
         small.append(out[:mirror].clone())
         steps.append((int(c[0]), int(p[0])))
         fills.append(fleet.state["fill"])
         peaks.append(peak)
-    sync(device)
+    torch.cuda.synchronize()
     t_end = time.perf_counter()
     dt, dt_warm = t_end - t0, t_end - t_warm
     t1 = time.perf_counter()
     outs, cs, ps, peak_many = fleet.resample_many(many)
-    sync(device)
+    torch.cuda.synchronize()
     dt_many = time.perf_counter() - t1
-    launches = kern.LAUNCHES
+    launches = dict(kern.LAUNCHES)
 
     steps += list(zip(cs.tolist(), ps.tolist()))
     total = n_steps + T
     want = list(expected_schedule(fleet.config, [max_chunk] * total))
-    check(steps == want, "consumed/produced follow the exact schedule")
-    check(all(p > 0 for _, p in steps), "every step emits")
-    check(launches == total, f"kernel launches {launches} == steps {total}")
+    check(steps == want, f"{label}: consumed/produced follow the exact schedule")
+    emitting = sum(p > 0 for _, p in steps)
+    check(emitting > 0, f"{label}: steps emit")
+    check(launches[kernel_name] == emitting,
+          f"{label}: {kernel_name} launches {launches[kernel_name]} == emitting steps {emitting}")
+    check(sum(launches.values()) == emitting, f"{label}: no other kernel launched {launches}")
     compactions = sum(b < a for a, b in zip(fills, fills[1:]))
-    check(compactions >= 2, f"{compactions} compactions >= 2")
+    check(compactions >= 2, f"{label}: {compactions} compactions >= 2")
     out_cap = fleet.config.out_capacity
-    check(tuple(out.shape) == (B, out_cap, C) and tuple(outs.shape) == (T, B, out_cap, C), "output shapes")
-    check(bool(torch.isfinite(torch.stack(peaks)).all()) and bool(torch.isfinite(outs).all()), "finite outputs")
-    check(float(peak_many) > 0, "nonzero output")
+    check(tuple(out.shape) == (B, out_cap, C) and tuple(outs.shape) == (T, B, out_cap, C),
+          f"{label}: output shapes")
+    check(bool(torch.isfinite(torch.stack(peaks)).all()) and bool(torch.isfinite(outs).all()),
+          f"{label}: finite outputs")
+    check(float(peak_many) > 0, f"{label}: nonzero output")
 
     # streams are independent: streams 0..mirror-1 equal a CPU fleet of
     # just those streams, fed the same frames
-    cpu = BatchedResamplerFir(mirror, C, 44100, 48000, latency, Attenuation.Db90, device="cpu", **kw)
+    cpu = BatchedResamplerFir(mirror, C, in_hz, out_hz, latency, Attenuation.Db90, device="cpu", **kw)
     err = 0.0
     for i in range(total):
         ref, c, p, _ = cpu.resample(chunks_np[i % nbuf][:mirror])
-        check((int(c[0]), int(p[0])) == steps[i], f"CPU mirror schedule at step {i}")
+        check((int(c[0]), int(p[0])) == steps[i], f"{label}: CPU mirror schedule at step {i}")
         got = small[i] if i < n_steps else outs[i - n_steps, :mirror]
         err = max(err, float((got.cpu() - ref).abs().max()))
-    check(err <= DEVICE_ATOL, f"main path vs CPU mirror: {err:.3e} > {DEVICE_ATOL}")
+    check(err <= DEVICE_ATOL, f"{label}: vs CPU mirror {err:.3e} > {DEVICE_ATOL}")
 
-    def rate(step_slice, seconds):
-        return sum(p for _, p in step_slice) * B / seconds / 1e6
+    def rate(step_slice, seconds, side=1):
+        return sum(s[side] for s in step_slice) * B / seconds / 1e6
 
-    print(f"[4] main path: {B} streams x {C} ch, 44.1 -> 48 kHz taps {latency.taps}, "
-          f"{total} steps ({compactions} compactions), {launches} kernel launches; "
-          f"streams 0-{mirror - 1} vs CPU fleet max err {err:.3e}")
+    print(f"[4] {label}: {B} streams x {C} ch, {in_hz} -> {out_hz} Hz taps {latency.taps}, "
+          f"{total} steps ({emitting} emitting, {compactions} compactions), "
+          f"{launches[kernel_name]} {kernel_name} launches; streams 0-{mirror - 1} vs CPU fleet "
+          f"max err {err:.3e}")
     print(f"    fleet: {rate(steps[warm:n_steps], dt_warm):.1f} Msamples/s over resample() calls "
           f"{warm + 1}-{n_steps} ({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step); all {n_steps} "
           f"calls incl. allocator warm-up {rate(steps[:n_steps], dt):.1f} Msamples/s; first "
           f"resample_many(T={T}) {rate(steps[n_steps:], dt_many):.1f} Msamples/s "
           f"[output frames x streams per second; card: {smi}]")
-    if device.type == "cuda":
-        print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    if in_hz > 4 * out_hz:
+        print(f"    input side: {rate(steps[warm:n_steps], dt_warm, side=0):.1f} Minput-frames/s "
+              f"x streams over calls {warm + 1}-{n_steps} (output samples are scarce at this ratio)")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(fleet, chunks)
+    del fleet, chunks, many, outs, small
+    torch.cuda.empty_cache()
+    return launches[kernel_name]
 
 
 # --------------------------------------------------------------------------
@@ -306,10 +469,12 @@ def phase_main_path(device, smi, B=1024, C=2, max_chunk=4096, horizon=16,
 # --------------------------------------------------------------------------
 
 
-def phase_differential(device, B=3, C=2, max_chunk=512, horizon=3, n_steps=36):
-    kw = dict(synchronized=True, max_chunk=max_chunk, horizon=horizon)
-    dev = BatchedResamplerFir(B, C, 44100, 48000, Latency.Sample64, Attenuation.Db90, device=device, **kw)
-    cpu = BatchedResamplerFir(B, C, 44100, 48000, Latency.Sample64, Attenuation.Db90, device="cpu", **kw)
+def phase_differential(device, in_hz, out_hz, path="auto", B=3, C=2, max_chunk=512,
+                       horizon=3, n_steps=36):
+    kw = dict(synchronized=True, max_chunk=max_chunk, horizon=horizon, path=path)
+    args = (B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90)
+    dev = BatchedResamplerFir(*args, device=device, **kw)
+    cpu = BatchedResamplerFir(*args, device="cpu", **kw)
     rng = np.random.default_rng(11)
     err = 0.0
     fills = []
@@ -324,30 +489,29 @@ def phase_differential(device, B=3, C=2, max_chunk=512, horizon=3, n_steps=36):
         if i == 10:
             check(dev.slew(0.3) == cpu.slew(0.3), "slew")
         sd, sc = dev.state, cpu.state
-        check(all(sd[k] == sc[k] for k in ("start", "fill", "pos_num")), f"state ints at step {i}")
+        check(all(sd[k] == sc[k] for k in sc if k != "buffer"), f"state ints at step {i}")
         check(torch.equal(sd["buffer"].cpu(), sc["buffer"]), f"ring bit-equal at step {i}")
         fills.append(sd["fill"])
-    check(err <= DEVICE_ATOL, f"card vs CPU: {err:.3e} > {DEVICE_ATOL}")
+    check(err <= DEVICE_ATOL, f"card vs CPU {in_hz}->{out_hz}: {err:.3e} > {DEVICE_ATOL}")
     compactions = sum(b < a for a, b in zip(fills, fills[1:]))
     check(compactions >= 2, "differential crosses >= 2 compactions")
-    print(f"[5] card vs CPU: {B}-stream stereo fleet, {n_steps} steps, {compactions} compactions: "
-          f"ints equal, ring bit-equal, max |card - CPU| = {err:.3e}")
+    print(f"[5] card vs CPU, {in_hz} -> {out_hz} Hz ({path}): {B}-stream stereo fleet, {n_steps} "
+          f"steps, {compactions} compactions: ints equal, ring bit-equal, max |card - CPU| = {err:.3e}")
     return err
 
 
 # --------------------------------------------------------------------------
-# phases 6-7: quality through the kernel, per-stream entry point
+# phases 6-7: quality through the kernels, per-stream entry point
 # --------------------------------------------------------------------------
 
 
-def phase_alias(device, B=2, C=2, max_chunk=4096):
+def alias_db(device, in_hz, out_hz, B=2, C=2, max_chunk=4096):
     fleet = BatchedResamplerFir(
-        B, C, 48000, 44100, Latency.Sample64, Attenuation.Db90,
+        B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90,
         synchronized=True, max_chunk=max_chunk, device=device,
     )
-    t = np.arange(48000) / 48000
+    t = np.arange(in_hz) / in_hz
     tone = (0.5 * np.sin(2 * np.pi * 23000 * t)).astype(np.float32)
-    before = kern.LAUNCHES
     pieces, offset = [], 0
     while offset < tone.size:
         n = min(max_chunk, tone.size - offset)
@@ -358,53 +522,86 @@ def phase_alias(device, B=2, C=2, max_chunk=4096):
         pieces.append(out[0, : int(p[0]), 0].cpu().numpy())
         offset += int(c[0])
     seg = np.concatenate(pieces)[2000:-2000]
-    alias_db = float(-20 * np.log10(np.abs(seg).max() / 0.5 + 1e-12))
-    check(alias_db >= 100.0, f"alias rejection {alias_db:.1f} dB >= 100")
-    print(f"[6] alias rejection through the kernel (48 -> 44.1 kHz, 23 kHz tone): "
-          f"{alias_db:.1f} dB over {seg.size} frames, {kern.LAUNCHES - before} launches")
-    return alias_db
+    return float(-20 * np.log10(np.abs(seg).max() / 0.5 + 1e-12)), seg.size
 
 
-def phase_per_stream(device):
-    t = np.arange(44100) / 44100
+def phase_alias(device):
+    before = kern.LAUNCHES["dma_banded_contract"]
+    db, n = alias_db(device, 48000, 44100)
+    check(db >= 100.0, f"alias rejection {db:.1f} dB >= 100")
+    print(f"[6] alias rejection through B1 (48 -> 44.1 kHz, 23 kHz tone): {db:.1f} dB over {n} "
+          f"frames, {kern.LAUNCHES['dma_banded_contract'] - before} launches")
+    before = kern.LAUNCHES["dma_farrow_contract"]
+    db, n = alias_db(device, 48000, 44101)
+    launches = kern.LAUNCHES["dma_farrow_contract"] - before
+    db_cpu, _ = alias_db("cpu", 48000, 44101)
+    check(launches > 0, "the coprime tone ran through B2")
+    check(abs(db - db_cpu) <= 0.5, f"B2 alias {db:.2f} dB vs CPU port {db_cpu:.2f} dB")
+    check(db >= 100.0 or db_cpu < 100.0, f"B2 alias rejection {db:.1f} dB >= 100")
+    print(f"    alias rejection through B2 (48000 -> 44101 Hz, 23 kHz tone): {db:.2f} dB over {n} "
+          f"frames, {launches} launches; CPU port {db_cpu:.2f} dB")
+    return db
+
+
+def phase_per_stream(device, in_hz, out_hz):
+    t = np.arange(in_hz) / in_hz
     x = np.stack(
         [0.5 * np.sin(2 * np.pi * 440 * t), 0.25 * np.sin(2 * np.pi * 1000 * t)], axis=1
     ).astype(np.float32).reshape(-1)
-    args = (2, 44100, 48000, Latency.Sample64, Attenuation.Db90)
+    args = (2, in_hz, out_hz, Latency.Sample64, Attenuation.Db90)
     y_dev = ResamplerFir(*args, device=device).process(x)
     y_cpu = ResamplerFir(*args, device="cpu").process(x)
     check(y_dev.shape == y_cpu.shape and y_dev.size > 0, "per-stream output length")
     err = float(np.abs(y_dev - y_cpu).max())
     check(err <= DEVICE_ATOL, f"per-stream card vs CPU: {err:.3e} > {DEVICE_ATOL}")
-    print(f"[7] ResamplerFir.process(1 s stereo) on the card vs CPU: {y_dev.size} values, "
-          f"max err {err:.3e}")
+    print(f"[7] ResamplerFir.process(1 s stereo, {in_hz} -> {out_hz} Hz) on the card vs CPU: "
+          f"{y_dev.size} values, max err {err:.3e}")
 
 
 def main() -> None:
     smi = phase_device()
     device = torch.device("cuda")
     phase_build()
-    cases = [
+    entries = {"dma_banded_contract": phase_banded_kernel(device, [
         ("main path 44.1->48k taps 128, 1024x2", (44100, 48000, 128, 2048, 4096, 16)),
         ("44.1->48k taps 64, 1024x2", (44100, 48000, 64, 2048, 4096, 16)),
         ("grouped 48->96k taps 64 (g 64), 128x2", (48000, 96000, 64, 256, 512, 3)),
         ("ragged 44.1->48k taps 128, R 6", (44100, 48000, 128, 6, 512, 3)),
-    ]
-    err, timing = phase_kernel(device, cases)
-    launches = phase_main_path(device, smi)
-    phase_differential(device)
+    ])}
+    entries.update(phase_farrow_kernels(device, [
+        ("44.1->44.101k taps 128, 1024x2", (44100, 44101, 128, 2048, 4096, 16)),
+        ("367500->1601 taps 128, 1024x2", (367500, 1601, 128, 2048, 4096, 16)),
+        ("ragged 44.1->44.101k taps 128, R 6", (44100, 44101, 128, 6, 512, 3)),
+        ("ragged 48000->3001 (q 4) taps 128, R 6", (48000, 3001, 128, 6, 512, 3)),
+        ("wide 600011->600013 taps 128, 1024x2", (600011, 600013, 128, 2048, 4096, 16)),
+    ]))
+    launches = {name: 0 for name in entries}
+    for label, in_hz, out_hz, kname, path in (
+        ("periodic main path", 44100, 48000, "dma_banded_contract", "auto"),
+        ("farrow", 44100, 44101, "dma_farrow_contract", "auto"),
+        ("lerp", 44100, 44101, "dma_farrow_contract", "lerp"),
+        ("wide u32", 600011, 600013, "dma_farrow_contract", "auto"),
+        ("heavy downsampling", 367500, 1601, "dma_farrow_contract_packed", "auto"),
+    ):
+        launches[kname] += phase_fleet(device, smi, label, in_hz, out_hz, kname, path=path)
+    phase_differential(device, 44100, 48000)
+    phase_differential(device, 44100, 44101)
+    phase_differential(device, 600011, 600013)
     phase_alias(device)
-    phase_per_stream(device)
-    print(json.dumps({"kernels": [{
-        "name": "dma_banded_contract",
-        "route": "cuda",
-        "source": "resampler_tpu_torch/csrc/fir_banded_contract.cu",
-        "replaces": "resampler_tpu/ops/fir_dma_kernel.py:277",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-    }]}))
+    phase_per_stream(device, 44100, 48000)
+    phase_per_stream(device, 44100, 44101)
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "launches": launches[name],
+            **{k: entries[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+        for name in SOURCES
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

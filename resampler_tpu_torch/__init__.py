@@ -1,12 +1,16 @@
 """resampler_tpu_torch: the PyTorch / CUDA port of ``resampler_tpu``.
 
 It imports ``torch`` and never ``jax``.  Ported so far: the polyphase FIR
-engine's periodic path (stereo 44.1 -> 48 kHz and every other ratio with
-a small reduced denominator), the per-stream ``ResamplerFir`` and the
-phase-locked time-major fleet ``BatchedResamplerFir(synchronized=True)``,
-whose banded contraction runs a hand-written CUDA kernel on the card
-(``ops/fir_dma_kernel.py``).  Every public constructor takes
-``device="cpu"`` (default) or ``"cuda"``.
+engine on every ratio the JAX package serves with its exact schedule --
+the periodic path (stereo 44.1 -> 48 kHz and every other ratio with a
+small reduced denominator), the Farrow and lerp paths for coprime ratios
+(heavy downsampling included) and the wide two-word u32 schedule -- in
+the per-stream ``ResamplerFir`` and the phase-locked time-major fleet
+``BatchedResamplerFir(synchronized=True)``, whose contractions run
+hand-written CUDA kernels on the card (``ops/fir_dma_kernel.py``: B1 for
+periodic ratios, B2 and B3 for coprime ones).  Every public constructor
+takes ``device="cuda"`` (the default; it raises without a GPU) or
+``"cpu"``, which must be asked for.
 """
 
 from .engine.batched import BatchedResamplerFir

@@ -1,6 +1,8 @@
 """Batched multi-stream FIR resampler: PyTorch port of
 ``resampler_tpu.engine.batched.BatchedResamplerFir``, phase-locked
-time-major fleet (``synchronized=True, sync_variant="tm"``) only.
+time-major fleet (``synchronized=True, sync_variant="tm"``) only, on
+every ratio and convolve path it serves (``path="periodic" | "farrow" |
+"lerp"``, the wide u32 schedule).
 
 Every other variant raises ``NotImplementedError`` naming the ROADMAP item
 that ports it; none falls back to another engine.
@@ -43,7 +45,7 @@ class BatchedResamplerFir:
         sync_variant: str = "tm",
         max_chunk: int = 2048,
         horizon: int = 16,
-        device="cpu",
+        device="cuda",
     ) -> None:
         if mesh is not None:
             raise NotImplementedError(
@@ -93,7 +95,7 @@ class BatchedResamplerFir:
     @property
     def state(self) -> dict:
         """Fleet state: ring ``buffer`` tensor plus host-int ``start``,
-        ``fill`` and ``pos_num``."""
+        ``fill`` and ``pos_num`` (``pos_hi`` / ``pos_lo`` when wide)."""
         return self._state
 
     @state.setter
@@ -107,7 +109,8 @@ class BatchedResamplerFir:
         """Shift the fleet's shared sampling phase by ``samples`` input
         samples (a scalar: the synchronized fleet shares one schedule).
         Resolution 1/M input samples, clamped to the buffered history and
-        the int32 schedule envelope; returns the applied slew."""
+        (int32 envelope only) the int32 schedule envelope; returns the
+        applied slew."""
         if np.ndim(samples) != 0:
             raise ValueError(
                 "synchronized fleets share one phase; per-stream slew "
@@ -115,12 +118,19 @@ class BatchedResamplerFir:
                 "or the general (vmapped) fleet"
             )
         M = self._config.ratio_den
-        pos = self._state["pos_num"]
         delta = int(np.round(np.float64(samples) * M))
-        ceiling = self._config.input_capacity * M
-        applied = min(max(delta, -pos), max(0, ceiling - pos))
+        if self._config.wide:
+            # exact Python ints: the two u32 words can exceed int64 together
+            pos = self._state["pos_hi"] * M + self._state["pos_lo"]
+            applied = max(delta, -pos)
+            moved = dict(pos_hi=(pos + applied) // M, pos_lo=(pos + applied) % M)
+        else:
+            pos = self._state["pos_num"]
+            ceiling = self._config.input_capacity * M
+            applied = min(max(delta, -pos), max(0, ceiling - pos))
+            moved = dict(pos_num=pos + applied)
         if applied:
-            self._state = dict(self._state, pos_num=pos + applied)
+            self._state = dict(self._state, **moved)
         return applied / M
 
     def _step(self, chunks, n_valid: int):

@@ -12,8 +12,12 @@ them.  The non-wide overflow analysis (``_compute_n_out``) keeps every
 scheduled value below 2^31, so the Python-int results equal the JAX
 package's int32 ones.
 
-Only the narrow periodic path is ported; the farrow/lerp/gather paths
-and the wide u32 schedule raise ``NotImplementedError`` (ROADMAP A5, A9).
+Ported paths: periodic (banded atlas), farrow (Chebyshev basis) and lerp
+(SVD table basis), on the int32 envelope and on the wide two-word u32
+schedule (farrow only, as in the JAX package).  The wide schedule is kept
+as host Python ints and reproduces the JAX package's u32 arithmetic bit
+for bit (``WideSchedule``).  The table-lerp oracle ``path="gather"``
+raises ``NotImplementedError`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -32,13 +36,20 @@ __all__ = [
     "PHASES",
     "INPUT_CAPACITY",
     "MAX_CHUNK",
+    "FARROW_DEGREE",
+    "FARROW_BLOCK",
+    "FARROW_BLOCK_MAX",
     "FirConfig",
+    "WideSchedule",
+    "farrow_block_size",
+    "farrow_matrix",
     "fir_init",
     "fir_cutoff",
     "fir_coefficients",
     "make_fir_step",
     "resolve_convolve_path",
     "resolve_device",
+    "resolve_path",
 ]
 
 #: Polyphase branch count (reference: src/resampler_fir.rs:17).
@@ -50,8 +61,8 @@ MAX_CHUNK = INPUT_CAPACITY
 #: Fallback slack after the valid region (non-periodic paths).
 MIN_READ_SLACK = 128
 #: Reduced output-rate denominator limit keeping every scheduled int32
-#: quantity below 2^31; beyond it the JAX engine switches to the WIDE
-#: u32 schedule (not ported yet, ROADMAP A5).
+#: quantity below 2^31; beyond it the engine switches to the WIDE
+#: two-word u32 schedule (``WideSchedule``).
 MAX_REDUCED_RATE = 500_000
 #: Static output-lane cap for extreme upsampling ratios.
 OUT_CAP_MAX = 1 << 20
@@ -59,6 +70,11 @@ OUT_CAP_MAX = 1 << 20
 MAX_PERIOD = 2048
 MAX_PERIOD_L = 4000
 MAX_ATLAS_BYTES = 32 << 20
+#: Farrow path: Chebyshev degree and outputs per block (the JAX package's
+#: tuned values; the block size adapts to the ratio, ``farrow_block_size``).
+FARROW_DEGREE = 7
+FARROW_BLOCK = 64
+FARROW_BLOCK_MAX = 4096
 
 
 def resolve_device(device) -> torch.device:
@@ -107,7 +123,7 @@ class FirConfig:
     @property
     def wide(self) -> bool:
         """True when the reduced ratio exceeds the int32 schedule envelope
-        (the JAX engine's u32 two-word schedule; not ported yet)."""
+        and the position is carried as two u32 words (``WideSchedule``)."""
         return self.ratio_den > MAX_REDUCED_RATE or self.ratio_num > (
             1 << 31
         ) // (self.input_capacity + 2)
@@ -165,13 +181,15 @@ class FirConfig:
         return self.taps // 2
 
 
-def fir_init(config: FirConfig, device="cpu") -> dict:
+def zero_position(config: FirConfig) -> dict:
+    """The schedule position at stream start: ``pos_num`` on the int32
+    envelope, ``pos_hi`` / ``pos_lo`` (u32 words, Python ints) when wide."""
+    return dict(pos_hi=0, pos_lo=0) if config.wide else dict(pos_num=0)
+
+
+def fir_init(config: FirConfig, device="cuda") -> dict:
     """Zero per-stream state: ``buffer [C, buffer_alloc]`` f32 on
-    ``device``, ``available_frames`` and ``pos_num`` Python ints."""
-    if config.wide:
-        raise NotImplementedError(
-            "the wide u32 schedule is not ported yet (ROADMAP A5)"
-        )
+    ``device``, ``available_frames`` and the position as Python ints."""
     return dict(
         buffer=torch.zeros(
             (config.channels, config.buffer_alloc),
@@ -179,7 +197,7 @@ def fir_init(config: FirConfig, device="cpu") -> dict:
             device=resolve_device(device),
         ),
         available_frames=0,
-        pos_num=0,
+        **zero_position(config),
     )
 
 
@@ -226,12 +244,187 @@ def _compute_n_out(config: FirConfig, pos_num: int, avail: int, out_budget: int)
     return min(max(n_from_input, 0), out_budget)
 
 
+_U32 = (1 << 32) - 1
+
+
+class WideSchedule:
+    """The wide schedule's static split tables and per-step arithmetic
+    (``resampler_tpu.engine.fir._make_wide_step``, shared by the fleet).
+
+    The position is ``pos_hi + pos_lo / M`` input frames, two u32 words
+    held as Python ints.  Every sum wraps mod 2^32 and every carry is
+    detected as the JAX package detects it (a wrapped sum compares
+    smaller), and the frame word saturates where JAX's does, so counts
+    and states equal the JAX package's for every u32 pair -- including
+    its documented under-skip for ``L//M > 2^32 - 8195`` (PARITY.md)."""
+
+    def __init__(self, config: FirConfig):
+        L, M, N = config.ratio_num, config.ratio_den, config.out_capacity
+        self.M, self.taps = M, config.taps
+        i = np.arange(N, dtype=np.int64)
+        self.j_lane = np.minimum((i * L) // M, config.input_capacity + 2).astype(np.uint32)
+        self.s_lane = ((i * L) % M).astype(np.uint32)
+        n = np.arange(N + 1, dtype=np.int64)
+        self.nl_hi = np.minimum((n * L) // M, _U32).astype(np.uint32)
+        self.nl_lo = ((n * L) % M).astype(np.uint32)
+
+    def emitted(self, pos_hi: int, pos_lo: int, avail: int) -> int:
+        """Lanes whose taps window ends inside the ``avail`` buffered
+        frames (the emission mask, counted on the host)."""
+        t = np.uint32(pos_lo) + self.s_lane
+        wrap = ((t < pos_lo) | (t >= self.M)).astype(np.uint32)
+        o1 = np.uint32(pos_hi) + self.j_lane
+        o2 = o1 + wrap + np.uint32(self.taps)
+        return int(((o1 >= pos_hi) & (o2 >= o1) & (o2 <= avail)).sum())
+
+    def advance(self, pos_hi: int, pos_lo: int, n_out: int, avail: int):
+        """``(consumed, pos_hi', pos_lo')`` after emitting ``n_out``
+        outputs: the stride ``n_out * L`` from the static tables, the
+        subframe carry, the saturating frame add, eager consumption."""
+        M = self.M
+        t2 = (pos_lo + int(self.nl_lo[n_out])) & _U32
+        carry = t2 < pos_lo or t2 >= M
+        lo_after = (t2 - M) & _U32 if carry else t2
+        hi_raw = (pos_hi + int(self.nl_hi[n_out]) + carry) & _U32
+        hi_after = _U32 if hi_raw < pos_hi else hi_raw
+        consumed = min(hi_after, avail)
+        return consumed, hi_after - consumed, lo_after
+
+
+def lane_residues(s: np.ndarray, M: int, pos):
+    """Per-lane ``(wrap, rem)`` of the shared position against the static
+    splits ``s = (i*L) % M``: ``rem = (pos mod M + s) mod M`` and the
+    carry ``wrap``.  ``pos`` is ``pos_num`` (int32 envelope, exact ints)
+    or ``(pos_hi, pos_lo)`` (wide: u32 sums that wrap, as in JAX)."""
+    if isinstance(pos, tuple):
+        pos_lo = pos[1]
+        t = np.uint32(pos_lo) + s.astype(np.uint32)
+        wrap = (t < pos_lo) | (t >= M)
+        rem = np.where(wrap, t - np.uint32(M), t)
+        return wrap.astype(np.int64), rem
+    r = pos % M
+    wrap = (r + s >= M).astype(np.int64)
+    return wrap, r + s - M * wrap
+
+
+def combine_basis(rem: np.ndarray, M: int, U=None, phases: int = PHASES) -> np.ndarray:
+    """Per-output combine coefficients ``[..., d1]`` f32 for residues
+    ``rem``: the Chebyshev values ``T_d(2*rem/M - 1)`` (``U is None``,
+    the farrow basis), or the table-lerp of rows of the SVD factor ``U``
+    with the reference's ``p2 = min(p1 + 1, phases - 1)`` clamp (lerp).
+    The same f32 arithmetic as the JAX package, on the host."""
+    if U is None:
+        frac = rem.astype(np.float32) / np.float32(M)
+        u = np.float32(2.0) * frac - np.float32(1.0)
+        ts = [np.ones_like(u), u]
+        for _ in range(FARROW_DEGREE - 1):
+            ts.append(np.float32(2.0) * u * ts[-1] - ts[-2])
+        return np.stack(ts, axis=-1)
+    pf = rem.astype(np.int64) * phases
+    p1 = pf // M
+    p2 = np.minimum(p1 + 1, phases - 1)
+    fp = (pf - p1 * M).astype(np.float32) / np.float32(M)
+    u1, u2 = U[p1], U[p2]
+    return u1 + fp[..., None] * (u2 - u1)
+
+
+def farrow_block_size(L: int, M: int, block: int = FARROW_BLOCK) -> int:
+    """Outputs per Farrow block, adapted to the ratio so a block's input
+    span stays ~``block`` frames (copied from the JAX package)."""
+    return max(1, min(FARROW_BLOCK_MAX, (block * M) // max(L, 1)))
+
+
+def farrow_matrix(coeffs, degree: int = FARROW_DEGREE):
+    """``[degree+1, taps]`` Chebyshev-basis coefficients fit to the phase
+    table, ``c_t(phi) ~= sum_k A[k, t] T_k(2 phi - 1)``; returns ``(A f32,
+    max grid residual)`` (copied from the JAX package)."""
+    table = np.asarray(coeffs, np.float64)
+    P = table.shape[0]
+    u = 2 * (np.arange(P) / P) - 1
+    V = np.polynomial.chebyshev.chebvander(u, degree)
+    A, *_ = np.linalg.lstsq(V, table, rcond=None)
+    resid = float(np.abs(V @ A - table).max())
+    return A.astype(np.float32), resid
+
+
+def _table_svd_basis(coeffs, tol: float = 1e-7):
+    """Rank-r factorization ``T ~= U @ A`` of the phase table with
+    ``max|T - U@A| < tol`` (f64 SVD, singular values folded into U;
+    copied from the JAX package)."""
+    T = np.asarray(coeffs, np.float64)
+    Uf, s, Vt = np.linalg.svd(T, full_matrices=False)
+    r = len(s)
+    for cand in range(1, len(s) + 1):
+        err = np.abs((Uf[:, :cand] * s[:cand]) @ Vt[:cand] - T).max()
+        if err < tol:
+            r = cand
+            break
+    return (Uf[:, :r] * s[:r]).astype(np.float32), Vt[:r].astype(np.float32)
+
+
+def _convolve_basis(config: FirConfig, coeffs, path: str, device: torch.device):
+    """Coprime-ratio path (``resampler_tpu.engine.fir._convolve_farrow``
+    and ``_convolve_lerp``): per call
+
+        Y[c, d, p] = sum_t A[d, t] * region[c, p + t]       (basis responses)
+        out[i, c]  = sum_d v[i, d] * Y[c, d, j_i + wrap_i]
+
+    with ``A`` the Chebyshev fit (farrow) or the SVD table basis (lerp)
+    and ``v`` the per-output combine coefficients (``combine_basis``).
+    The basis responses are an ``unfold`` window view and an einsum
+    (a ``conv1d`` would run TF32 on the card).  The JAX package selects
+    ``Y[.., j_i + wrap_i]`` through blocked one-hot contractions because
+    the TPU cannot gather; here it is one index, and the sum over ``d``
+    is the same."""
+    L, M, taps, N = config.ratio_num, config.ratio_den, config.taps, config.out_capacity
+    wide = config.wide
+    i = np.arange(N, dtype=np.int64)
+    j = (i * L) // M
+    s = (i * L) % M
+    if wide:
+        # lanes whose row offset exceeds the buffer can never be emitted;
+        # the clamp bounds the region (as in the JAX package)
+        j = np.minimum(j, config.input_capacity + 2)
+    region_len = int(j[-1]) + 2 + taps
+    if path == "lerp":
+        U, A = _table_svd_basis(coeffs)
+    else:
+        U, (A, _) = None, farrow_matrix(coeffs)
+    A = torch.from_numpy(A).to(device)  # [d1, taps]
+
+    def convolve(buffer, read_pos: int, pos):
+        avail = config.input_capacity - read_pos
+        base = min(pos[0] if wide else pos // M, avail)
+        wrap, rem = lane_residues(s, M, pos)
+        v = upload(combine_basis(rem, M, U), device)  # [N, d1]
+        idx = upload(j + wrap, device)
+        start = read_pos + base
+        check_window(start, region_len, buffer.shape[1], f"{path} region")
+        region = buffer[:, start : start + region_len]
+        y = torch.einsum("dt,cpt->cdp", A, region.unfold(1, taps, 1))
+        return torch.einsum("nd,cdn->nc", v, y[:, :, idx])
+
+    return convolve
+
+
 def _use_im2col(L: int, taps: int) -> bool:
     """im2col pads the contraction to n_blk*L columns; worth it unless the
     padding exceeds ~50% extra FLOPs over the exact span (L >> taps)."""
     span = L + taps + 1
     n_blk = 1 + -(-(span - L) // L)
     return n_blk * L <= 1.5 * span and n_blk <= 256
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A per-step host table on ``device`` without waiting for the
+    device: a copy from pageable memory would synchronize the stream, so
+    the table is staged in pinned memory (PyTorch's caching host
+    allocator keeps the block until the transfer is done) and sent
+    asynchronously."""
+    t = torch.from_numpy(array)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def check_window(start: int, size: int, limit: int, what: str) -> None:
@@ -311,38 +504,37 @@ def resolve_convolve_path(config: FirConfig, path: str = "auto") -> str:
     return "farrow"
 
 
-def require_periodic(config: FirConfig, path: str) -> None:
-    """Raise unless ``path`` resolves to the ported periodic path."""
+def resolve_path(config: FirConfig, path: str = "auto") -> str:
+    """``resolve_convolve_path`` plus the JAX ``make_fir_step`` rules:
+    the wide schedule takes only the farrow path; ``"gather"`` (the
+    table-lerp oracle) is not ported."""
     path = resolve_convolve_path(config, path)
-    if path in ("farrow", "lerp"):
-        raise NotImplementedError(
-            f"the {path!r} convolve path (coprime ratios) is not ported yet "
-            "(ROADMAP A5)"
-        )
     if path == "gather":
         raise NotImplementedError(
             "the 'gather' convolve path is not ported yet (ROADMAP A9)"
         )
-    if path != "periodic":
+    if path not in ("periodic", "farrow", "lerp"):
         raise ValueError(f"unknown convolve path {path!r}")
-    if config.wide:
-        raise NotImplementedError(
-            "the wide u32 schedule is not ported yet (ROADMAP A5)"
+    if config.wide and path != "farrow":
+        raise ValueError(
+            f"ratios beyond the int32 schedule envelope use the farrow "
+            f"path (wide uint32 scheduling), not {path!r}"
         )
+    return path
 
 
 def make_fir_step(
-    config: FirConfig, coeffs: np.ndarray, *, path: str = "auto", device="cpu"
+    config: FirConfig, coeffs: np.ndarray, *, path: str = "auto", device="cuda"
 ):
-    """Build the chunk-step function for ``config`` (periodic path only).
+    """Build the chunk-step function for ``config``.
 
     ``step(state, chunk [n, C] f32 tensor, n_valid, out_budget) ->
     (state', out [out_capacity, C] f32, consumed, produced)``, frames
     counted per channel, ``consumed``/``produced`` Python ints.  Same
     semantics as ``resampler_tpu.engine.fir.make_fir_step``: end-aligned
-    copy-in, exact integer schedule, banded-atlas convolve, masked tail,
-    consume."""
-    require_periodic(config, path)
+    copy-in, exact integer schedule (two u32 words when wide), convolve
+    (periodic, farrow or lerp), masked tail, consume."""
+    path = resolve_path(config, path)
     device = resolve_device(device)
     coeffs = np.asarray(coeffs, np.float32)
     assert coeffs.shape == (config.phases, config.taps)
@@ -350,7 +542,11 @@ def make_fir_step(
     L, M = config.ratio_num, config.ratio_den
     valid_end = config.input_capacity
     out_cap = config.out_capacity
-    convolve = _convolve_periodic(config, coeffs, device)
+    if path == "periodic":
+        convolve = _convolve_periodic(config, coeffs, device)
+    else:
+        convolve = _convolve_basis(config, coeffs, path, device)
+    wide = WideSchedule(config) if config.wide else None
 
     def step(state: dict, chunk, n_valid: int, out_budget: int):
         chunk = torch.as_tensor(chunk, dtype=torch.float32, device=device)
@@ -365,7 +561,6 @@ def make_fir_step(
 
         buffer = state["buffer"]
         avail = state["available_frames"]
-        pos_num = state["pos_num"]
 
         # ---- copy-in: the valid region always ends at column valid_end;
         # frames past to_copy are never written (the NaN fence) ----
@@ -380,25 +575,32 @@ def make_fir_step(
         )
         avail += to_copy
 
-        # ---- schedule (reference hot loop: src/resampler_fir.rs:542-565) ----
-        n_out = _compute_n_out(config, pos_num, avail, int(out_budget))
+        # ---- schedule (reference hot loop: src/resampler_fir.rs:542-565);
+        # the wide one counts its emission mask ----
+        if wide:
+            pos = (state["pos_hi"], state["pos_lo"])
+            n_out = min(wide.emitted(*pos, avail), int(out_budget))
+        else:
+            pos = state["pos_num"]
+            n_out = _compute_n_out(config, pos, avail, int(out_budget))
 
         # ---- convolution; a step that emits nothing skips it (its lanes
         # are all masked, and the JAX read there may be a clamped one) ----
         if n_out:
-            out = convolve(buffer, valid_end - avail, pos_num)
+            out = convolve(buffer, valid_end - avail, pos)
             out[n_out:] = 0.0
         else:
             out = buffer.new_zeros((out_cap, C))
 
         # ---- consume (reference: src/resampler_fir.rs:592-615) ----
-        pos_after = pos_num + n_out * L
-        consumed = min(pos_after // M, avail)
-        new_state = dict(
-            buffer=buffer,
-            available_frames=avail - consumed,
-            pos_num=pos_after - consumed * M,
-        )
+        if wide:
+            consumed, hi, lo = wide.advance(*pos, n_out, avail)
+            pos_state = dict(pos_hi=hi, pos_lo=lo)
+        else:
+            pos_after = pos + n_out * L
+            consumed = min(pos_after // M, avail)
+            pos_state = dict(pos_num=pos_after - consumed * M)
+        new_state = dict(buffer=buffer, available_frames=avail - consumed, **pos_state)
         return new_state, out, to_copy, n_out
 
     return step

@@ -1,17 +1,22 @@
-"""Synchronized time-major FIR fleet: PyTorch port of the periodic branch
-of ``resampler_tpu.engine.fir_fleets.make_fir_fleet_step_sync_tm``.
+"""Synchronized time-major FIR fleet: PyTorch port of
+``resampler_tpu.engine.fir_fleets.make_fir_fleet_step_sync_tm``
+(periodic, farrow and lerp paths; the wide u32 schedule).
 
 ``n_streams`` phase-locked streams share one exact schedule.  Their
 frames live in a TIME-MAJOR ring ``[ring, B*C]`` (frames on the major
 axis, stream-channel lanes ``b*C + c`` on the minor one), so a step is:
-one contiguous append at row ``fill``, one fleet-wide banded contraction
-(kernel B1, ``ops/fir_dma_kernel.py``), and a consume that only advances
-``start``.  Every ~``horizon`` steps the live window is compacted to the
-front of the ring.
+one contiguous append at row ``fill``, one fleet-wide contraction, and a
+consume that only advances ``start``.  Every ~``horizon`` steps the live
+window is compacted to the front of the ring.  The contraction is kernel
+B1 on periodic ratios, and on coprime ones the Farrow positioning matmul
+followed by kernel B2 (blocks of q >= 8 outputs) or B3 (q < 8)
+(``ops/fir_dma_kernel.py``).
 
-The schedule scalars (``start``, ``fill``, ``pos_num``, and per step
-``to_copy``, ``n_out``, ``consumed``) are Python ints computed with the
-JAX package's integer formulas, so a step needs no device-to-host sync.
+The schedule scalars (``start``, ``fill``, ``pos_num`` or the wide
+``pos_hi``/``pos_lo``, and per step ``to_copy``, ``n_out``, ``consumed``)
+are Python ints computed with the JAX package's integer formulas, and the
+per-lane residues, Chebyshev or lerp coefficients and wide emission mask
+come from static host tables, so a step needs no device-to-host sync.
 The ring is updated IN PLACE (the JAX wrappers donate their state for the
 same reason): a 1024-stream stereo fleet's ring is ~600 MB.
 """
@@ -23,14 +28,28 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.fir_dma_kernel import dma_banded_contract
+from ..ops.fir_dma_kernel import (
+    dma_banded_contract,
+    dma_farrow_contract,
+    dma_farrow_contract_packed,
+)
 from .fir import (
+    FARROW_DEGREE,
     FirConfig,
+    WideSchedule,
     _compute_n_out,
     _periodic_group_factor,
+    _table_svd_basis,
     check_window,
-    require_periodic,
+    combine_basis,
+    farrow_block_size,
+    farrow_matrix,
+    lane_residues,
+    resolve_convolve_path,
     resolve_device,
+    resolve_path,
+    upload,
+    zero_position,
 )
 
 __all__ = ["make_fir_fleet_step_sync_tm", "fir_fleet_init_sync_tm"]
@@ -57,6 +76,68 @@ def _sync_atlas(config: FirConfig, coeffs) -> np.ndarray:
     return a2
 
 
+def _farrow_tm_plan(config: FirConfig, coeffs, basis: str = "cheb") -> dict:
+    """Static precompute of the fleet's Farrow contraction (the JAX
+    package's ``_farrow_tm_plan`` with ``widen=0``, its XLA-form plan: the
+    port's kernels read any row, so no room is reserved for the TPU's
+    8-row DMA remainder).  Output ``i = k*q + l`` sits at local offset
+    ``j_loc + wrap`` of block ``k``, whose ``w_blk`` rows start at
+    ``block_base[k]``; ``ashift2[(d, j), s] = A[d, s - j]`` positions the
+    basis rows ``A`` (Chebyshev fit, or the SVD table basis for
+    ``basis="lerp"``, whose ``U`` factor the plan also returns)."""
+    L, M, taps = config.ratio_num, config.ratio_den, config.taps
+    N = config.out_capacity
+    if basis == "lerp":
+        U, A = _table_svd_basis(coeffs)  # [P, r], [r, taps]
+    else:
+        U, (A, _) = None, farrow_matrix(coeffs, FARROW_DEGREE)
+    d1 = A.shape[0]
+    q = farrow_block_size(L, M)
+    K = -(-N // q)
+    n_pad = K * q
+    i = np.arange(N, dtype=np.int64)
+    j_np = (i * L) // M
+    s_np = (i * L) % M
+    if config.wide:
+        # lanes whose row offset exceeds the buffer can never be emitted
+        j_np = np.minimum(j_np, config.input_capacity + 2)
+    j_pad = np.concatenate([j_np, np.full(n_pad - N, j_np[-1], np.int64)])
+    s_pad = np.concatenate([s_np, np.zeros(n_pad - N, np.int64)])
+    block_base = j_pad.reshape(K, q)[:, 0]
+    j_loc = (j_pad.reshape(K, q) - block_base[:, None]).astype(np.int32)
+    n_jl = int(j_loc.max()) + 2  # +1 wrap carry
+    w_blk = n_jl - 1 + taps
+    ashift2 = np.zeros((d1 * n_jl, w_blk), np.float32)
+    for d in range(d1):
+        for j in range(n_jl):
+            ashift2[d * n_jl + j, j : j + taps] = A[d]
+    return dict(
+        q=q, K=K, n_pad=n_pad, d1=d1, n_jl=n_jl, w_blk=w_blk,
+        block_base=block_base.astype(np.int64),
+        j_loc=j_loc, s_pad=s_pad.reshape(K, q),
+        ashift2=ashift2, region_rows=int(block_base.max()) + w_blk, U=U,
+    )
+
+
+def farrow_weights(fp: dict, M: int, pos, ashift2: torch.Tensor) -> torch.Tensor:
+    """Every output's banded weight row for the shared position ``pos``,
+    ``a_blk [K, q, w_blk]`` on ``ashift2``'s device.  The host turns
+    ``pos`` into per-output residues, combine coefficients (Chebyshev
+    values, or lerped rows of the SVD factor) and local offsets
+    ``j_loc + wrap``, uploaded without a stream sync (``upload``); on
+    the device the offsets' one-hot times the
+    coefficients goes through ONE positioning matmul with ``ashift2``
+    (f32, TF32 off), shared by every stream of the fleet."""
+    K, q, d1, n_jl = fp["K"], fp["q"], fp["d1"], fp["n_jl"]
+    device = ashift2.device
+    wrap, rem = lane_residues(fp["s_pad"], M, pos)  # [K, q]
+    coef = upload(combine_basis(rem, M, fp["U"]), device)  # [K, q, d1]
+    jl = upload(fp["j_loc"] + wrap, device)  # [K, q] in [0, n_jl)
+    onehot = (jl[..., None] == torch.arange(n_jl, device=device)).to(torch.float32)
+    p_mat = (coef[..., :, None] * onehot[..., None, :]).reshape(K * q, d1 * n_jl)
+    return (p_mat @ ashift2).reshape(K, q, fp["w_blk"])
+
+
 def _ring_rows(config: FirConfig, max_chunk: int, horizon: int) -> int:
     return -(
         -(config.input_capacity + config.read_slack + horizon * max_chunk) // 256
@@ -73,27 +154,38 @@ def make_fir_fleet_step_sync_tm(
     precision: str = "highest",
     path: str = "auto",
     out_layout: str = "bm",
-    device="cpu",
+    device="cuda",
 ):
-    """Time-major synchronized-fleet step (periodic ratios).
+    """Time-major synchronized-fleet step.
 
     ``step(state, chunks_tm [n <= max_chunk, B*C] f32, n_valid) ->
     (state', out, consumed, produced)``; ``out`` is ``[B, out_cap, C]``
     for ``out_layout="bm"`` or the raw time-major ``[out_cap, B*C]`` for
     ``"tm"``.  Per-stream semantics equal ``make_fir_step``.
 
-    On a CUDA device the contraction always launches kernel B1; on the
-    CPU it runs B1's plain PyTorch version.  Small-M families (reduced
-    M < 128) contract against a grouped ``(gL, gM)`` atlas whose rows are
-    bit-identical to the reduced one (``_periodic_group_factor``), while
-    the atlas window is still indexed with the reduced ``L, M``."""
+    On a CUDA device the contraction always launches a kernel (B1, B2 or
+    B3); on the CPU it runs that kernel's plain PyTorch version.
+
+    - ``path="periodic"``: small-M families (reduced M < 128) contract
+      against a grouped ``(gL, gM)`` atlas whose rows are bit-identical
+      to the reduced one (``_periodic_group_factor``), while the atlas
+      window is still indexed with the reduced ``L, M``.
+    - ``path="farrow"`` / ``"lerp"`` (every ratio the periodic path does
+      not take, and selectable on any): ``farrow_weights`` builds every
+      output's banded weights ``a_blk [K, q, w]`` once for the whole
+      fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring."""
     if precision == "bf16x4":
         raise NotImplementedError(
             "precision='bf16x4' needs the split_hi_lo port (ROADMAP B7)"
         )
     if precision != "highest":
         raise ValueError(f"precision must be 'highest', not {precision!r}")
-    require_periodic(config, path)
+    if resolve_convolve_path(config, path) == "gather":
+        raise ValueError(
+            "synchronized tm fleet step supports the periodic, farrow and "
+            "lerp convolve paths, not 'gather'"
+        )
+    path = resolve_path(config, path)
     if out_layout not in ("bm", "tm"):
         raise ValueError(
             f"out_layout must be 'bm' ([B, out_cap, C]) or 'tm' "
@@ -108,30 +200,49 @@ def make_fir_fleet_step_sync_tm(
     out_cap = config.out_capacity
     slack = config.read_slack
     ring = _ring_rows(config, max_chunk, horizon)
+    wide = WideSchedule(config) if config.wide else None
 
-    g = _periodic_group_factor(L, M)
-    Lg, Mg = L * g, M * g
-    span = Lg + taps + 1
-    K = -(-out_cap // Mg)
-    n_blk = 1 + -(-(span - Lg) // Lg)
-    # the contraction reads (K-1)*Lg + span <= (K+n_blk)*Lg rows from
-    # base <= fill - taps; this bound keeps them inside the ring
-    assert (K + n_blk) * Lg <= slack, ((K + n_blk) * Lg, slack)
-    atlas_cfg = (
-        dataclasses.replace(config, ratio_num=Lg, ratio_den=Mg) if g > 1 else config
-    )
-    a2 = torch.from_numpy(_sync_atlas(atlas_cfg, coeffs)).to(device)
-    l_inv = pow(L, -1, M) if M > 1 else 0
+    if path == "periodic":
+        g = _periodic_group_factor(L, M)
+        Lg, Mg = L * g, M * g
+        span = Lg + taps + 1
+        K = -(-out_cap // Mg)
+        n_blk = 1 + -(-(span - Lg) // Lg)
+        # the contraction reads (K-1)*Lg + span <= (K+n_blk)*Lg rows from
+        # base <= fill - taps; this bound keeps them inside the ring
+        region_rows = (K + n_blk) * Lg
+        atlas_cfg = (
+            dataclasses.replace(config, ratio_num=Lg, ratio_den=Mg) if g > 1 else config
+        )
+        a2 = torch.from_numpy(_sync_atlas(atlas_cfg, coeffs)).to(device)
+        l_inv = pow(L, -1, M) if M > 1 else 0
 
-    def contract(buffer, start: int, pos_num: int):
-        d_min, r = divmod(pos_num, M)
-        i0 = (r * l_inv) % M
-        c0 = (i0 * L) // M
-        a = a2[i0 : i0 + Mg, c0 : c0 + span].contiguous()
-        out = dma_banded_contract(
-            buffer, start + d_min, a, L=Lg, M=Mg, span=span, K=K
-        )  # [K, Mg, R]
-        return out.reshape(K * Mg, R)[:out_cap]
+        def contract(buffer, start: int, pos_num: int, avail: int):
+            d_min, r = divmod(pos_num, M)
+            i0 = (r * l_inv) % M
+            c0 = (i0 * L) // M
+            a = a2[i0 : i0 + Mg, c0 : c0 + span].contiguous()
+            out = dma_banded_contract(
+                buffer, start + d_min, a, L=Lg, M=Mg, span=span, K=K
+            )  # [K, Mg, R]
+            return out.reshape(K * Mg, R)[:out_cap]
+
+    else:
+        fp = _farrow_tm_plan(config, coeffs, basis="lerp" if path == "lerp" else "cheb")
+        region_rows = fp["region_rows"]
+        ashift2 = torch.from_numpy(fp["ashift2"]).to(device)  # [d1*n_jl, w_blk]
+        kernel = dma_farrow_contract if fp["q"] >= 8 else dma_farrow_contract_packed
+
+        def contract(buffer, start: int, pos, avail: int):
+            # the wide base is clamped to the buffered frames, the narrow
+            # one is not (as in the JAX package); both are < avail on an
+            # emitting step, the only steps that contract
+            base = min(pos[0], avail) if wide else pos // M
+            a_blk = farrow_weights(fp, M, pos, ashift2)
+            out = kernel(buffer, start + base, a_blk, fp["block_base"])  # [K, q, R]
+            return out.reshape(fp["n_pad"], R)[:out_cap]
+
+    assert region_rows <= slack, (region_rows, slack)
 
     def step(state: dict, chunks_tm, n_valid: int):
         chunks_tm = torch.as_tensor(chunks_tm, dtype=torch.float32, device=device)
@@ -146,12 +257,13 @@ def make_fir_fleet_step_sync_tm(
         n_valid = min(int(n_valid), n_in)
 
         buffer = state["buffer"]
-        start, fill, pos = state["start"], state["fill"], state["pos_num"]
+        start, fill = state["start"], state["fill"]
+        pos = (state["pos_hi"], state["pos_lo"]) if wide else state["pos_num"]
         avail = fill - start
 
         # ---- append: only the to_copy valid rows are written.  That is
         # the NaN fence: the contraction reads rows past fill against the
-        # atlas's structural zeros, and 0 * NaN = NaN.  Rows at or past
+        # weights' structural zeros, and 0 * NaN = NaN.  Rows at or past
         # fill are always zero (init, this append, the compaction's zero
         # tail), as in the JAX ring, whose fixed-shape update writes the
         # masked rows as zeros ----
@@ -161,13 +273,17 @@ def make_fir_fleet_step_sync_tm(
         fill += to_copy
         avail += to_copy
 
-        # ---- shared schedule ----
-        n_out = _compute_n_out(config, pos, avail, out_cap)
+        # ---- shared schedule; the wide one counts its emission mask ----
+        if wide:
+            n_out = min(wide.emitted(*pos, avail), out_cap)
+        else:
+            n_out = _compute_n_out(config, pos, avail, out_cap)
 
         # ---- fleet-wide contraction; a step that emits nothing skips it
-        # (all its lanes are masked) ----
+        # (all its lanes are masked, and heavy downsampling carries pos
+        # past the buffered frames there) ----
         if n_out:
-            out = contract(buffer, start, pos)
+            out = contract(buffer, start, pos, avail)
             out[n_out:] = 0.0
         else:
             out = buffer.new_zeros((out_cap, R))
@@ -175,10 +291,14 @@ def make_fir_fleet_step_sync_tm(
             out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
 
         # ---- consume: advance start, no data movement ----
-        pos_after = pos + n_out * L
-        consumed = min(pos_after // M, avail)
+        if wide:
+            consumed, hi, lo = wide.advance(*pos, n_out, avail)
+            pos_state = dict(pos_hi=hi, pos_lo=lo)
+        else:
+            pos_after = pos + n_out * L
+            consumed = min(pos_after // M, avail)
+            pos_state = dict(pos_num=pos_after - consumed * M)
         start += consumed
-        pos = pos_after - consumed * M
 
         # ---- amortized compaction: the live window moves to the front;
         # the source overlaps the destination, so it is cloned first ----
@@ -189,7 +309,7 @@ def make_fir_fleet_step_sync_tm(
             start -= ws
             fill -= ws
 
-        new_state = dict(buffer=buffer, start=start, fill=fill, pos_num=pos)
+        new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)
         return new_state, out, to_copy, n_out
 
     return step
@@ -201,14 +321,11 @@ def fir_fleet_init_sync_tm(
     *,
     max_chunk: int,
     horizon: int = 16,
-    device="cpu",
+    device="cuda",
 ) -> dict:
     """Zero fleet state: ring ``buffer [ring, B*C]`` f32 on ``device``;
-    ``start``, ``fill``, ``pos_num`` Python ints."""
-    if config.wide:
-        raise NotImplementedError(
-            "the wide u32 schedule is not ported yet (ROADMAP A5)"
-        )
+    ``start``, ``fill`` and the position (``pos_num``, or ``pos_hi`` /
+    ``pos_lo`` when wide) as Python ints."""
     return dict(
         buffer=torch.zeros(
             (_ring_rows(config, max_chunk, horizon), n_streams * config.channels),
@@ -217,5 +334,5 @@ def fir_fleet_init_sync_tm(
         ),
         start=0,
         fill=0,
-        pos_num=0,
+        **zero_position(config),
     )

@@ -3,8 +3,9 @@
 
 Same public surface (interleaved f32 numpy buffers, ``(consumed,
 produced)`` counted in f32 values, ``buffer_size_output`` / ``delay`` /
-``reset`` / ``slew`` / ``process``), plus ``device=``.  The stream's
-buffer lives on that device; its schedule scalars are host ints.
+``reset`` / ``slew`` / ``process``), plus ``device=`` (the card by
+default; the CPU only when asked).  The stream's buffer lives on that
+device; its schedule scalars are host ints.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class ResamplerFir:
     Example::
 
         r = ResamplerFir(2, 48000, 44100, Latency.Sample64,
-                         Attenuation.Db90, device="cuda")
+                         Attenuation.Db90)  # device="cuda" by default
         out = np.zeros(r.buffer_size_output(), np.float32)
         consumed, produced = r.resample(input_interleaved, out)
     """
@@ -66,7 +67,7 @@ class ResamplerFir:
         *,
         path: str = "auto",
         schedule: str = "exact",
-        device="cpu",
+        device="cuda",
     ) -> None:
         input_hz = int(input_rate)
         output_hz = int(output_rate)
@@ -103,7 +104,7 @@ class ResamplerFir:
         *,
         path: str = "auto",
         schedule: str = "exact",
-        device="cpu",
+        device="cuda",
     ) -> "ResamplerFir":
         """Construct from arbitrary integer sample rates
         (reference: src/resampler_fir.rs:295-404)."""
@@ -139,17 +140,30 @@ class ResamplerFir:
 
     def slew(self, samples: float) -> float:
         """Shift the stream's sampling phase by ``samples`` input samples:
-        ``pos_num += round(samples * M)``, clamped so the position never
-        precedes the oldest buffered frame nor leaves the int32 schedule
-        envelope.  Returns the slew applied, in input samples (same
-        semantics as the JAX package's ``ResamplerFir.slew``)."""
+        ``pos += round(samples * M)``, clamped so the position never
+        precedes the oldest buffered frame nor (int32 envelope only)
+        leaves the int32 schedule envelope.  Returns the slew applied, in
+        input samples (same semantics as the JAX package's
+        ``ResamplerFir.slew``)."""
         M = self._config.ratio_den
         delta = int(round(float(samples) * M))
-        pos = self._state["pos_num"]
-        ceiling = self._config.input_capacity * M
-        applied = min(max(delta, -pos), max(0, ceiling - pos))
+        wide = self._config.wide
+        if wide:
+            pos = self._state["pos_hi"] * M + self._state["pos_lo"]
+            # no int32 envelope; heavy-downsample states carry pos past
+            # capacity*M, so only the history clamp applies
+            applied = max(delta, -pos)
+        else:
+            pos = self._state["pos_num"]
+            ceiling = self._config.input_capacity * M
+            applied = min(max(delta, -pos), max(0, ceiling - pos))
         if applied:
-            self._state = dict(self._state, pos_num=pos + applied)
+            new_pos = pos + applied
+            if wide:
+                moved = dict(pos_hi=new_pos // M, pos_lo=new_pos % M)
+            else:
+                moved = dict(pos_num=new_pos)
+            self._state = dict(self._state, **moved)
         return applied / M
 
     @property

@@ -1,21 +1,35 @@
-"""Kernel B1: the banded contraction of the time-major sync FIR fleet.
+"""Kernels B1-B3: the contractions of the time-major sync FIR fleet.
 
-Port of ``resampler_tpu/ops/fir_dma_kernel.py:277 dma_banded_contract``:
+Ports of ``resampler_tpu/ops/fir_dma_kernel.py``:
 
-    out[k, j, r] = sum_{s < span} a[j, s] * buffer[base + k*L + s, r],  k < K
+- B1 ``dma_banded_contract`` (``:277``), the periodic path::
 
-``buffer [ring, R]`` f32, ``base`` a Python int, ``a [M, span]`` f32;
-returns ``[K, M, R]`` f32.  The TPU kernel's Mosaic workarounds (8-row
-aligned DMA with a remainder-shifted ``[8, M, s_dma]`` atlas, the
-``R % 128`` lane gate) do not carry over: the CUDA kernel addresses any
-row offset and masks a ragged lane edge itself.
+      out[k, j, r] = sum_{s < span} a[j, s] * buffer[base + k*L + s, r],  k < K
 
-``dma_banded_contract`` launches the hand-written CUDA kernel
-(``csrc/fir_banded_contract.cu``) for CUDA tensors and runs
-``dma_banded_contract_reference`` (the plain PyTorch version of the same
-contract) only for CPU tensors; there is no fallback between the two.
-The kernel is compiled with ``nvcc`` for ``sm_90a`` on first use, into
-``resampler_tpu_torch/_build/``, and bound with ``ctypes``.
+  ``a [M, span]``; returns ``[K, M, R]``.
+- B2 ``dma_farrow_contract`` (``:225``), the farrow / lerp / wide path
+  for Farrow blocks of ``q >= 8`` outputs, and B3
+  ``dma_farrow_contract_packed`` (``:170``), the same sum for ``q < 8``
+  (heavy coprime downsampling)::
+
+      out[k, l, r] = sum_{s < w} a_blk[k, l, s] * buffer[base + block_base[k] + s, r]
+
+  ``a_blk [K, q, w]``, ``block_base [K]`` host ints (the plan's static
+  table); returns ``[K, q, R]``.
+
+``buffer [ring, R]`` f32, ``base`` a Python int.  The TPU kernels' Mosaic
+workarounds do not carry over: no 8-row aligned DMA, so neither B1's
+remainder-shifted atlas nor B2/B3's pre-shifted weights (the wrappers take
+``a_blk`` unshifted and read ``base + block_base[k]`` exactly); no
+block-diagonal packing or group padding of K for B3; no ``R % 128`` lane
+gate (the CUDA kernels mask a ragged lane edge).
+
+Each wrapper launches its hand-written CUDA kernel (``csrc/``) for CUDA
+tensors, counting the launch in ``LAUNCHES``, and runs its ``*_reference``
+plain PyTorch version only for CPU tensors; there is no fallback between
+the two.  The kernels are compiled with ``nvcc`` for ``sm_90a`` on first
+use (one ``nvcc`` per source, started together) into
+``resampler_tpu_torch/_build/`` and bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -35,23 +50,47 @@ __all__ = [
     "build",
     "dma_banded_contract",
     "dma_banded_contract_reference",
+    "dma_farrow_contract",
+    "dma_farrow_contract_packed",
+    "dma_farrow_contract_reference",
 ]
 
-#: Kernel launches made by ``dma_banded_contract`` in this process.
-LAUNCHES = 0
+#: Kernel launches made by each wrapper in this process.
+LAUNCHES = {
+    "dma_banded_contract": 0,
+    "dma_farrow_contract": 0,
+    "dma_farrow_contract_packed": 0,
+}
 #: ``nvcc`` output of the last build in this process (``-Xptxas -v``
-#: register / shared-memory / spill report).
+#: register / shared-memory / spill report of every source).
 BUILD_LOG = ""
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "fir_banded_contract.cu"
+_CSRC = _PKG / "csrc"
+#: one shared library per source; the header is included by both
+_SOURCES = ("fir_banded_contract.cu", "fir_farrow_contract.cu")
+_HEADERS = ("tiled_contract.cuh",)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_lib = None
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    # buffer, a, out, R, base, L, M, span, K, stream
+    "fir_banded_contract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # buffer, a_blk, block_base, out, R, base, K, q, w, stream
+    "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
+    # ... the same, then the lanes per thread (4 or 1), stream
+    "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
+}
+#: B3 keeps a thread block's weights in shared memory: the 48 KB default
+#: less its 4 KB reduction buffer
+_PACKED_SMEM_MAX = 44 * 1024
+_libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
+#: per-device copies of B2/B3's ``block_base`` tables, uploaded once
+_block_base_cache: dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -64,69 +103,117 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library.
-    A failed build raises with the compiler's output."""
-    global _lib, BUILD_LOG
+def build() -> dict[str, ctypes.CDLL]:
+    """Compile (once per content of the sources) and load every kernel
+    library: one ``nvcc`` per source, all started together.  A failed
+    build raises with the compiler's output."""
+    global BUILD_LOG
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        tag = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-        so = _BUILD_DIR / f"libfir_banded_contract_{tag}.so"
-        if not so.exists():
-            nvcc = _nvcc()
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True,
-                text=True,
-            )
-            BUILD_LOG = proc.stdout + proc.stderr
+        if _libs:
+            return _libs
+        digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+        for name in _HEADERS + _SOURCES:
+            digest.update((_CSRC / name).read_bytes())
+        tag = digest.hexdigest()[:16]
+        sos = {src: _BUILD_DIR / f"lib{Path(src).stem}_{tag}.so" for src in _SOURCES}
+        procs = {}
+        for src, so in sos.items():
+            if not so.exists():
+                if not procs:
+                    nvcc = _nvcc()
+                    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                procs[src] = (tmp, subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ))
+        logs, failed = [], []
+        for src, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            logs.append(f"== {src}\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with exit code {proc.returncode}:\n{BUILD_LOG}"
-                )
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.fir_banded_contract
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+                failed.append(f"{src} (exit code {proc.returncode})")
+            else:
+                os.replace(tmp, sos[src])
+        if procs:
+            BUILD_LOG = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{BUILD_LOG}")
+        libs = {}
+        for so in sos.values():
+            lib = ctypes.CDLL(str(so))
+            for fn_name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, fn_name, None)
+                if fn is not None:
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    libs[fn_name] = lib
+        _libs.update(libs)
+        return _libs
 
 
-def _check(buffer, base, a, L, M, span, K) -> None:
+def _check_tensors(buffer, name: str, weights, nd: int) -> None:
+    for what, t, n in (("buffer", buffer, 2), (name, weights, nd)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.ndim != n:
+            raise TypeError(f"{what} must be a {n}-D float32 tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    if weights.device != buffer.device:
+        raise ValueError(f"{name} is on {weights.device}, buffer on {buffer.device}")
+    ring, R = buffer.shape
+    if R < 1:
+        raise ValueError("buffer has no lanes")
+    if max(ring, R) >= 1 << 31:
+        raise ValueError("the kernels take 32-bit row and lane counts")
+
+
+def _check_rows(base, lo: int, hi: int, ring: int) -> None:
+    """Rows ``[base + lo, base + hi)`` must lie inside the ring."""
     if not isinstance(base, int) or isinstance(base, bool):
         raise TypeError(f"base must be a Python int, got {type(base).__name__}")
-    for name, t, nd in (("buffer", buffer, 2), ("a", a, 2)):
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.ndim != nd:
-            raise TypeError(f"{name} must be a {nd}-D float32 tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if a.device != buffer.device:
-        raise ValueError(f"a is on {a.device}, buffer on {buffer.device}")
+    if base + lo < 0 or base + hi > ring:
+        raise IndexError(
+            f"rows [{base + lo}, {base + hi}) fall outside the ring of {ring} rows"
+        )
+
+
+def _launch(fn_name: str, device: torch.device, *args) -> None:
+    lib = build()[fn_name]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+
+def _device_kind(buffer) -> str:
+    kind = buffer.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {buffer.device}")
+    return kind
+
+
+# --------------------------------------------------------------------------
+# B1: banded contraction (periodic path)
+# --------------------------------------------------------------------------
+
+
+def _check_banded(buffer, base, a, L, M, span, K) -> None:
+    _check_tensors(buffer, "a", a, 2)
     if min(L, M, span, K) < 1:
         raise ValueError(f"L, M, span, K must be >= 1: {(L, M, span, K)}")
     if tuple(a.shape) != (M, span):
         raise ValueError(f"a must be [{M}, {span}], got {tuple(a.shape)}")
-    ring, R = buffer.shape
-    if R < 1:
-        raise ValueError("buffer has no lanes")
-    if max(ring, R, M * K) >= 1 << 31:
-        raise ValueError("the kernel takes 32-bit row, lane and block counts")
-    top = base + (K - 1) * L + span
-    if base < 0 or top > ring:
-        raise IndexError(
-            f"rows [{base}, {top}) fall outside the ring of {ring} rows"
-        )
+    if M * K >= 1 << 31:
+        raise ValueError("the kernel takes 32-bit block counts")
+    _check_rows(base, 0, (K - 1) * L + span, buffer.shape[0])
 
 
 def dma_banded_contract_reference(buffer, base: int, a, *, L: int, M: int, span: int, K: int):
-    """Plain PyTorch version of the contract: a stride-``L`` window view
-    of ``buffer[base : base + (K-1)*L + span]`` contracted with ``a`` in
+    """Plain PyTorch version of B1: a stride-``L`` window view of
+    ``buffer[base : base + (K-1)*L + span]`` contracted with ``a`` in
     f32.  ``[K, M, R]``."""
-    _check(buffer, base, a, L, M, span, K)
+    _check_banded(buffer, base, a, L, M, span, K)
     windows = buffer[base : base + (K - 1) * L + span].unfold(0, span, L)  # [K, R, span]
     return torch.einsum("js,krs->kjr", a, windows)
 
@@ -134,32 +221,96 @@ def dma_banded_contract_reference(buffer, base: int, a, *, L: int, M: int, span:
 def dma_banded_contract(buffer, base: int, a, *, L: int, M: int, span: int, K: int):
     """``out[k, j, r] = sum_s a[j, s] * buffer[base + k*L + s, r]``,
     ``[K, M, R]`` f32.  CUDA tensors launch kernel B1 on the current
-    stream (and count in ``LAUNCHES``); CPU tensors run the plain
-    version.  Anything else raises."""
-    global LAUNCHES
-    _check(buffer, base, a, L, M, span, K)
-    if buffer.device.type == "cpu":
+    stream; CPU tensors run the plain version.  Anything else raises."""
+    _check_banded(buffer, base, a, L, M, span, K)
+    if _device_kind(buffer) == "cpu":
         return dma_banded_contract_reference(buffer, base, a, L=L, M=M, span=span, K=K)
-    if buffer.device.type != "cuda":
-        raise ValueError(f"unsupported device {buffer.device}")
-    lib = build()
     R = buffer.shape[1]
     out = torch.empty((K, M, R), dtype=torch.float32, device=buffer.device)
-    with torch.cuda.device(buffer.device):
-        stream = torch.cuda.current_stream(buffer.device).cuda_stream
-        err = lib.fir_banded_contract(
-            ctypes.c_void_p(buffer.data_ptr()),
-            ctypes.c_void_p(a.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_int(R),
-            ctypes.c_int(base),
-            ctypes.c_int(L),
-            ctypes.c_int(M),
-            ctypes.c_int(span),
-            ctypes.c_int(K),
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"fir_banded_contract launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _launch(
+        "fir_banded_contract", buffer.device,
+        _P(buffer.data_ptr()), _P(a.data_ptr()), _P(out.data_ptr()),
+        _I(R), _I(base), _I(L), _I(M), _I(span), _I(K),
+    )
+    LAUNCHES["dma_banded_contract"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# B2 / B3: blocked Farrow contraction
+# --------------------------------------------------------------------------
+
+
+def _check_farrow(buffer, base, a_blk, block_base) -> np.ndarray:
+    _check_tensors(buffer, "a_blk", a_blk, 3)
+    K, q, w = a_blk.shape
+    if min(K, q, w) < 1:
+        raise ValueError(f"a_blk must be non-empty, got {tuple(a_blk.shape)}")
+    bb = np.asarray(block_base)
+    if bb.dtype.kind not in "iu" or bb.shape != (K,):
+        raise ValueError(f"block_base must be {K} host ints, got {bb.dtype} {bb.shape}")
+    bb = bb.astype(np.int64)
+    if K >= 1 << 31 or K * q >= 1 << 31:
+        raise ValueError("the kernels take 32-bit block counts")
+    _check_rows(base, int(bb.min()), int(bb.max()) + w, buffer.shape[0])
+    return bb
+
+
+def dma_farrow_contract_reference(buffer, base: int, a_blk, block_base):
+    """Plain PyTorch version of B2 and B3: each block's ``w`` ring rows
+    taken at ``base + block_base[k]`` and contracted with its weights in
+    f32 (the JAX fleet's XLA form).  ``[K, q, R]``."""
+    bb = _check_farrow(buffer, base, a_blk, block_base)
+    w = a_blk.shape[2]
+    rows = torch.from_numpy(base + bb[:, None] + np.arange(w)).to(buffer.device)
+    return torch.einsum("kqw,kwr->kqr", a_blk, buffer[rows])
+
+
+def _farrow_launch(name: str, fn_name: str, buffer, base: int, a_blk, bb: np.ndarray, *extra):
+    K, q, w = a_blk.shape
+    R = buffer.shape[1]
+    key = (buffer.device, bb.tobytes())
+    bb_dev = _block_base_cache.get(key)
+    if bb_dev is None:
+        bb_dev = _block_base_cache[key] = torch.from_numpy(bb).to(buffer.device)
+    out = torch.empty((K, q, R), dtype=torch.float32, device=buffer.device)
+    _launch(
+        fn_name, buffer.device,
+        _P(buffer.data_ptr()), _P(a_blk.data_ptr()), _P(bb_dev.data_ptr()),
+        _P(out.data_ptr()), _I(R), _I64(base), _I(K), _I(q), _I(w), *extra,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+def dma_farrow_contract(buffer, base: int, a_blk, block_base):
+    """``out[k, l, r] = sum_s a_blk[k, l, s] * buffer[base + block_base[k]
+    + s, r]``, ``[K, q, R]`` f32, for Farrow blocks of ``q >= 8`` rows.
+    CUDA tensors launch kernel B2; CPU tensors run the plain version."""
+    bb = _check_farrow(buffer, base, a_blk, block_base)
+    if a_blk.shape[1] < 8:
+        raise ValueError(f"B2 takes blocks of q >= 8 rows (q < 8: B3), got q={a_blk.shape[1]}")
+    if _device_kind(buffer) == "cpu":
+        return dma_farrow_contract_reference(buffer, base, a_blk, bb)
+    return _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb)
+
+
+def dma_farrow_contract_packed(buffer, base: int, a_blk, block_base):
+    """B2's sum for Farrow blocks of ``q < 8`` rows (heavy coprime
+    downsampling), ``[K, q, R]`` f32.  CUDA tensors launch kernel B3,
+    which groups ``ceil(8/q)`` blocks per thread block; CPU tensors run
+    the plain version."""
+    bb = _check_farrow(buffer, base, a_blk, block_base)
+    K, q, w = a_blk.shape
+    if q >= 8:
+        raise ValueError(f"B3 takes blocks of q < 8 rows (q >= 8: B2), got q={q}")
+    if -(-8 // q) * q * w * 4 > _PACKED_SMEM_MAX:  # the group's weights
+        raise ValueError(f"B3's group weights ({-(-8 // q) * q} x {w}) exceed shared memory")
+    if _device_kind(buffer) == "cpu":
+        return dma_farrow_contract_reference(buffer, base, a_blk, bb)
+    # 16-byte lane loads need a lane count and row pitch that keep them aligned
+    vec = 4 if buffer.shape[1] % 4 == 0 and buffer.data_ptr() % 16 == 0 else 1
+    return _farrow_launch(
+        "dma_farrow_contract_packed", "fir_farrow_contract_packed",
+        buffer, base, a_blk, bb, _I(vec),
+    )

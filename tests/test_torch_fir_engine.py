@@ -10,6 +10,7 @@ import resampler_tpu as jrt
 import resampler_tpu_torch as trt
 from resampler_tpu.engine import fir as jfir
 from resampler_tpu_torch.engine import fir as tfir
+from resampler_tpu_torch.engine import fir_fleets as tfleets
 from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
 
 # samples: f32 accumulation order differs (einsum vs XLA dot); the JAX
@@ -34,7 +35,8 @@ def _pair(in_hz, out_hz, latency, channels=2):
         channels, in_hz, out_hz, getattr(jrt.Latency, latency), jrt.Attenuation.Db90
     )
     t = trt.ResamplerFir(
-        channels, in_hz, out_hz, getattr(trt.Latency, latency), trt.Attenuation.Db90
+        channels, in_hz, out_hz, getattr(trt.Latency, latency), trt.Attenuation.Db90,
+        device="cpu",
     )
     return j, t
 
@@ -116,7 +118,7 @@ def test_state_from_jax_steps_alike():
     rng = np.random.default_rng(3)
     for n in (500, 511, 300):
         j.resample(rng.standard_normal(2 * n).astype(np.float32), np.zeros(j.buffer_size_output(), np.float32))
-    t.state = state_from_numpy({k: np.asarray(v) for k, v in j.state.items()})
+    t.state = state_from_numpy({k: np.asarray(v) for k, v in j.state.items()}, device="cpu")
     _assert_state_equal(j, t)
     for n in (400, 17):
         _run(j, t, rng.standard_normal(2 * n).astype(np.float32), j.buffer_size_output())
@@ -131,8 +133,8 @@ def test_step_output_tail_matches_jax():
     tc = tfir.FirConfig(channels=2, taps=16, ratio_num=L, ratio_den=M)
     coeffs = tfir.fir_coefficients(16, trt.Attenuation.Db90, tfir.fir_cutoff(16, trt.Attenuation.Db90, 48000 / 44100))
     jstep = jax.jit(jfir.make_fir_step(jc, coeffs))
-    tstep = tfir.make_fir_step(tc, coeffs)
-    js, ts = jfir.fir_init(jc), tfir.fir_init(tc)
+    tstep = tfir.make_fir_step(tc, coeffs, device="cpu")
+    js, ts = jfir.fir_init(jc), tfir.fir_init(tc, device="cpu")
     rng = np.random.default_rng(7)
     for nv, budget in ((512, 10_000), (300, 50), (0, 10_000), (512, 10_000), (5, 3)):
         chunk = rng.standard_normal((512, 2)).astype(np.float32)
@@ -168,7 +170,9 @@ def test_stopband_attenuation(in_hz, out_hz):
     passband max minus stopband max over an 8192-point spectrum)."""
     x = np.zeros(2 * in_hz, np.float32)
     x[in_hz] = 1.0
-    r = trt.ResamplerFir(1, in_hz, out_hz, trt.Latency.Sample64, trt.Attenuation.Db90)
+    r = trt.ResamplerFir(
+        1, in_hz, out_hz, trt.Latency.Sample64, trt.Attenuation.Db90, device="cpu"
+    )
     y = r.process(x)
     peak = int(np.argmax(np.abs(y)))
     window = int(out_hz * 0.1)
@@ -185,21 +189,33 @@ def test_stopband_attenuation(in_hz, out_hz):
 
 
 def test_unported_options_raise():
+    """Coprime, lerp and wide ratios are ported (tests/test_torch_farrow_*.py);
+    the table-lerp oracle and the f64 reference schedule are not."""
     with pytest.raises(NotImplementedError, match="A9"):
-        trt.ResamplerFir(2, 44100, 48000, schedule="reference")
-    with pytest.raises(NotImplementedError, match="A5"):
-        trt.ResamplerFir(2, 44100, 44101)  # coprime: farrow
-    with pytest.raises(NotImplementedError, match="A5"):
-        trt.ResamplerFir(2, 44100, 48000, path="lerp")
-    with pytest.raises(NotImplementedError, match="A5"):
-        trt.ResamplerFir.new_from_hz(1, 600011, 600013)  # wide u32
+        trt.ResamplerFir(2, 44100, 48000, schedule="reference", device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        trt.ResamplerFir(2, 44100, 44101, path="gather", device="cpu")
     with pytest.raises(ValueError):
-        trt.ResamplerFir(2, 44100, 48000, schedule="f64")
+        trt.ResamplerFir(2, 44100, 48000, schedule="f64", device="cpu")
 
 
 def test_cuda_without_gpu_raises(monkeypatch):
+    """The card is the default device; without one every entry point
+    raises (no fallback to the CPU)."""
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        trt.ResamplerFir(2, 44100, 48000, device="cuda")
-    with pytest.raises(RuntimeError, match="cuda"):
-        trt.BatchedResamplerFir(2, 2, 44100, 48000, synchronized=True, device="cuda")
+    for kw in (dict(device="cuda"), dict()):
+        with pytest.raises(RuntimeError, match="cuda"):
+            trt.ResamplerFir(2, 44100, 48000, **kw)
+        with pytest.raises(RuntimeError, match="cuda"):
+            trt.BatchedResamplerFir(2, 2, 44100, 48000, synchronized=True, **kw)
+    cfg = tfir.FirConfig(channels=2, taps=16, ratio_num=147, ratio_den=160)
+    coeffs = np.zeros((tfir.PHASES, 16), np.float32)
+    for build in (
+        lambda: tfir.fir_init(cfg),
+        lambda: tfir.make_fir_step(cfg, coeffs),
+        lambda: tfleets.make_fir_fleet_step_sync_tm(cfg, coeffs, 2, max_chunk=64),
+        lambda: tfleets.fir_fleet_init_sync_tm(cfg, 2, max_chunk=64),
+        lambda: state_from_numpy({"buffer": np.zeros((2, 8), np.float32)}),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()

@@ -66,7 +66,7 @@ def _xla_form(buf, base, a, L, M, span, K):
 @pytest.mark.parametrize("shape", SHAPES, ids=["44k1-48k", "48k-96k-grouped", "ragged-R6"])
 def test_plain_matches_jax_pallas_and_xla(shape):
     buf, a, bases, geo = _case(*shape)
-    before = kern.LAUNCHES
+    before = dict(kern.LAUNCHES)
     for base in bases:
         got = kern.dma_banded_contract(
             torch.from_numpy(buf), base, torch.from_numpy(a), **geo
@@ -115,7 +115,7 @@ def test_wrapper_checks_arguments():
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(kern, "_lib", None)
+    monkeypatch.setattr(kern, "_libs", {})
     monkeypatch.setattr(kern, "_BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(kern.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))

@@ -63,12 +63,14 @@ def test_sync_tm_step_matches_jax(case):
     )
     kw = dict(max_chunk=MAX_CHUNK, horizon=horizon, out_layout="tm")
     jstep = jax.jit(jfir.make_fir_fleet_step_sync_tm(jc, coeffs, B, contraction="xla", **kw))
-    tstep = tfleets.make_fir_fleet_step_sync_tm(tc, coeffs, B, **kw)
+    tstep = tfleets.make_fir_fleet_step_sync_tm(tc, coeffs, B, device="cpu", **kw)
     js = jfir.fir_fleet_init_sync_tm(jc, B, max_chunk=MAX_CHUNK, horizon=horizon)
-    ts = tfleets.fir_fleet_init_sync_tm(tc, B, max_chunk=MAX_CHUNK, horizon=horizon)
+    ts = tfleets.fir_fleet_init_sync_tm(
+        tc, B, max_chunk=MAX_CHUNK, horizon=horizon, device="cpu"
+    )
     rng = np.random.default_rng(0)
     compactions = produced = overlaps = 0
-    launches = kern.LAUNCHES
+    launches = dict(kern.LAUNCHES)
     feeds = _feeds(34, rng)
     if horizon == 1:
         # fill lands 3 rows past the threshold (input_capacity) with the
@@ -95,7 +97,8 @@ def _fleets(B=3, C=2, latency="Sample32"):
     kw = dict(synchronized=True, sync_variant="tm", max_chunk=MAX_CHUNK, horizon=HORIZON)
     j = JaxFleet(B, C, 44100, 48000, getattr(jrt.Latency, latency), jrt.Attenuation.Db90, **kw)
     t = trt.BatchedResamplerFir(
-        B, C, 44100, 48000, getattr(trt.Latency, latency), trt.Attenuation.Db90, **kw
+        B, C, 44100, 48000, getattr(trt.Latency, latency), trt.Attenuation.Db90,
+        device="cpu", **kw
     )
     return j, t
 
@@ -161,58 +164,62 @@ def test_state_carried_across_from_jax_and_npz(tmp_path):
         jax.tree.map(np.asarray, j.state),
         load_state(tmp_path / "fleet.npz", to_device=False),
     ):
-        t.state = state_from_numpy(state_np)
+        t.state = state_from_numpy(state_np, device="cpu")
         _assert_fleet_state_equal(j.state, t.state)
-        assert state_from_numpy(state_to_numpy(t.state)).keys() == t.state.keys()
+        assert state_from_numpy(state_to_numpy(t.state), device="cpu").keys() == t.state.keys()
     for _ in range(5):
         chunks = rng.standard_normal((3, MAX_CHUNK, 2)).astype(np.float32)
         _compare(j.resample(chunks), t.resample(chunks))
         _assert_fleet_state_equal(j.state, t.state)
     # the loaded buffer is a copy: stepping the port leaves numpy alone
     state_np = state_to_numpy(t.state)
-    t.state = state_from_numpy(state_np)
+    t.state = state_from_numpy(state_np, device="cpu")
     t.resample(rng.standard_normal((3, MAX_CHUNK, 2)).astype(np.float32))
     assert not np.array_equal(state_np["buffer"], state_to_numpy(t.state)["buffer"])
 
 
 def test_state_conversion_rejects_foreign_states():
-    good = state_to_numpy(trt.BatchedResamplerFir(1, 1, 44100, 48000, synchronized=True).state)
-    with pytest.raises(NotImplementedError, match="A5"):
-        state_from_numpy(dict(good, pos_hi=np.uint32(0)))
+    good = state_to_numpy(
+        trt.BatchedResamplerFir(1, 1, 44100, 48000, synchronized=True, device="cpu").state
+    )
+    with pytest.raises(TypeError):  # the wide words are uint32
+        state_from_numpy(dict(good, pos_hi=np.int32(0)), device="cpu")
     with pytest.raises(TypeError):  # per-stream schedules: the vmapped fleet
-        state_from_numpy(dict(good, pos_num=np.zeros(4, np.int32)))
+        state_from_numpy(dict(good, pos_num=np.zeros(4, np.int32)), device="cpu")
     with pytest.raises(TypeError):
-        state_from_numpy(dict(good, buffer=good["buffer"].astype(np.float64)))
+        state_from_numpy(dict(good, buffer=good["buffer"].astype(np.float64)), device="cpu")
     with pytest.raises(ValueError):
-        state_from_numpy(dict(good, extra=np.int32(0)))
+        state_from_numpy(dict(good, extra=np.int32(0)), device="cpu")
     with pytest.raises(OverflowError):
-        state_to_numpy(dict(state_from_numpy(good), fill=1 << 31))
+        state_to_numpy(dict(state_from_numpy(good, device="cpu"), fill=1 << 31))
+    with pytest.raises(OverflowError):
+        state_to_numpy(dict(state_from_numpy(good, device="cpu"), pos_lo=-1))
 
 
 def test_unported_variants_raise():
+    """Coprime, lerp and wide fleets are ported (tests/test_torch_farrow_*.py);
+    the other variants raise naming their ROADMAP item."""
     args = (4, 2, 44100, 48000)
     cases = [
         (dict(), "A6"),  # synchronized=False: the vmapped fleet
         (dict(synchronized=True, sync_variant="slide"), "A6"),
         (dict(synchronized=True, sync_variant="async_tm"), "A8"),
         (dict(synchronized=True, mesh=object()), "A11"),
-        (dict(synchronized=True, path="farrow"), "A5"),
-        (dict(synchronized=True, path="lerp"), "A5"),
     ]
     for kwargs, item in cases:
         with pytest.raises(NotImplementedError, match=item):
-            trt.BatchedResamplerFir(*args, **kwargs)
-    with pytest.raises(NotImplementedError, match="A5"):  # coprime: farrow
-        trt.BatchedResamplerFir(4, 2, 44100, 44101, synchronized=True)
-    with pytest.raises(NotImplementedError, match="A5"):  # wide u32
-        trt.BatchedResamplerFir(4, 1, 600011, 600013, synchronized=True)
+            trt.BatchedResamplerFir(*args, device="cpu", **kwargs)
     cfg = tfir.FirConfig(channels=2, taps=64, ratio_num=147, ratio_den=160)
     coeffs = np.zeros((tfir.PHASES, 64), np.float32)
     with pytest.raises(NotImplementedError, match="B7"):
-        tfleets.make_fir_fleet_step_sync_tm(cfg, coeffs, 2, max_chunk=512, precision="bf16x4")
+        tfleets.make_fir_fleet_step_sync_tm(
+            cfg, coeffs, 2, max_chunk=512, precision="bf16x4", device="cpu"
+        )
     with pytest.raises(ValueError):
-        trt.BatchedResamplerFir(*args, synchronized=True, path="periodc")
-    t = trt.BatchedResamplerFir(*args, synchronized=True, max_chunk=256)
+        trt.BatchedResamplerFir(*args, synchronized=True, path="periodc", device="cpu")
+    with pytest.raises(ValueError):  # the fleet has no gather path
+        trt.BatchedResamplerFir(*args, synchronized=True, path="gather", device="cpu")
+    t = trt.BatchedResamplerFir(*args, synchronized=True, max_chunk=256, device="cpu")
     with pytest.raises(ValueError):
         t.slew(np.zeros(4))
     with pytest.raises(ValueError):
