@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (``resampler_tpu_torch``).
 
-Drives the port's FIR serving paths on one NVIDIA card and holds them
-against the port's plain PyTorch versions and the CPU.  Run from the
-repository root on a machine with one CUDA GPU, nvcc and PyTorch built
-for CUDA:
+Drives the port's FIR serving paths and its FFT engine on one NVIDIA
+card and holds them against the port's plain PyTorch versions and the
+CPU.  Run from the repository root on a machine with one CUDA GPU, nvcc
+and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
@@ -12,13 +12,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and precision: a CUDA card, both TF32 flags off, the card's
    name and power limit from nvidia-smi;
-2. build kernels B1 (csrc/fir_banded_contract.cu) and B2/B3
-   (csrc/fir_farrow_contract.cu) with nvcc for sm_90a, one nvcc per
-   source, started together;
+2. build kernels B1 (csrc/fir_banded_contract.cu), B2/B3
+   (csrc/fir_farrow_contract.cu) and B4/B5 (csrc/fft_magsplit.cu) with
+   nvcc for sm_90a, one nvcc per source, started together;
 3. each kernel against its plain version on the card at the main paths'
    shapes (plus a grouped small-M shape and ragged fleets), odd bases and
    the top bound, timed with CUDA events against its bound; B1 also
-   against one PyTorch ``matmul`` over the overlapping window view;
+   against one PyTorch ``matmul`` over the overlapping window view.  B4
+   and B5 at 8192 stereo streams (R 16384) of 1176 -> 1280 and 588 ->
+   1280, the ragged 1280 -> 1176 at R 2 and 37, B5 over a P = 8 pool;
+   a NaN row confined to its row, the noise floor against the f64
+   operator, and one f32 ``torch.matmul`` by the dense T2 as the library
+   yardstick;
 4. full width, 1024 stereo streams, Latency.Sample64 / Attenuation.Db90,
    max_chunk 4096, horizon 16, 40 ``resample`` calls and one
    ``resample_many`` of T = 8 per path: 44.1 -> 48 kHz (periodic, B1),
@@ -34,7 +39,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    dB) and through B2 (48000 -> 44101 Hz, equal to the CPU port's value
    within 0.5 dB, and >= 100 dB if that is);
 7. the per-stream ``ResamplerFir.process`` on the card against the CPU,
-   periodic and coprime.
+   periodic and coprime;
+8. the FFT engine at full width: ``BatchedResamplerFft(8192, 2, 44100,
+   48000)``, ``backend="auto"`` (must be magsplit), 40 ``resample`` calls
+   over 8 device-resident chunks and one ``resample_many(T=8)``: one B4
+   launch per call, 1 B4 + 7 B5 for the batch, streams 0-3 against a CPU
+   fleet, Msamples/s (and of a second, uncounted batch), then a profile
+   of 10 steps;
+9. the FFT quality gates through the kernel, by bench.py's procedures:
+   ``fft_bench_pair_floor_db`` (1176 -> 1280, 8 streams, against f64)
+   and ``fft_stopband_db`` (22.05 -> 48 kHz impulse), each >= 99 dB;
+10. the per-stream ``ResamplerFft.process`` on the card against the CPU,
+   magsplit (auto) and matmul.
 
 It prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -51,7 +67,15 @@ import time
 import numpy as np
 import torch
 
-from resampler_tpu_torch import Attenuation, BatchedResamplerFir, Latency, ResamplerFir
+from resampler_tpu_torch import (
+    Attenuation,
+    BatchedResamplerFft,
+    BatchedResamplerFir,
+    Latency,
+    ResamplerFft,
+    ResamplerFir,
+)
+from resampler_tpu_torch.engine import fft as fft_engine
 from resampler_tpu_torch.engine import fir_fleets
 from resampler_tpu_torch.engine.fir import (
     FirConfig,
@@ -59,7 +83,10 @@ from resampler_tpu_torch.engine.fir import (
     fir_coefficients,
     fir_cutoff,
 )
+from resampler_tpu_torch.ops import _build
+from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
+from resampler_tpu_torch.ops.matmul3 import split_hi_lo
 from resampler_tpu_torch.types import reduce_ratio
 
 #: kernel vs plain: f32 sums in another order (the JAX suite's own
@@ -67,8 +94,10 @@ from resampler_tpu_torch.types import reduce_ratio
 KERNEL_ATOL = 1e-5
 #: card vs CPU on fleet outputs: bench.py's device-vs-CPU quality gate
 DEVICE_ATOL = 5e-5
-#: H100 SXM data sheet: f32 CUDA-core peak and HBM3 rate, for the bounds
+#: H100 SXM data sheet: f32 CUDA-core and dense bf16 tensor-core peaks and
+#: the HBM3 rate, for the bounds
 F32_PEAK_TFLOPS = 67.0
+BF16_PEAK_TFLOPS = 989.0
 HBM_TBPS = 3.35
 
 SOURCES = {
@@ -78,6 +107,10 @@ SOURCES = {
                             "resampler_tpu/ops/fir_dma_kernel.py:225"),
     "dma_farrow_contract_packed": ("resampler_tpu_torch/csrc/fir_farrow_contract.cu",
                                    "resampler_tpu/ops/fir_dma_kernel.py:170"),
+    "magsplit_projector": ("resampler_tpu_torch/csrc/fft_magsplit.cu",
+                           "resampler_tpu/ops/fft_magsplit_kernel.py:288"),
+    "magsplit_projector_pool": ("resampler_tpu_torch/csrc/fft_magsplit.cu",
+                                "resampler_tpu/ops/fft_magsplit_kernel.py:332"),
 }
 
 
@@ -100,12 +133,18 @@ def elapsed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flop: float, nbytes: float) -> tuple[float, str]:
+def bound_ms(flop: float, nbytes: float, peak_tflops: float = F32_PEAK_TFLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
-    over the f32 peak and the compulsory bytes over the memory rate."""
-    t_op = flop / (F32_PEAK_TFLOPS * 1e9)
+    over the peak of their type (f32 by default) and the compulsory bytes
+    over the memory rate."""
+    t_op = flop / (peak_tflops * 1e9)
     t_by = nbytes / (HBM_TBPS * 1e9)
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def zero_launches() -> None:
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
 
 
 def coeffs_for(in_hz, out_hz, taps):
@@ -139,9 +178,9 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = kern.build()
+    libs = _build.build()
     print(f"[2] built {sorted(libs)} with nvcc (sm_90a) in {time.perf_counter() - t0:.2f} s")
-    for line in kern.BUILD_LOG.splitlines():
+    for line in _build.build_log().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line or "Compiling" in line:
             print(f"    {line.strip()}")
 
@@ -391,8 +430,7 @@ def phase_fleet(device, smi, label, in_hz, out_hz, kernel_name, path="auto", B=1
     many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
     torch.cuda.synchronize()
 
-    for name in kern.LAUNCHES:
-        kern.LAUNCHES[name] = 0  # count only this path's own launches
+    zero_launches()  # count only this path's own launches
     small, steps, fills, peaks = [], [], [], []
     t0 = time.perf_counter()
     for i in range(n_steps):
@@ -411,7 +449,7 @@ def phase_fleet(device, smi, label, in_hz, out_hz, kernel_name, path="auto", B=1
     outs, cs, ps, peak_many = fleet.resample_many(many)
     torch.cuda.synchronize()
     dt_many = time.perf_counter() - t1
-    launches = dict(kern.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
 
     steps += list(zip(cs.tolist(), ps.tolist()))
     total = n_steps + T
@@ -558,6 +596,279 @@ def phase_per_stream(device, in_hz, out_hz):
           f"{y_dev.size} values, max err {err:.3e}")
 
 
+# --------------------------------------------------------------------------
+# phases 3 (B4, B5) and 8-10: the FFT engine
+# --------------------------------------------------------------------------
+
+
+def floor_db(out, prev, cur, n_in, n_out, rows=64) -> float:
+    """Noise floor of ``out`` against the f64 ``[prev | cur] @ T2`` on the
+    first ``rows`` rows: -20 log10(rms error / rms signal)."""
+    x2 = torch.cat([prev[:rows], cur[:rows]], dim=1).cpu().double()
+    ref = x2 @ torch.from_numpy(mag._t2_f64(n_in, n_out))
+    err = out[:rows].cpu().double() - ref
+    return float(-20 * torch.log10(err.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()))
+
+
+def magsplit_case(device, n_in, n_out, R, P, seed):
+    plan = mag.plan_magsplit(n_in, n_out)
+    check(plan is not None, f"{n_in}->{n_out} has a band plan")
+    wh, wcorr = mag.magsplit_weights(plan, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    pool = torch.randn((P, R, n_in), generator=gen, device=device)
+    return plan, wh, wcorr, pool
+
+
+def sums_in_f32(prev, cur, wh, wcorr, plan):
+    """The plain version's products summed in f32 by cuBLAS, to show why
+    the plain version sums in f64."""
+    hi, lo = split_hi_lo(torch.cat([prev, cur], dim=1))
+    outs = []
+    for q in range(plan.s):
+        r0 = q * plan.bps * plan.lp
+        rb = r0 + plan.b0 * plan.lp
+        hl = torch.cat([hi[:, rb : rb + plan.wc], lo[:, rb : rb + plan.wc]], dim=1)
+        outs.append(hi[:, r0 : r0 + plan.rows] @ wh[q].float() + hl @ wcorr[q].float())
+    return torch.cat(outs, dim=1)
+
+
+def phase_magsplit_kernels(device, cases, timed):
+    """B4 and B5 against their plain version, NaN confinement and the
+    noise floor at every ``(n_in, n_out, R)`` case; times, bound and the
+    library yardstick at the ``timed`` case, the calls rotating over a
+    P = 8 pool so that at full width each finds its 154 MB of input
+    outside the 50 MB L2."""
+    entries = {}
+    for n_in, n_out, R in cases:
+        plan, wh, wcorr, pool = magsplit_case(device, n_in, n_out, R, 8, seed=R + n_in)
+        pairs = ((7, 0), (0, 1), (3, 5))
+        err = err_pool = 0.0
+        got = mag.magsplit_projector(pool[0], pool[1], wh, wcorr, plan=plan)
+        ref = mag.magsplit_projector_reference(pool[0], pool[1], wh, wcorr, plan=plan)
+        err = float((got - ref).abs().max())
+        fl_kernel = floor_db(got, pool[0], pool[1], n_in, n_out)
+        fl_plain = floor_db(ref, pool[0], pool[1], n_in, n_out)
+        for i, j in pairs:
+            got_p = mag.magsplit_projector_pool(pool, i, j, wh, wcorr, plan=plan)
+            ref_p = mag.magsplit_projector_reference(pool[i], pool[j], wh, wcorr, plan=plan)
+            err_pool = max(err_pool, float((got_p - ref_p).abs().max()))
+        # one NaN and one Inf input: those rows go non-finite, the rest stay
+        bad = pool[2].clone()
+        r_nan, r_inf = R // 2, R - 1
+        bad[r_nan, 3] = float("nan")
+        bad[r_inf, n_in - 1] = float("inf")
+        got_b = mag.magsplit_projector(pool[1], bad, wh, wcorr, plan=plan)
+        ref_b = mag.magsplit_projector_reference(pool[1], bad, wh, wcorr, plan=plan)
+        torch.cuda.synchronize()
+        finite = torch.isfinite(ref_b)
+        check(torch.equal(torch.isfinite(got_b), finite), f"B4 {n_in}->{n_out} R {R}: non-finite pattern")
+        check(not finite[r_nan].all() and not finite[r_inf].all(), "bad rows go non-finite")
+        others = torch.ones(R, dtype=torch.bool, device=device)
+        others[[r_nan, r_inf]] = False
+        check(bool(finite[others].all()), "other rows stay finite")
+        err_bad = float((got_b[finite] - ref_b[finite]).abs().max()) if finite.any() else 0.0
+        worst = max(err, err_pool, err_bad)
+        check(worst <= KERNEL_ATOL, f"B4/B5 vs plain {n_in}->{n_out} R {R}: {worst:.3e} > {KERNEL_ATOL}")
+        check(fl_kernel >= plan.floor_db - 2.0,
+              f"B4 floor {fl_kernel:.2f} dB >= plan {plan.floor_db} - 2 at {n_in}->{n_out}")
+        print(f"[3] B4/B5 {n_in}->{n_out} R {R} (s {plan.s}, rows {plan.rows}, wc {plan.wc}, cols "
+              f"{plan.cols}): max |kernel - plain| B4 {err:.3e}, B5 {err_pool:.3e} over slot pairs "
+              f"{pairs}, NaN/Inf rows {err_bad:.3e}; floor vs f64 (64 rows) kernel {fl_kernel:.2f} dB, "
+              f"plain {fl_plain:.2f} dB, plan {plan.floor_db} dB")
+        for name, e in (("magsplit_projector", max(err, err_bad)), ("magsplit_projector_pool", err_pool)):
+            entry = entries.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        if (n_in, n_out, R) != timed:
+            del pool, bad
+            continue
+        P = pool.shape[0]
+        ms4, plain4, t4 = timed_pair(
+            lambda i: mag.magsplit_projector(pool[i % P], pool[(i + 1) % P], wh, wcorr, plan=plan),
+            lambda i: mag.magsplit_projector_reference(pool[i % P], pool[(i + 1) % P], wh, wcorr, plan=plan),
+        )
+        ms5, plain5, t5 = timed_pair(
+            lambda i: mag.magsplit_projector_pool(pool, i % P, (i + 1) % P, wh, wcorr, plan=plan),
+            lambda i: mag.magsplit_projector_reference(pool[i % P], pool[(i + 1) % P], wh, wcorr, plan=plan),
+        )
+        t2 = torch.from_numpy(mag._t2_f64(n_in, n_out).astype(np.float32)).to(device)
+
+        def library(i):
+            return torch.matmul(torch.cat([pool[i % P], pool[(i + 1) % P]], dim=1), t2)
+
+        ref = mag.magsplit_projector_reference(pool[0], pool[1], wh, wcorr, plan=plan)
+        lib = library(0)
+        torch.cuda.synchronize()
+        lib_err = float((lib - ref).abs().max())
+        f32_err = float((sums_in_f32(pool[0], pool[1], wh, wcorr, plan) - ref).abs().max())
+        del lib
+        lib_ms = elapsed_ms(library, 20)
+        flop = 2 * R * (plan.rows + 2 * plan.wc) * plan.cols * plan.s
+        nbytes = 4 * (2 * R * n_in + R * n_out) + 2 * plan.s * (plan.rows + 2 * plan.wc) * plan.cols
+        b_ms, b_by = bound_ms(flop, nbytes, BF16_PEAK_TFLOPS)
+        lib_flop = 2 * R * 2 * n_in * n_out
+        for name, ms, plain_ms, t in (("magsplit_projector", ms4, plain4, t4),
+                                      ("magsplit_projector_pool", ms5, plain5, t5)):
+            print(f"    {name}: kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per "
+                  f"call; kernel {flop / ms / 1e9:.1f} TFLOP/s ({100 * b_ms / ms:.1f}% of the bound "
+                  f"{b_ms:.4f} ms, {b_by}: {flop / 1e9:.1f} GFLOP at {BF16_PEAK_TFLOPS:.0f} TFLOP/s "
+                  f"bf16, {nbytes / 1e6:.1f} MB at {HBM_TBPS} TB/s)")
+            entries[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        print(f"    library: torch.matmul(cat(prev, cur), T2) in f32, TF32 off: {lib_ms:.4f} ms "
+              f"({lib_flop / 1e9:.1f} GFLOP dense, {lib_flop / lib_ms / 1e9:.1f} TFLOP/s); max |library "
+              f"- plain| {lib_err:.3e}")
+        print(f"    the plain version's sums in f32 (cuBLAS) instead of f64: max |f32 sums - plain| "
+              f"{f32_err:.3e} (kernel: {err:.3e})")
+        del pool, bad, t2
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_fft_fleet(device, smi, B=8192, C=2, n_steps=40, T=8, nbuf=8, mirror=4, warm=8):
+    """The FFT serving path at bench.py's full width (bench_fft,
+    bench_fft_pool): 8192 stereo streams, 44.1 -> 48 kHz, on the card's
+    production backend."""
+    torch.cuda.reset_peak_memory_stats()
+    fleet = BatchedResamplerFft(B, C, 44100, 48000, device=device)
+    check(fleet._resolved_backend == "magsplit", f"auto -> {fleet._resolved_backend} (want magsplit)")
+    n_in, n_out = fleet.config.fft_size_input, fleet.config.fft_size_output
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    chunks = [torch.randn((B, C, n_in), generator=gen, device=device) for _ in range(nbuf)]
+    many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
+    torch.cuda.synchronize()
+
+    zero_launches()
+    small = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        out = fleet.resample(chunks[i % nbuf])
+        small.append(out[:mirror].clone())
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    t1 = time.perf_counter()
+    outs = fleet.resample_many(many)
+    torch.cuda.synchronize()
+    dt_many = time.perf_counter() - t1
+    launches = dict(_build.LAUNCHES)
+    want = dict({name: 0 for name in launches}, magsplit_projector=n_steps + 1,
+                magsplit_projector_pool=T - 1)
+    check(launches == want, f"FFT fleet launches {launches} == {want}")
+    check(tuple(out.shape) == (B, C, n_out) and tuple(outs.shape) == (T, B, C, n_out), "FFT output shapes")
+    check(bool(torch.isfinite(outs).all()) and bool(torch.isfinite(out).all()), "FFT finite outputs")
+    check(float(outs.abs().max()) > 0, "FFT nonzero output")
+
+    cpu = BatchedResamplerFft(mirror, C, 44100, 48000, backend="magsplit", device="cpu")
+    err = 0.0
+    for i in range(n_steps):
+        err = max(err, float((small[i].cpu() - cpu.resample(chunks[i % nbuf][:mirror].cpu())).abs().max()))
+    ref_many = cpu.resample_many(many[:, :mirror].cpu())
+    err = max(err, float((outs[:, :mirror].cpu() - ref_many).abs().max()))
+    check(err <= DEVICE_ATOL, f"FFT fleet vs CPU mirror {err:.3e} > {DEVICE_ATOL}")
+
+    # a second batch, after the counted run: the first one also pays the
+    # allocator's growth for its [T, B, C, M] output
+    t2 = time.perf_counter()
+    fleet.resample_many(many)
+    torch.cuda.synchronize()
+    dt_many2 = time.perf_counter() - t2
+
+    per_step = B * C * n_out  # output samples per step, all streams and channels
+    dt_warm, dt = t_end - t_warm, t_end - t0
+    print(f"[8] FFT fleet: {B} streams x {C} ch, 44100 -> 48000 Hz (N {n_in}, M {n_out}), backend "
+          f"{fleet._resolved_backend}: {n_steps} resample() + resample_many(T={T}); launches {launches}; "
+          f"streams 0-{mirror - 1} vs CPU fleet max err {err:.3e}")
+    print(f"    fleet: {per_step * (n_steps - warm) / dt_warm / 1e6:.1f} Msamples/s over resample() calls "
+          f"{warm + 1}-{n_steps} ({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step); all {n_steps} calls "
+          f"{per_step * n_steps / dt / 1e6:.1f} Msamples/s; first resample_many(T={T}) "
+          f"{per_step * T / dt_many / 1e6:.1f} Msamples/s ({dt_many * 1e3 / T:.3f} ms/chunk), second "
+          f"{per_step * T / dt_many2 / 1e6:.1f} Msamples/s ({dt_many2 * 1e3 / T:.3f} ms/chunk) "
+          f"[B x C x M = {per_step} output samples per step, bench.py:394's count; card: {smi}]")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(fleet, chunks)
+    del fleet, chunks, many, outs, small
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fft_stopband_db(device) -> float:
+    """bench.py:709-725: the impulse response of ResamplerFft(2, 22050,
+    48000) on channel 0, passband peak minus stopband peak."""
+    C = 2
+    rf = ResamplerFft(C, 22050, 48000, device=device)
+    x = np.zeros(10 * rf.chunk_size_input(), np.float32)
+    x[len(x) // 2 - (len(x) // 2) % C] = 1.0
+    y = rf.process(x)[0::C]
+    peak = int(np.argmax(np.abs(y)))
+    w = int(48000 * 0.1)
+    s = max(peak - w // 2, 0)
+    spec = np.fft.rfft(y[s : s + w], 1 << 17)
+    mag_db = 20 * np.log10(np.maximum(np.abs(spec), 1e-12))
+
+    def b(f):
+        return round(f / 48000 * (1 << 17))
+
+    nyq = 22050 / 2
+    return float(mag_db[b(20.0) : b(nyq * 0.9) + 1].max() - mag_db[b(nyq * 1.1) : b(48000 / 2 * 0.95) + 1].max())
+
+
+def fft_bench_pair_floor_db(device) -> float:
+    """bench.py:454-490: the bench pair's production step (1176 -> 1280,
+    8 stereo streams, two chunks) against the f64 projector."""
+    cfg = fft_engine.FftConfig(channels=2, fft_size_input=1176, fft_size_output=1280)
+    B = 8
+    step = fft_engine.make_fft_fleet_step(cfg, B, device=device)
+    state = fft_engine.fft_fleet_init(cfg, B, device=device)
+    rng = np.random.default_rng(11)
+    proj = fft_engine.get_projection_matrix(1176, 1280).astype(np.float64)
+    overlap = np.zeros((B, 2, 1280))
+    floor = 1e9
+    for _ in range(2):
+        ch = rng.standard_normal((B, 2, 1176)).astype(np.float32)
+        state, out = step(state, torch.from_numpy(ch).to(device))
+        full = ch.astype(np.float64) @ proj
+        ref = full[:, :, :1280] + overlap
+        overlap = full[:, :, 1280:]
+        err = out.cpu().numpy().astype(np.float64) - ref
+        floor = min(floor, float(-20 * np.log10(np.sqrt((err**2).mean() / (ref**2).mean() + 1e-300))))
+    return floor
+
+
+def phase_fft_quality(device):
+    zero_launches()
+    pair_db = fft_bench_pair_floor_db(device)
+    n_pair = _build.LAUNCHES["magsplit_projector"]
+    stop_db = fft_stopband_db(device)
+    n_stop = _build.LAUNCHES["magsplit_projector"] - n_pair
+    check(n_pair == 2 and n_stop > 0, f"quality gates ran through B4 ({n_pair}, {n_stop} launches)")
+    check(pair_db >= 99.0, f"fft_bench_pair_floor_db {pair_db:.2f} >= 99")
+    check(stop_db >= 99.0, f"fft_stopband_db {stop_db:.2f} >= 99")
+    print(f"[9] FFT quality through B4: fft_bench_pair_floor_db {pair_db:.2f} dB ({n_pair} launches), "
+          f"fft_stopband_db {stop_db:.2f} dB ({n_stop} launches); gates >= 99 dB")
+
+
+def phase_fft_per_stream(device):
+    t = np.arange(44100) / 44100
+    x = np.stack(
+        [0.5 * np.sin(2 * np.pi * 440 * t), 0.25 * np.sin(2 * np.pi * 1000 * t)], axis=1
+    ).astype(np.float32).reshape(-1)
+    for backend, cpu_backend in (("auto", "magsplit"), ("matmul", "matmul")):
+        before = _build.LAUNCHES["magsplit_projector"]
+        r = ResamplerFft(2, 44100, 48000, backend=backend, device=device)
+        y_dev = r.process(x)
+        launched = _build.LAUNCHES["magsplit_projector"] - before
+        y_cpu = ResamplerFft(2, 44100, 48000, backend=cpu_backend, device="cpu").process(x)
+        check(y_dev.shape == y_cpu.shape and y_dev.size > 0, "per-stream FFT output length")
+        err = float(np.abs(y_dev - y_cpu).max())
+        check(err <= DEVICE_ATOL, f"per-stream FFT {backend} card vs CPU: {err:.3e} > {DEVICE_ATOL}")
+        check((launched > 0) == (backend == "auto"), f"per-stream FFT {backend}: {launched} B4 launches")
+        print(f"[10] ResamplerFft.process(1 s stereo, 44100 -> 48000 Hz, backend {backend}) on the card "
+              f"vs CPU ({cpu_backend}): {y_dev.size} values, max err {err:.3e}, {launched} B4 launches")
+
+
 def main() -> None:
     smi = phase_device()
     device = torch.device("cuda")
@@ -575,6 +886,11 @@ def main() -> None:
         ("ragged 48000->3001 (q 4) taps 128, R 6", (48000, 3001, 128, 6, 512, 3)),
         ("wide 600011->600013 taps 128, 1024x2", (600011, 600013, 128, 2048, 4096, 16)),
     ]))
+    entries.update(phase_magsplit_kernels(
+        device,
+        [(1176, 1280, 16384), (588, 1280, 16384), (1280, 1176, 37), (1280, 1176, 2)],
+        timed=(1176, 1280, 16384),  # 8192 stereo streams at the bench pair
+    ))
     launches = {name: 0 for name in entries}
     for label, in_hz, out_hz, kname, path in (
         ("periodic main path", 44100, 48000, "dma_banded_contract", "auto"),
@@ -590,6 +906,11 @@ def main() -> None:
     phase_alias(device)
     phase_per_stream(device, 44100, 48000)
     phase_per_stream(device, 44100, 44101)
+    fft_launches = phase_fft_fleet(device, smi)
+    for name in ("magsplit_projector", "magsplit_projector_pool"):
+        launches[name] = fft_launches[name]
+    phase_fft_quality(device)
+    phase_fft_per_stream(device)
     print(json.dumps({"kernels": [
         {
             "name": name,

@@ -8,12 +8,18 @@ small reduced denominator), the Farrow and lerp paths for coprime ratios
 the per-stream ``ResamplerFir`` and the phase-locked time-major fleet
 ``BatchedResamplerFir(synchronized=True)``, whose contractions run
 hand-written CUDA kernels on the card (``ops/fir_dma_kernel.py``: B1 for
-periodic ratios, B2 and B3 for coprime ones).  Every public constructor
-takes ``device="cuda"`` (the default; it raises without a GPU) or
-``"cpu"``, which must be asked for.
+periodic ratios, B2 and B3 for coprime ones); and the FFT overlap-add
+engine on every backend (``magsplit``, ``matmul``, ``conv``,
+``fft``/``rfft``), per stream (``ResamplerFft``) and as a fleet
+(``BatchedResamplerFft``, with ``resample_many`` over the zero-copy chunk
+pool), whose production magsplit backend runs hand-written CUDA kernels
+on the card (``ops/fft_magsplit_kernel.py``: B4, and B5 for the pool).
+Every public constructor takes ``device="cuda"`` (the default; it raises
+without a GPU) or ``"cpu"``, which must be asked for.
 """
 
-from .engine.batched import BatchedResamplerFir
+from .engine.batched import BatchedResamplerFft, BatchedResamplerFir
+from .engine.fft import ResamplerFft
 from .engine.fir_wrapper import ResamplerFir
 from .types import (
     Attenuation,
@@ -27,11 +33,13 @@ from .types import (
 
 __all__ = [
     "Attenuation",
+    "BatchedResamplerFft",
     "BatchedResamplerFir",
     "InvalidInputBufferSize",
     "InvalidOutputBufferSize",
     "Latency",
     "ResampleError",
+    "ResamplerFft",
     "ResamplerFir",
     "SampleRate",
     "SampleRateFamily",

@@ -1,8 +1,12 @@
-"""Batched multi-stream FIR resampler: PyTorch port of
-``resampler_tpu.engine.batched.BatchedResamplerFir``, phase-locked
-time-major fleet (``synchronized=True, sync_variant="tm"``) only, on
-every ratio and convolve path it serves (``path="periodic" | "farrow" |
-"lerp"``, the wide u32 schedule).
+"""Batched multi-stream resamplers: PyTorch ports of
+``resampler_tpu.engine.batched``.
+
+- ``BatchedResamplerFir``: the phase-locked time-major fleet
+  (``synchronized=True, sync_variant="tm"``) only, on every ratio and
+  convolve path it serves (``path="periodic" | "farrow" | "lerp"``, the
+  wide u32 schedule);
+- ``BatchedResamplerFft``: the FFT fleet on every backend, with
+  ``resample_many`` over the zero-copy pool step on the magsplit backend.
 
 Every other variant raises ``NotImplementedError`` naming the ROADMAP item
 that ports it; none falls back to another engine.
@@ -13,11 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..types import Attenuation, Latency, reduce_ratio
+from ..dsp.planner import plan_conversion
+from ..types import Attenuation, Latency, SampleRate, reduce_ratio
+from . import fft as fft_engine
 from .fir import FirConfig, fir_coefficients, fir_cutoff, resolve_device
 from .fir_fleets import fir_fleet_init_sync_tm, make_fir_fleet_step_sync_tm
 
-__all__ = ["BatchedResamplerFir"]
+__all__ = ["BatchedResamplerFir", "BatchedResamplerFft"]
 
 
 class BatchedResamplerFir:
@@ -209,3 +215,146 @@ class BatchedResamplerFir:
             np.asarray(ps, np.int32),
             torch.stack(peaks).amax(),
         )
+
+
+class BatchedResamplerFft:
+    """``n_streams`` independent FFT resamplers stepped as one fleet on
+    ``device``.
+
+    The chunk operator is linear and identical for every (stream,
+    channel), so each step folds ``streams x channels`` into the rows of
+    one operator call: one launch of kernel B4 on the magsplit backend
+    (``"auto"`` on the card where the pair has a band plan), one f32
+    matmul on the matmul backend.
+    """
+
+    def __init__(
+        self,
+        n_streams: int,
+        channels: int,
+        sample_rate_input,
+        sample_rate_output,
+        *,
+        mesh=None,
+        backend: str = "auto",
+        device="cuda",
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh sharding is not ported yet (ROADMAP A11)"
+            )
+        cfg = plan_conversion(
+            SampleRate(sample_rate_input), SampleRate(sample_rate_output)
+        ).scale_for_throughput()
+        self._config = fft_engine.FftConfig(
+            channels=channels,
+            fft_size_input=cfg.fft_size_input,
+            fft_size_output=cfg.fft_size_output,
+        )
+        self._device = resolve_device(device)
+        self.n_streams = n_streams
+        self._backend = backend
+        self._resolved_backend = fft_engine._resolve_backend(
+            self._config, backend, self._device
+        )
+        self._step = fft_engine.make_fft_fleet_step(
+            self._config, n_streams, backend=backend, device=self._device
+        )
+        self._pool_step = None  # built on the first resample_many
+        self._state = fft_engine.fft_fleet_init(
+            self._config, n_streams, backend, self._device
+        )
+
+    @property
+    def config(self) -> fft_engine.FftConfig:
+        return self._config
+
+    @property
+    def state(self) -> dict:
+        return self._state
+
+    @state.setter
+    def state(self, value: dict) -> None:
+        # "auto" resolves per device (magsplit {'prev'} on the card,
+        # matmul {'overlap'} on the CPU), so a fleet checkpoint restored
+        # on another device is converted as ResamplerFft does.
+        lead = (self.n_streams, self._config.channels)
+        value = fft_engine.private_carry(value, lead, self._config, self._device)
+        self._state = fft_engine.convert_fft_state(
+            value, self._config, self._backend, self._device
+        )
+
+    def chunk_size_input(self) -> int:
+        return self._config.fft_size_input * self._config.channels
+
+    def chunk_size_output(self) -> int:
+        return self._config.fft_size_output * self._config.channels
+
+    def _chunks(self, chunks, ndim: int):
+        """``chunks`` as a contiguous f32 tensor on the device, and whether
+        it is the caller's own memory (a tensor already in that form,
+        which the carry must not keep)."""
+        if isinstance(chunks, torch.Tensor):
+            t = chunks.to(self._device, torch.float32).contiguous()
+            callers = t is chunks
+        else:
+            t = torch.tensor(np.asarray(chunks, np.float32), device=self._device)
+            callers = False
+        C, N = self._config.channels, self._config.fft_size_input
+        if t.ndim != ndim or tuple(t.shape[-3:]) != (self.n_streams, C, N):
+            raise ValueError(
+                f"chunks must be [..., {self.n_streams}, {C}, {N}], got "
+                f"{tuple(t.shape)}"
+            )
+        return t, callers
+
+    def _keep(self, state: dict, callers: bool) -> dict:
+        # the input-domain carry holds the last chunk: copy it out of the
+        # caller's memory, so that later writes there change no output
+        if callers and "prev" in state:
+            return {"prev": state["prev"].clone()}
+        return state
+
+    def resample(self, chunks):
+        """Step all streams: ``chunks [B, C, N]`` (numpy, or a tensor,
+        ideally already on the fleet's device) -> ``out [B, C, M]``, a
+        tensor on the device."""
+        chunks, callers = self._chunks(chunks, 3)
+        state, out = self._step(self._state, chunks)
+        self._state = self._keep(state, callers)
+        return out
+
+    def resample_many(self, chunks):
+        """Step ``T`` consecutive chunks per stream: ``chunks [T, B, C, N]
+        -> out [T, B, C, M]``, the same steps as ``T`` calls of
+        ``resample``.
+
+        On the magsplit backend chunk ``t >= 1`` goes through the
+        zero-copy pool step (kernel B5): it reads its previous chunk
+        straight from slot ``t-1`` of the caller's stack, the ``[T, B*C,
+        N]`` view of ``chunks``.  Only chunk 0, whose ``prev`` is the
+        carry, takes the fleet step (kernel B4).  Other backends loop the
+        fleet step."""
+        chunks, callers = self._chunks(chunks, 4)
+        T = chunks.shape[0]
+        if self._resolved_backend != "magsplit" or T < 2:
+            state, outs = self._state, []
+            for t in range(T):
+                state, out = self._step(state, chunks[t])
+                outs.append(out)
+            self._state = self._keep(state, callers)
+            return torch.stack(outs)
+        if self._pool_step is None:
+            self._pool_step = fft_engine.make_fft_fleet_step_pool(
+                self._config, self.n_streams, backend=self._backend,
+                device=self._device,
+            )
+        C, N = self._config.channels, self._config.fft_size_input
+        pool = chunks.reshape(T, self.n_streams * C, N)
+        _, out0 = self._step(self._state, chunks[0])
+        outs = [out0]
+        for t in range(1, T):
+            _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
+            outs.append(out)
+        self._state = self._keep({"prev": chunks[T - 1]}, callers)
+        return torch.stack(outs)

@@ -1,0 +1,145 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every source in ``csrc/`` (``_SOURCES``) is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, on first use,
+into the gitignored ``resampler_tpu_torch/_build/``: one ``nvcc`` per
+source, all started together.  The libraries are bound with ``ctypes``.
+Nothing here runs at import time, so the CPU-only tests import every
+module without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "build", "build_log", "launch"]
+
+#: Kernel launches made by each wrapper in this process (a wrapper adds
+#: one where it launches its kernel, and nowhere else).
+LAUNCHES = {
+    "dma_banded_contract": 0,
+    "dma_farrow_contract": 0,
+    "dma_farrow_contract_packed": 0,
+    "magsplit_projector": 0,
+    "magsplit_projector_pool": 0,
+}
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+#: one shared library per source; the header is included by both FIR sources
+_SOURCES = ("fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu")
+_HEADERS = ("tiled_contract.cuh",)
+_BUILD_DIR = _PKG / "_build"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    # buffer, a, out, R, base, L, M, span, K, stream
+    "fir_banded_contract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # buffer, a_blk, block_base, out, R, base, K, q, w, stream
+    "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
+    # ... the same, then the lanes per thread (4 or 1), stream
+    "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
+    # prev, cur, w, out, R, N, M, s, cols, cols_pad, k_pad, r0_step, b0_off,
+    # rows, wc, col_frags, stream
+    "fft_magsplit_projector": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+}
+_libs: dict[str, ctypes.CDLL] = {}
+_lib_lock = threading.Lock()
+#: ``nvcc`` output of the last build in this process (``-Xptxas -v``
+#: register / shared-memory / spill report of every source).
+_build_log = ""
+
+
+def build_log() -> str:
+    return _build_log
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def build() -> dict[str, ctypes.CDLL]:
+    """Compile (once per content of the sources) and load every kernel
+    library: one ``nvcc`` per source, all started together.  A failed
+    build raises with the compiler's output.  Returns the library of each
+    C entry point by name."""
+    global _build_log
+    with _lib_lock:
+        if _libs:
+            return _libs
+        digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+        for name in _HEADERS + _SOURCES:
+            digest.update((_CSRC / name).read_bytes())
+        tag = digest.hexdigest()[:16]
+        sos = {src: _BUILD_DIR / f"lib{Path(src).stem}_{tag}.so" for src in _SOURCES}
+        procs = {}
+        for src, so in sos.items():
+            if not so.exists():
+                if not procs:
+                    nvcc = _nvcc()
+                    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                procs[src] = (tmp, subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ))
+        logs, failed = [], []
+        for src, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            logs.append(f"== {src}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src} (exit code {proc.returncode})")
+            else:
+                os.replace(tmp, sos[src])
+        if procs:
+            _build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{_build_log}")
+        libs = {}
+        for so in sos.values():
+            lib = ctypes.CDLL(str(so))
+            for fn_name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, fn_name, None)
+                if fn is not None:
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    libs[fn_name] = lib
+        _libs.update(libs)
+        return _libs
+
+
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn_name`` with ``args`` and the current
+    stream of ``device``; raise if it returns a CUDA error."""
+    lib = build()[fn_name]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """``"cpu"`` or ``"cuda"``; any other device raises (a wrapper never
+    runs its plain version for a tensor that is not on the CPU)."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return kind

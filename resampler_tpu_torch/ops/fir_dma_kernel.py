@@ -27,27 +27,20 @@ gate (the CUDA kernels mask a ragged lane edge).
 Each wrapper launches its hand-written CUDA kernel (``csrc/``) for CUDA
 tensors, counting the launch in ``LAUNCHES``, and runs its ``*_reference``
 plain PyTorch version only for CPU tensors; there is no fallback between
-the two.  The kernels are compiled with ``nvcc`` for ``sm_90a`` on first
-use (one ``nvcc`` per source, started together) into
-``resampler_tpu_torch/_build/`` and bound with ``ctypes``.
+the two.  ``ops/_build.py`` compiles the kernels with ``nvcc`` for
+``sm_90a`` on first use and binds them with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from ._build import LAUNCHES, device_kind as _device_kind, launch as _launch
+
 __all__ = [
-    "LAUNCHES",
-    "build",
     "dma_banded_contract",
     "dma_banded_contract_reference",
     "dma_farrow_contract",
@@ -55,101 +48,12 @@ __all__ = [
     "dma_farrow_contract_reference",
 ]
 
-#: Kernel launches made by each wrapper in this process.
-LAUNCHES = {
-    "dma_banded_contract": 0,
-    "dma_farrow_contract": 0,
-    "dma_farrow_contract_packed": 0,
-}
-#: ``nvcc`` output of the last build in this process (``-Xptxas -v``
-#: register / shared-memory / spill report of every source).
-BUILD_LOG = ""
-
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-#: one shared library per source; the header is included by both
-_SOURCES = ("fir_banded_contract.cu", "fir_farrow_contract.cu")
-_HEADERS = ("tiled_contract.cuh",)
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_SIGNATURES = {
-    # buffer, a, out, R, base, L, M, span, K, stream
-    "fir_banded_contract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # buffer, a_blk, block_base, out, R, base, K, q, w, stream
-    "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
-    # ... the same, then the lanes per thread (4 or 1), stream
-    "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
-}
 #: B3 keeps a thread block's weights in shared memory: the 48 KB default
 #: less its 4 KB reduction buffer
 _PACKED_SMEM_MAX = 44 * 1024
-_libs: dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
 #: per-device copies of B2/B3's ``block_base`` tables, uploaded once
 _block_base_cache: dict[tuple, torch.Tensor] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-
-
-def build() -> dict[str, ctypes.CDLL]:
-    """Compile (once per content of the sources) and load every kernel
-    library: one ``nvcc`` per source, all started together.  A failed
-    build raises with the compiler's output."""
-    global BUILD_LOG
-    with _lib_lock:
-        if _libs:
-            return _libs
-        digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-        for name in _HEADERS + _SOURCES:
-            digest.update((_CSRC / name).read_bytes())
-        tag = digest.hexdigest()[:16]
-        sos = {src: _BUILD_DIR / f"lib{Path(src).stem}_{tag}.so" for src in _SOURCES}
-        procs = {}
-        for src, so in sos.items():
-            if not so.exists():
-                if not procs:
-                    nvcc = _nvcc()
-                    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                procs[src] = (tmp, subprocess.Popen(
-                    [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                ))
-        logs, failed = [], []
-        for src, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            logs.append(f"== {src}\n{out}")
-            if proc.returncode != 0:
-                failed.append(f"{src} (exit code {proc.returncode})")
-            else:
-                os.replace(tmp, sos[src])
-        if procs:
-            BUILD_LOG = "\n".join(logs)
-        if failed:
-            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{BUILD_LOG}")
-        libs = {}
-        for so in sos.values():
-            lib = ctypes.CDLL(str(so))
-            for fn_name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, fn_name, None)
-                if fn is not None:
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    libs[fn_name] = lib
-        _libs.update(libs)
-        return _libs
 
 
 def _check_tensors(buffer, name: str, weights, nd: int) -> None:
@@ -175,22 +79,6 @@ def _check_rows(base, lo: int, hi: int, ring: int) -> None:
         raise IndexError(
             f"rows [{base + lo}, {base + hi}) fall outside the ring of {ring} rows"
         )
-
-
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = build()[fn_name]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-
-
-def _device_kind(buffer) -> str:
-    kind = buffer.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {buffer.device}")
-    return kind
 
 
 # --------------------------------------------------------------------------

@@ -1,13 +1,19 @@
 """Carry stream state between numpy (and so the JAX package or a
 ``resampler_tpu.utils.checkpoint`` ``.npz``) and the port.
 
-The port keeps a state as a dict: ``buffer`` is a float32 tensor, the
+The port keeps a state as a dict: the carry tensors are float32, the
 schedule scalars are Python ints.  The numpy form follows the JAX
-package's keys and dtypes exactly: ``buffer`` f32, and ``available_frames``
-/ ``pos_num`` (per-stream ``FirState``) or ``start`` / ``fill`` /
-``pos_num`` (sync tm fleet state) as 0-d int32 arrays, and on the wide
-schedule ``pos_hi`` / ``pos_lo`` as 0-d uint32 arrays.  So
-``jax.tree.map(np.asarray, jax_state)`` loads into the port, and
+package's keys and dtypes exactly:
+
+- FIR: ``buffer`` f32 ``[rows, lanes]``, and ``available_frames`` /
+  ``pos_num`` (per-stream ``FirState``) or ``start`` / ``fill`` /
+  ``pos_num`` (sync tm fleet state) as 0-d int32 arrays, and on the wide
+  schedule ``pos_hi`` / ``pos_lo`` as 0-d uint32 arrays;
+- FFT: ``prev`` (magsplit, conv) or ``overlap`` (matmul, fft) f32
+  ``[C, *]`` per stream or ``[B, C, *]`` per fleet, or the pool step's
+  ``prev_idx`` as a 0-d int32 array.
+
+So ``jax.tree.map(np.asarray, jax_state)`` loads into the port, and
 ``state_to_numpy`` output saves with ``save_state`` unchanged.
 """
 
@@ -20,6 +26,8 @@ from ..engine.fir import resolve_device
 
 __all__ = ["state_from_numpy", "state_to_numpy"]
 
+#: carry tensors and the ranks they may have
+_FLOAT_KEYS = {"buffer": (2,), "prev": (2, 3), "overlap": (2, 3)}
 #: schedule scalars and their numpy dtype
 _INT_KEYS = {
     "available_frames": np.int32,
@@ -28,22 +36,26 @@ _INT_KEYS = {
     "fill": np.int32,
     "pos_hi": np.uint32,
     "pos_lo": np.uint32,
+    "prev_idx": np.int32,
 }
 
 
 def state_from_numpy(state_np: dict, device="cuda") -> dict:
-    """A port state on ``device`` from a dict of numpy arrays (the buffer
-    is copied, never aliased)."""
+    """A port state on ``device`` from a dict of numpy arrays (carry
+    tensors are copied, never aliased)."""
     dev = resolve_device(device)
-    if "buffer" not in state_np:
-        raise ValueError("state has no 'buffer'")
+    if not ({"buffer", "prev", "overlap", "prev_idx"} & state_np.keys()):
+        raise ValueError(
+            "state has no carry ('buffer', 'prev', 'overlap' or 'prev_idx')"
+        )
     state = {}
     for key, value in state_np.items():
         arr = np.asarray(value)
-        if key == "buffer":
-            if arr.dtype != np.float32 or arr.ndim != 2:
+        if key in _FLOAT_KEYS:
+            if arr.dtype != np.float32 or arr.ndim not in _FLOAT_KEYS[key]:
                 raise TypeError(
-                    f"buffer must be 2-D float32, got {arr.ndim}-D {arr.dtype}"
+                    f"{key} must be float32 of rank {_FLOAT_KEYS[key]}, got "
+                    f"{arr.ndim}-D {arr.dtype}"
                 )
             state[key] = torch.tensor(arr, dtype=torch.float32, device=dev)
         elif key in _INT_KEYS:
@@ -61,12 +73,12 @@ def state_from_numpy(state_np: dict, device="cuda") -> dict:
 
 
 def state_to_numpy(state: dict) -> dict:
-    """The numpy form of a port state: ``buffer`` f32 on the host, each
-    schedule scalar a 0-d int32 (or, ``pos_hi`` / ``pos_lo``, uint32)
+    """The numpy form of a port state: each carry tensor f32 on the host,
+    each schedule scalar a 0-d int32 (or, ``pos_hi`` / ``pos_lo``, uint32)
     array; raises if one left its type's range."""
     out = {}
     for key, value in state.items():
-        if key == "buffer":
+        if key in _FLOAT_KEYS:
             out[key] = value.detach().cpu().numpy().astype(np.float32, copy=True)
         elif key in _INT_KEYS:
             info = np.iinfo(_INT_KEYS[key])

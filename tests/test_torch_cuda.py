@@ -1,6 +1,6 @@
-"""Tests that need an NVIDIA card: kernels B1-B3 and the fleet (periodic
-and coprime) on the card against the port's plain PyTorch versions and
-the CPU on the same inputs.  They skip
+"""Tests that need an NVIDIA card: kernels B1-B5, the FIR fleet (periodic
+and coprime) and the FFT engine on the card against the port's plain
+PyTorch versions and the CPU on the same inputs.  They skip
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 also runs on a GPU host without JAX (``--noconftest`` skips
 tests/conftest.py, which sets JAX up):
@@ -17,6 +17,7 @@ import torch
 import resampler_tpu_torch as rt
 from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine.fir_fleets import _farrow_tm_plan, _sync_atlas
+from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 
 KERNEL_ATOL = 1e-5  # f32 sums in another order
@@ -161,3 +162,76 @@ def test_coprime_fleet_on_card_matches_cpu(cuda, in_hz, out_hz, path, name):
         produced_steps += int(pd[0]) > 0
     assert produced_steps > 0
     assert kern.LAUNCHES[name] == before + produced_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_in,n_out,R", [(1176, 1280, 256), (588, 1280, 64), (1280, 1176, 37), (1176, 1280, 2)],
+    ids=["bench-pair", "stopband-pair", "ragged-cols-R37", "stereo-R2"],
+)
+def test_magsplit_kernels_match_plain_on_card(cuda, n_in, n_out, R):
+    """B4 and, on a P = 4 pool, B5 against the plain version; a NaN row
+    stays in its row."""
+    plan = mag.plan_magsplit(n_in, n_out)
+    wh, wcorr = mag.magsplit_weights(plan, cuda)
+    rng = np.random.default_rng(5)
+    pool = torch.from_numpy(rng.standard_normal((4, R, n_in), dtype=np.float32)).to(cuda)
+    before = dict(kern.LAUNCHES)
+    got = mag.magsplit_projector(pool[0], pool[1], wh, wcorr, plan=plan)
+    ref = mag.magsplit_projector_reference(pool[0], pool[1], wh, wcorr, plan=plan)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= KERNEL_ATOL
+    for i, j in ((3, 0), (1, 2)):
+        got = mag.magsplit_projector_pool(pool, i, j, wh, wcorr, plan=plan)
+        ref = mag.magsplit_projector_reference(pool[i], pool[j], wh, wcorr, plan=plan)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= KERNEL_ATOL
+    assert kern.LAUNCHES["magsplit_projector"] == before["magsplit_projector"] + 1
+    assert kern.LAUNCHES["magsplit_projector_pool"] == before["magsplit_projector_pool"] + 2
+    bad = pool[2].clone()
+    bad[R // 2, 5] = float("nan")
+    got = mag.magsplit_projector(pool[1], bad, wh, wcorr, plan=plan)
+    ref = mag.magsplit_projector_reference(pool[1], bad, wh, wcorr, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    assert not torch.isfinite(got[R // 2]).all()
+    fin = torch.isfinite(ref)
+    assert (got[fin] - ref[fin]).abs().max().item() <= KERNEL_ATOL
+
+
+@pytest.mark.cuda
+def test_fft_fleet_on_card_matches_cpu(cuda):
+    """``auto`` is magsplit on the card: one B4 launch per fleet step, one
+    B4 and T-1 B5 launches per ``resample_many``, outputs within the
+    device gate of the CPU fleet (plain version)."""
+    B, C = 3, 2
+    dev = rt.BatchedResamplerFft(B, C, 44100, 48000, device=cuda)
+    cpu = rt.BatchedResamplerFft(B, C, 44100, 48000, backend="magsplit", device="cpu")
+    rng = np.random.default_rng(6)
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    for _ in range(3):
+        x = rng.standard_normal((B, C, 1176), dtype=np.float32)
+        assert (dev.resample(x).cpu() - cpu.resample(x)).abs().max().item() <= DEVICE_ATOL
+    x4 = rng.standard_normal((4, B, C, 1176), dtype=np.float32)
+    got = dev.resample_many(torch.from_numpy(x4).to(cuda))
+    assert (got.cpu() - cpu.resample_many(x4)).abs().max().item() <= DEVICE_ATOL
+    assert kern.LAUNCHES == dict(kern.LAUNCHES, magsplit_projector=4, magsplit_projector_pool=3)
+    assert sum(kern.LAUNCHES.values()) == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["magsplit", "matmul", "conv", "fft", "rfft"])
+def test_fft_backends_on_card_match_cpu(cuda, backend):
+    """Every FFT backend on the card against the same backend on the CPU
+    (conv is a strided view and a matmul, not cuDNN, so no TF32)."""
+    dev = rt.ResamplerFft(2, 22050, 48000, backend=backend, device=cuda)
+    cpu = rt.ResamplerFft(2, 22050, 48000, backend=backend, device="cpu")
+    rng = np.random.default_rng(7)
+    od = np.zeros(dev.chunk_size_output(), np.float32)
+    oc = np.zeros_like(od)
+    for _ in range(4):
+        x = rng.standard_normal(dev.chunk_size_input()).astype(np.float32)
+        dev.resample(x, od)
+        cpu.resample(x, oc)
+        assert np.abs(od - oc).max() <= DEVICE_ATOL

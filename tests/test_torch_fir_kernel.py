@@ -14,6 +14,7 @@ import torch
 from resampler_tpu.ops.fir_dma_kernel import dma_banded_contract as jax_dma
 from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine.fir_fleets import _sync_atlas
+from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.types import Attenuation, reduce_ratio
 
@@ -115,10 +116,10 @@ def test_wrapper_checks_arguments():
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(kern, "_libs", {})
-    monkeypatch.setattr(kern, "_BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(kern.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        kern.build()
+        _build.build()
 

@@ -34,6 +34,27 @@ _BLOCKED_STEP = textwrap.dedent(
         c = rt.ResamplerFir(2, in_hz, out_hz, rt.Latency.Sample32, device="cpu")
         consumed, produced = c.resample(x, out)
         assert consumed == 1200 and produced > 0, (in_hz, consumed, produced)
+    # the FFT engine: per stream and as a fleet, the magsplit plain version
+    r = rt.ResamplerFft(2, 22050, 48000, backend="magsplit", device="cpu")
+    y = r.process(np.random.default_rng(1).standard_normal(3000).astype(np.float32))
+    assert y.size == -(-3000 * 1280 // 588) and np.isfinite(y).all()
+    f = rt.BatchedResamplerFft(2, 2, 22050, 48000, backend="magsplit", device="cpu")
+    o = f.resample_many(np.ones((3, 2, 2, 588), np.float32))
+    assert tuple(o.shape) == (3, 2, 2, 1280)
+    import torch
+    for make in (
+        lambda: rt.ResamplerFft(2, 44100, 48000),
+        lambda: rt.BatchedResamplerFft(2, 2, 44100, 48000),
+        lambda: rt.ResamplerFir(2, 44100, 48000),
+    ):
+        if torch.cuda.is_available():
+            break
+        try:
+            make()  # device="cuda" is the default, and there is no card here
+        except RuntimeError as e:
+            assert "cuda" in str(e).lower(), e
+        else:
+            raise AssertionError("device='cuda' without a GPU did not raise")
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules
                    if sys.modules[m] is not None)
     print("ok")
@@ -55,11 +76,11 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_jax_package_numpy_modules_import_no_jax():
-    """The two numpy-only modules the port copied really are JAX-free."""
+    """The numpy-only modules the port copied really are JAX-free."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
-        "import resampler_tpu.types, resampler_tpu.dsp.window\n"
+        "import resampler_tpu.types, resampler_tpu.dsp.window, resampler_tpu.dsp.planner\n"
         "print('ok')\n"
     )
     proc = _run(code)
