@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and precision: a CUDA card, both TF32 flags off, the card's
    name and power limit from nvidia-smi;
 2. build kernels B1 (csrc/fir_banded_contract.cu), B2/B3
-   (csrc/fir_farrow_contract.cu) and B4/B5 (csrc/fft_magsplit.cu) with
-   nvcc for sm_90a, one nvcc per source, started together;
+   (csrc/fir_farrow_contract.cu), B4/B5 (csrc/fft_magsplit.cu) and B6
+   (csrc/fir_async_combine.cu) with nvcc for sm_90a, one nvcc per source,
+   started together;
 3. each kernel against its plain version on the card at the main paths'
    shapes (plus a grouped small-M shape and ragged fleets), odd bases and
    the top bound, timed with CUDA events against its bound; B1 also
@@ -50,7 +51,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fft_bench_pair_floor_db`` (1176 -> 1280, 8 streams, against f64)
    and ``fft_stopband_db`` (22.05 -> 48 kHz impulse), each >= 99 dB;
 10. the per-stream ``ResamplerFft.process`` on the card against the CPU,
-   magsplit (auto) and matmul.
+   magsplit (auto) and matmul;
+11. kernel B6 (csrc/fir_async_combine.cu) against its plain version at the
+   async fleet's shapes (R 2048 unless noted): (a) 44100 -> 44101, taps
+   128, max_out 2176, skew 1; (b) 22050 -> 96000, skew 2; (c) 48000 ->
+   44101; (d) the wide 4000000000 -> 4000000001; (e) 367500 -> 1601; (f)
+   a ragged R of 6; (g) a starved state whose frame skew passes
+   skew_periods; every case at several bases and n_out bounds, timed
+   with CUDA events against its bound;
+12. the async multi-tenant fleet at full width,
+   ``BatchedResamplerFir(1024, 2, ..., sync_variant="async_tm",
+   max_chunk=2048, horizon=16, max_out=2176, initial_positions=...)``, at
+   44100 -> 44101 and 4000000000 -> 4000000001: 40 ``resample`` calls
+   and one ``resample_many(T=8)``, a per-stream slew part-way; exactly one
+   B6 launch per step and no other kernel, the schedule against a host
+   recomputation, streams 0-3 against a CPU fleet that holds them and the
+   streams that set the schedule, Msamples/s, then a profile of 10 steps;
+13. card against CPU on small async fleets (narrow and wide, distinct
+   phases, compactions, NaN junk past the valid frames);
+14. alias rejection of a 23 kHz tone through B6 (48000 -> 44101 Hz,
+   >= 100 dB and within 0.5 dB of the CPU port);
+15. ``StreamingFleet(1024, 2, ..., synchronized="async")`` on the card
+   with ragged pushes against the CPU ``StreamingFleet``, with the host
+   pool's drain timed beside the step.
 
 It prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -74,17 +97,20 @@ from resampler_tpu_torch import (
     Latency,
     ResamplerFft,
     ResamplerFir,
+    StreamingFleet,
 )
 from resampler_tpu_torch.engine import fft as fft_engine
 from resampler_tpu_torch.engine import fir_fleets
 from resampler_tpu_torch.engine.fir import (
     FirConfig,
     _periodic_group_factor,
+    farrow_matrix,
     fir_coefficients,
     fir_cutoff,
 )
 from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
+from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.ops.matmul3 import split_hi_lo
 from resampler_tpu_torch.types import reduce_ratio
@@ -111,6 +137,8 @@ SOURCES = {
                            "resampler_tpu/ops/fft_magsplit_kernel.py:288"),
     "magsplit_projector_pool": ("resampler_tpu_torch/csrc/fft_magsplit.cu",
                                 "resampler_tpu/ops/fft_magsplit_kernel.py:332"),
+    "async_combine": ("resampler_tpu_torch/csrc/fir_async_combine.cu",
+                      "resampler_tpu/ops/fir_async_kernel.py:294"),
 }
 
 
@@ -382,7 +410,8 @@ def expected_schedule(cfg: FirConfig, n_valids):
 def profile_steps(fleet, chunks, n=10):
     """Device time per step by kernel over ``n`` warm steps
     (torch.profiler, kernel events only), the device's busy share of the
-    wall time, and the host ops that take the most host time."""
+    wall time, and the host ops that take the most host time.  Returns
+    the device us/step of each kernel by name ({} if none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -402,7 +431,7 @@ def profile_steps(fleet, chunks, n=10):
     dev_us = sum(us for us, _ in kernels)
     if dev_us <= 0:
         print("    profile: no device time recorded (not measured)")
-        return
+        return {}
     print(f"    profile over {n} warm steps: device {dev_us:.1f} us/step of {wall_us:.1f} us/step "
           f"wall under the profiler (busy {100 * dev_us / wall_us:.1f}%); kernels, us/step:")
     for us, key in kernels[:7]:
@@ -416,6 +445,7 @@ def profile_steps(fleet, chunks, n=10):
           "profiled ops; top by self time, us/step (calls/step):")
     for us, count, key in host[:6]:
         print(f"      {us:9.1f}  ({count})  {key[:60]}")
+    return {key: us for us, key in kernels}
 
 
 def phase_fleet(device, smi, label, in_hz, out_hz, kernel_name, path="auto", B=1024, C=2,
@@ -508,14 +538,18 @@ def phase_fleet(device, smi, label, in_hz, out_hz, kernel_name, path="auto", B=1
 
 
 def phase_differential(device, in_hz, out_hz, path="auto", B=3, C=2, max_chunk=512,
-                       horizon=3, n_steps=36):
-    kw = dict(synchronized=True, max_chunk=max_chunk, horizon=horizon, path=path)
+                       horizon=3, n_steps=36, **fleet_kw):
+    """Card against CPU; ``fleet_kw`` selects the async fleet
+    (``sync_variant``, ``initial_positions``), whose positions are ``[B]``
+    arrays and whose every step launches B6 once."""
+    kw = dict(synchronized=True, max_chunk=max_chunk, horizon=horizon, path=path, **fleet_kw)
     args = (B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90)
     dev = BatchedResamplerFir(*args, device=device, **kw)
     cpu = BatchedResamplerFir(*args, device="cpu", **kw)
     rng = np.random.default_rng(11)
     err = 0.0
     fills = []
+    b6_before = _build.LAUNCHES["async_combine"]
     for i in range(n_steps):
         nv = max_chunk if i % 3 == 0 else int(rng.integers(0, max_chunk + 1))
         chunks = rng.standard_normal((B, max_chunk, C), dtype=np.float32)
@@ -525,16 +559,21 @@ def phase_differential(device, in_hz, out_hz, path="auto", B=3, C=2, max_chunk=5
         check(np.array_equal(cd, cc) and np.array_equal(pd, pc), f"ints at step {i}")
         err = max(err, float((od.cpu() - oc).abs().max()), abs(float(kd) - float(kc)))
         if i == 10:
-            check(dev.slew(0.3) == cpu.slew(0.3), "slew")
+            check(np.array_equal(dev.slew(0.3), cpu.slew(0.3)), "slew")
         sd, sc = dev.state, cpu.state
-        check(all(sd[k] == sc[k] for k in sc if k != "buffer"), f"state ints at step {i}")
+        check(all(np.array_equal(sd[k], sc[k]) for k in sc if k != "buffer"), f"state ints at step {i}")
         check(torch.equal(sd["buffer"].cpu(), sc["buffer"]), f"ring bit-equal at step {i}")
         fills.append(sd["fill"])
     check(err <= DEVICE_ATOL, f"card vs CPU {in_hz}->{out_hz}: {err:.3e} > {DEVICE_ATOL}")
     compactions = sum(b < a for a, b in zip(fills, fills[1:]))
     check(compactions >= 2, "differential crosses >= 2 compactions")
-    print(f"[5] card vs CPU, {in_hz} -> {out_hz} Hz ({path}): {B}-stream stereo fleet, {n_steps} "
-          f"steps, {compactions} compactions: ints equal, ring bit-equal, max |card - CPU| = {err:.3e}")
+    b6_launches = _build.LAUNCHES["async_combine"] - b6_before
+    variant = fleet_kw.get("sync_variant", "tm")
+    check(b6_launches == (n_steps if variant == "async_tm" else 0),
+          f"{variant}: {b6_launches} B6 launches in {n_steps} steps")
+    print(f"[{13 if variant == 'async_tm' else 5}] card vs CPU, {in_hz} -> {out_hz} Hz ({variant}, {path}): "
+          f"{B}-stream stereo fleet, {n_steps} steps, {compactions} compactions, {b6_launches} B6 launches: "
+          f"ints equal, ring bit-equal, max |card - CPU| = {err:.3e}")
     return err
 
 
@@ -543,10 +582,10 @@ def phase_differential(device, in_hz, out_hz, path="auto", B=3, C=2, max_chunk=5
 # --------------------------------------------------------------------------
 
 
-def alias_db(device, in_hz, out_hz, B=2, C=2, max_chunk=4096):
+def alias_db(device, in_hz, out_hz, B=2, C=2, max_chunk=4096, **fleet_kw):
     fleet = BatchedResamplerFir(
         B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90,
-        synchronized=True, max_chunk=max_chunk, device=device,
+        synchronized=True, max_chunk=max_chunk, device=device, **fleet_kw,
     )
     t = np.arange(in_hz) / in_hz
     tone = (0.5 * np.sin(2 * np.pi * 23000 * t)).astype(np.float32)
@@ -868,6 +907,294 @@ def phase_fft_per_stream(device):
         print(f"[10] ResamplerFft.process(1 s stereo, 44100 -> 48000 Hz, backend {backend}) on the card "
               f"vs CPU ({cpu_backend}): {y_dev.size} values, max err {err:.3e}, {launched} B4 launches")
 
+# --------------------------------------------------------------------------
+# phases 11-15: the async multi-tenant fleet and kernel B6
+# --------------------------------------------------------------------------
+
+
+def async_max_out(in_hz, out_hz, chunk=2048):
+    """The serving bound of bench.py's async rows: steady state + slack."""
+    L, M = reduce_ratio(in_hz, out_hz)
+    return (chunk * M) // L + 128
+
+
+def async_plan(in_hz, out_hz, taps, skew, chunk=2048):
+    L, M = reduce_ratio(in_hz, out_hz)
+    cfg = FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
+    out_cap = min(cfg.out_capacity, async_max_out(in_hz, out_hz, chunk))
+    plan = b6.async_combine_plan(
+        A=farrow_matrix(coeffs_for(in_hz, out_hz, taps))[0], L=L, M=M, out_cap=out_cap,
+        skew_periods=skew, clamp_j=cfg.input_capacity + 2 if cfg.wide else None,
+    )
+    return cfg, plan
+
+
+def async_bound(plan, L, n_out, res, R, C):
+    """B6's least time for one call: the basis responses each lane's
+    emitted outputs need (8 x taps multiply-adds at each distinct row
+    ``floor((res + n*L)/M)``, n < n_out) plus the 8-term combine of every
+    emitted output, at the f32 peak; against the ring rows those outputs
+    cover (read once), the output written once and the lane words."""
+    M, d1, taps = plan.M, plan.d1, plan.taps
+    rows = 0
+    n = np.arange(max(n_out, 1), dtype=np.int64)
+    for lane_res in np.unique(res):
+        f = (int(lane_res) + n[:n_out] * L) // M
+        rows += (1 + int((np.diff(f) > 0).sum()) if n_out else 0) * int((res == lane_res).sum())
+    flop = 2 * d1 * taps * rows + 2 * d1 * n_out * R
+    covered = np.zeros(plan.reach + 1, bool)
+    for j in plan.j[:n_out]:
+        covered[j : j + 2 + taps + plan.skew - 1] = True
+    nbytes = 4 * (int(covered.sum()) * R + plan.out_cap * R) + 16 * R
+    return bound_ms(flop, nbytes) + (flop, nbytes)
+
+
+def phase_async_kernel(device, cases):
+    """B6 against its plain version at each case's bases and ``n_out``
+    bounds; each case's times (plain, kernel, kernel, plain) against its
+    bound.  The main case (the first) gives the kernel's line.  No single
+    PyTorch call computes B6 (per-lane row offsets and per-stream skews
+    are no uniform stride), so it has no library time."""
+    entry = None
+    worst = 0.0
+    for n, (name, in_hz, out_hz, taps, R, skew, starved) in enumerate(cases):
+        L, M = reduce_ratio(in_hz, out_hz)
+        cfg, plan = async_plan(in_hz, out_hz, taps, skew)
+        ring = fir_fleets._ring_rows(cfg, 2048, 16)
+        rng = np.random.default_rng(20 + n)
+        buf = torch.from_numpy(rng.standard_normal((ring, R), dtype=np.float32)).to(device)
+        C = 2 if R % 2 == 0 else 1
+        res = np.repeat(rng.integers(0, M, R // C), C)
+        base_rel = np.repeat(rng.integers(0, skew + 1 + (6 if starved else 0), R // C), C)
+        check(not starved or int(base_rel.max()) > skew, f"{name}: the skew passes skew_periods")
+        lanes = torch.from_numpy(np.stack([res, base_rel])).to(device)
+        top = ring - plan.reach
+        n_main = min(plan.out_cap, (2048 * M) // L)  # a steady-state step's emitted outputs
+        err = 0.0
+        calls = 0
+        for base0 in (0, 1, 3, 2 * (ring // 4) + 1, top):
+            for n_out in {n_main, plan.out_cap, 1, 0}:
+                got = b6.async_combine(buf, base0, n_out, lanes, plan)
+                ref = b6.async_combine_reference(buf, base0, n_out, lanes, plan)
+                err = max(err, float((got - ref).abs().max()))
+                check(bool((got[n_out:] == 0).all()), f"B6 {name}: masked lanes are zero")
+                calls += 1
+        torch.cuda.synchronize()
+        check(err <= KERNEL_ATOL, f"B6 vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
+        worst = max(worst, err)
+        rot = np.linspace(0, top, 8).astype(int).tolist()
+        ms, plain_ms, t = timed_pair(
+            lambda i: b6.async_combine(buf, rot[i % 8], n_main, lanes, plan),
+            lambda i: b6.async_combine_reference(buf, rot[i % 8], n_main, lanes, plan),
+        )
+        b_ms, b_by, flop, nbytes = async_bound(plan, L, n_main, res, R, C)
+        print(f"[11] B6 {name}: ring [{ring}, {R}], L/M {L}/{M}, out_cap {plan.out_cap}, skew {skew}: "
+              f"max |kernel - plain| = {err:.3e} over {calls} calls")
+        print(f"    n_out {n_main}: kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per "
+              f"call; kernel {flop / ms / 1e9:.2f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}: "
+              f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% of it reached)")
+        if entry is None:
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del buf
+    torch.cuda.empty_cache()
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def async_positions(state, M, wide):
+    """Each stream's exact position, in 1/M input frames."""
+    if wide:
+        return [int(h) * M + int(lo) for h, lo in zip(state["pos_hi"], state["pos_lo"])]
+    return [int(p) for p in state["pos_num"]]
+
+
+def expected_async_schedule(cfg, out_cap, pos, n_valid):
+    """One async step as plain integer arithmetic on exact positions:
+    ``(to_copy, n_out, consumed, positions')``.  The laggard (max) bounds
+    the emission, the leader (min) the consumption."""
+    L, M, cap, taps = cfg.ratio_num, cfg.ratio_den, cfg.input_capacity, cfg.taps
+    avail, pos = pos[0], pos[1]
+    to_copy = min(n_valid, cap - avail)
+    avail += to_copy
+    limit = (avail - taps + 1) * M - max(pos)
+    n_out = min(-(-limit // L) if limit > 0 else 0, out_cap)
+    after = [p + n_out * L for p in pos]
+    consumed = min(min(after) // M, avail)
+    return to_copy, n_out, consumed, (avail - consumed, [p - consumed * M for p in after])
+
+
+def phase_async_fleet(device, smi, label, in_hz, out_hz, B=1024, C=2, max_chunk=2048, horizon=16,
+                      n_steps=40, T=8, nbuf=8, warm=8, slew_at=20):
+    """The async multi-tenant fleet at full width: every stream joins at
+    its own phase; four streams are slewed part-way (toward the middle of
+    the fleet's spread, so the skew invariant holds)."""
+    L, M = reduce_ratio(in_hz, out_hz)
+    max_out = async_max_out(in_hz, out_hz, max_chunk)
+    rng = np.random.default_rng(7)
+    phases = rng.integers(0, M, B)
+    kw = dict(synchronized=True, sync_variant="async_tm", max_chunk=max_chunk, horizon=horizon,
+              max_out=max_out)
+    torch.cuda.reset_peak_memory_stats()
+    fleet = BatchedResamplerFir(B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90, device=device,
+                                initial_positions=phases, **kw)
+    cfg, wide = fleet.config, fleet.config.wide
+    out_cap = min(cfg.out_capacity, max_out)
+    chunks_np = [rng.standard_normal((B, max_chunk, C), dtype=np.float32) for _ in range(nbuf)]
+    chunks = [torch.from_numpy(c).to(device) for c in chunks_np]
+    many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
+    lo, hi = int(phases.argmin()), int(phases.argmax())
+    order = np.argsort(phases)
+    slewed = [int(b) for b in order[B // 4 : B // 4 + 2]] + [int(b) for b in order[-B // 4 - 2 : -B // 4]]
+    mirror = sorted({0, 1, 2, 3, lo, hi, *slewed})
+    mirror_idx = torch.tensor(mirror, device=device)
+    torch.cuda.synchronize()
+
+    zero_launches()  # count only this path's own launches
+    small, steps, fills, peaks = [], [], [], []
+    slew_vec = np.zeros(B)
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        if i == slew_at:
+            pos = async_positions(fleet.state, M, wide)
+            mid = (min(pos) + max(pos)) / 2
+            slew_vec[slewed] = [0.5 * (mid - pos[b]) / M for b in slewed]
+            applied = fleet.slew(slew_vec)
+        out, c, p, peak = fleet.resample(chunks[i % nbuf])
+        small.append(out.index_select(0, mirror_idx))
+        steps.append((int(c[0]), int(p[0])))
+        fills.append(fleet.state["fill"])
+        peaks.append(peak)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    dt, dt_warm = t_end - t0, t_end - t_warm
+    t1 = time.perf_counter()
+    outs, cs, ps, peak_many = fleet.resample_many(many)
+    torch.cuda.synchronize()
+    dt_many = time.perf_counter() - t1
+    launches = dict(_build.LAUNCHES)
+    steps += list(zip(cs.tolist(), ps.tolist()))
+
+    # the schedule, recomputed on the host from the exact positions (out of
+    # the timed loop)
+    check(np.count_nonzero(applied) == len(slewed), f"{label}: the slew moved {slewed}")
+    moved = np.round(applied * M).astype(np.int64).tolist()
+    sched = (0, [int(p) for p in phases])
+    for i, step in enumerate(steps):
+        if i == slew_at:
+            sched = (sched[0], [p + d for p, d in zip(sched[1], moved)])
+        to_copy, n_out, _, sched = expected_async_schedule(cfg, out_cap, sched, max_chunk)
+        check((to_copy, n_out) == step, f"{label}: step {i} {step} == host schedule {(to_copy, n_out)}")
+    check(async_positions(fleet.state, M, wide) == sched[1], f"{label}: positions == host schedule")
+    check(fleet.state["fill"] - fleet.state["start"] == sched[0], f"{label}: buffered frames == host schedule")
+    total = n_steps + T
+    check(launches == dict({k: 0 for k in launches}, async_combine=total),
+          f"{label}: exactly one B6 launch per step and nothing else: {launches}")
+    compactions = sum(b < a for a, b in zip(fills, fills[1:]))
+    check(compactions >= 2, f"{label}: {compactions} compactions >= 2")
+    check(tuple(out.shape) == (B, out_cap, C) and tuple(outs.shape) == (T, B, out_cap, C), f"{label}: shapes")
+    check(bool(torch.isfinite(torch.stack(peaks)).all()) and bool(torch.isfinite(outs).all()),
+          f"{label}: finite outputs")
+    check(float(peak_many) > 0 and all(p > 0 for _, p in steps[1:]), f"{label}: every step emits")
+
+    # the streams that set the schedule (laggard, leader), the slewed ones
+    # and streams 0-3 replay on a CPU fleet of just those streams
+    cpu = BatchedResamplerFir(len(mirror), C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90,
+                              device="cpu", initial_positions=phases[mirror], **kw)
+    err = 0.0
+    for i in range(total):
+        if i == slew_at:
+            cpu.slew(slew_vec[mirror])
+        ref, c, p, _ = cpu.resample(chunks_np[i % nbuf][mirror])
+        check((int(c[0]), int(p[0])) == steps[i], f"{label}: CPU mirror schedule at step {i}")
+        got = small[i] if i < n_steps else outs[i - n_steps, mirror]
+        err = max(err, float((got.cpu() - ref).abs().max()))
+    check(err <= DEVICE_ATOL, f"{label}: vs CPU mirror {err:.3e} > {DEVICE_ATOL}")
+
+    def rate(step_slice, seconds):
+        return sum(p for _, p in step_slice) * B * C / seconds / 1e6
+
+    print(f"[12] {label}: {B} streams x {C} ch, {in_hz} -> {out_hz} Hz taps 128, max_out {max_out}, "
+          f"phases uniform in [0, M); {total} steps ({compactions} compactions), slew of streams {slewed} "
+          f"at step {slew_at}; launches {launches}; schedule == host recomputation; streams {mirror} vs "
+          f"CPU fleet max err {err:.3e}")
+    print(f"    fleet: {rate(steps[warm:n_steps], dt_warm):.1f} Msamples/s over resample() calls "
+          f"{warm + 1}-{n_steps} ({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step); all {n_steps} calls "
+          f"{rate(steps[:n_steps], dt):.1f}; first resample_many(T={T}) {rate(steps[n_steps:], dt_many):.1f} "
+          f"Msamples/s [output frames x streams x channels per second, bench.py's async count; card: {smi}]")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_kernel = profile_steps(fleet, chunks)
+    b6_us = sum(us for key, us in per_kernel.items() if "async_combine" in key)
+    n_out = steps[n_steps - 1][1]
+    _, plan = async_plan(in_hz, out_hz, 128, 1)
+    b_ms, b_by, _, _ = async_bound(plan, L, n_out, np.repeat(phases % M, C), B * C, C)
+    print(f"    B6 in the profile: {b6_us / 1e3:.4f} ms/step against its bound {b_ms:.4f} ms ({b_by}) "
+          f"at n_out {n_out} ({100 * b_ms * 1e3 / b6_us if b6_us else 0:.1f}% of it reached)")
+    del fleet, chunks, many, outs, small
+    torch.cuda.empty_cache()
+    return launches["async_combine"]
+
+
+def phase_async_alias(device):
+    before = _build.LAUNCHES["async_combine"]
+    kw = dict(sync_variant="async_tm", initial_positions=[0, 44101 // 2])
+    db, n = alias_db(device, 48000, 44101, **kw)
+    launches = _build.LAUNCHES["async_combine"] - before
+    db_cpu, _ = alias_db("cpu", 48000, 44101, **kw)
+    check(launches > 0, "the coprime tone ran through B6")
+    check(abs(db - db_cpu) <= 0.5, f"B6 alias {db:.2f} dB vs CPU port {db_cpu:.2f} dB")
+    check(db >= 100.0, f"B6 alias rejection {db:.1f} dB >= 100")
+    print(f"[14] alias rejection through B6 (async fleet, 48000 -> 44101 Hz, 23 kHz tone): {db:.2f} dB "
+          f"over {n} frames, {launches} launches; CPU port {db_cpu:.2f} dB")
+
+
+def phase_async_streaming(device, smi, B=1024, C=2, chunk=1024, n_steps=6):
+    """The serving runtime on the async fleet: ragged pushes per stream,
+    each stream at its own phase, against the CPU runtime fed the same."""
+    M = reduce_ratio(44100, 44101)[1]
+    rng = np.random.default_rng(3)
+    kw = dict(chunk_frames=chunk, synchronized="async", initial_positions=rng.integers(0, M, B))
+    args = (B, C, 44100, 44101, Latency.Sample64, Attenuation.Db90)
+    dev = StreamingFleet(*args, device=device, **kw)
+    cpu = StreamingFleet(*args, device="cpu", **kw)
+    fill_s, engine_s = [], []
+
+    def timed(fn, into):
+        def call(*args):
+            t = time.perf_counter()
+            got = fn(*args)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t)
+            return got
+        return call
+
+    dev.pool.fill = timed(dev.pool.fill, fill_s)
+    dev.engine.resample = timed(dev.engine.resample, engine_s)
+    launches0 = _build.LAUNCHES["async_combine"]
+    err, produced, step_s = 0.0, 0, []
+    for _ in range(n_steps):
+        for b in range(B):
+            x = rng.standard_normal(C * int(rng.integers(chunk // 2, 2 * chunk))).astype(np.float32)
+            check(dev.push(b, x) == x.size and cpu.push(b, x) == x.size, "push accepted")
+        t = time.perf_counter()
+        ys = dev.step()
+        step_s.append(time.perf_counter() - t)
+        for y, yc in zip(ys, cpu.step()):
+            check(y.shape == yc.shape and bool(np.isfinite(y).all()), "async StreamingFleet outputs")
+            err = max(err, float(np.abs(y - yc).max(initial=0.0)))
+        produced += ys[0].size // C
+    launches = _build.LAUNCHES["async_combine"] - launches0
+    check(err <= DEVICE_ATOL, f"async StreamingFleet card vs CPU {err:.3e} > {DEVICE_ATOL}")
+    check(launches == n_steps and produced > 0, f"async StreamingFleet: {launches} B6 launches, {produced} frames")
+    print(f"[15] StreamingFleet({B}, {C}, 44100 -> 44101, synchronized='async', chunk {chunk}) on the card: "
+          f"{n_steps} steps of ragged pushes, {produced} frames per stream, {launches} B6 launches; every "
+          f"stream vs the CPU runtime max err {err:.3e}; step {1e3 * np.mean(step_s[1:]):.1f} ms of which "
+          f"the host pool's drain {1e3 * np.mean(fill_s[1:]):.1f} ms and the fleet step "
+          f"{1e3 * np.mean(engine_s[1:]):.1f} ms (steps 2-{n_steps}, host clock; card: {smi})")
+
+
 
 def main() -> None:
     smi = phase_device()
@@ -911,6 +1238,28 @@ def main() -> None:
         launches[name] = fft_launches[name]
     phase_fft_quality(device)
     phase_fft_per_stream(device)
+    entries["async_combine"] = phase_async_kernel(device, [
+        ("(a) main 44100->44101 taps 128, 1024x2", 44100, 44101, 128, 2048, 1, False),
+        ("(b) 22050->96000 skew 2, 1024x2", 22050, 96000, 128, 2048, 2, False),
+        ("(c) downsampling 48000->44101, 1024x2", 48000, 44101, 128, 2048, 1, False),
+        ("(d) wide 4000000000->4000000001, 1024x2", 4_000_000_000, 4_000_000_001, 128, 2048, 1, False),
+        ("(e) heavy downsampling 367500->1601, 1024x2", 367500, 1601, 128, 2048, 1, False),
+        ("(f) ragged 44100->44101, R 6", 44100, 44101, 128, 6, 1, False),
+        ("(g) starved, base_rel past skew_periods, 1024x2", 44100, 44101, 128, 2048, 1, True),
+    ])
+    launches["async_combine"] = sum(
+        phase_async_fleet(device, smi, label, in_hz, out_hz)
+        for label, in_hz, out_hz in (
+            ("async fleet", 44100, 44101),
+            ("async fleet, wide", 4_000_000_000, 4_000_000_001),
+        )
+    )
+    for in_hz, out_hz in ((44100, 44101), (600011, 600013)):
+        M = reduce_ratio(in_hz, out_hz)[1]
+        phase_differential(device, in_hz, out_hz, horizon=2, sync_variant="async_tm",
+                           initial_positions=[0, M // 3, M - 1])
+    phase_async_alias(device)
+    phase_async_streaming(device, smi)
     print(json.dumps({"kernels": [
         {
             "name": name,

@@ -13,7 +13,12 @@ engine on every backend (``magsplit``, ``matmul``, ``conv``,
 ``fft``/``rfft``), per stream (``ResamplerFft``) and as a fleet
 (``BatchedResamplerFft``, with ``resample_many`` over the zero-copy chunk
 pool), whose production magsplit backend runs hand-written CUDA kernels
-on the card (``ops/fft_magsplit_kernel.py``: B4, and B5 for the pool).
+on the card (``ops/fft_magsplit_kernel.py``: B4, and B5 for the pool);
+the async multi-tenant FIR fleet
+``BatchedResamplerFir(synchronized=True, sync_variant="async_tm")``
+(per-stream join phases and slew on one ring, kernel B6,
+``ops/fir_async_kernel.py``); and the serving runtime ``StreamingFleet``
+(``synchronized=True`` or ``"async"``) over a host staging pool.
 Every public constructor takes ``device="cuda"`` (the default; it raises
 without a GPU) or ``"cpu"``, which must be asked for.
 """
@@ -21,6 +26,7 @@ without a GPU) or ``"cpu"``, which must be asked for.
 from .engine.batched import BatchedResamplerFft, BatchedResamplerFir
 from .engine.fft import ResamplerFft
 from .engine.fir_wrapper import ResamplerFir
+from .runtime import StreamingFleet
 from .types import (
     Attenuation,
     InvalidInputBufferSize,
@@ -43,4 +49,5 @@ __all__ = [
     "ResamplerFir",
     "SampleRate",
     "SampleRateFamily",
+    "StreamingFleet",
 ]

@@ -2,9 +2,10 @@
 ``resampler_tpu.engine.batched``.
 
 - ``BatchedResamplerFir``: the phase-locked time-major fleet
-  (``synchronized=True, sync_variant="tm"``) only, on every ratio and
-  convolve path it serves (``path="periodic" | "farrow" | "lerp"``, the
-  wide u32 schedule);
+  (``synchronized=True, sync_variant="tm"``) on every ratio and convolve
+  path it serves (``path="periodic" | "farrow" | "lerp"``, the wide u32
+  schedule), and the async time-major fleet (``sync_variant="async_tm"``:
+  per-stream join phases and slew, kernel B6);
 - ``BatchedResamplerFft``: the FFT fleet on every backend, with
   ``resample_many`` over the zero-copy pool step on the magsplit backend.
 
@@ -21,7 +22,12 @@ from ..dsp.planner import plan_conversion
 from ..types import Attenuation, Latency, SampleRate, reduce_ratio
 from . import fft as fft_engine
 from .fir import FirConfig, fir_coefficients, fir_cutoff, resolve_device
-from .fir_fleets import fir_fleet_init_sync_tm, make_fir_fleet_step_sync_tm
+from .fir_fleets import (
+    fir_fleet_init_async_tm,
+    fir_fleet_init_sync_tm,
+    make_fir_fleet_step_async_tm,
+    make_fir_fleet_step_sync_tm,
+)
 
 __all__ = ["BatchedResamplerFir", "BatchedResamplerFft"]
 
@@ -29,9 +35,12 @@ __all__ = ["BatchedResamplerFir", "BatchedResamplerFft"]
 class BatchedResamplerFir:
     """``n_streams`` FIR resamplers stepped as one fleet on ``device``.
 
-    All streams share one configuration and, in the synchronized fleet,
-    one exact schedule (the common fleet-serving case: every stream is fed
-    the same number of frames per step).  Chunks arrive batch-major
+    All streams share one configuration and the chunk cadence (every
+    stream is fed the same number of frames per step).  In the
+    synchronized fleet (``sync_variant="tm"``) they share one exact
+    schedule; in the async fleet (``sync_variant="async_tm"``) each keeps
+    its own position (``initial_positions``, per-stream ``slew``) within a
+    spread of ``skew_periods`` input frames.  Chunks arrive batch-major
     ``[B, n, C]`` and are relaid to the ring's time-major ``[n, B*C]``
     feed (lane ``b*C + c``).
     """
@@ -51,6 +60,9 @@ class BatchedResamplerFir:
         sync_variant: str = "tm",
         max_chunk: int = 2048,
         horizon: int = 16,
+        max_out: int | None = None,
+        initial_positions=None,
+        skew_periods: int = 1,
         device="cuda",
     ) -> None:
         if mesh is not None:
@@ -66,12 +78,21 @@ class BatchedResamplerFir:
             raise NotImplementedError(
                 "sync_variant='slide' is not ported yet (ROADMAP A6)"
             )
-        if sync_variant == "async_tm":
-            raise NotImplementedError(
-                "sync_variant='async_tm' is not ported yet (ROADMAP A8)"
-            )
-        if sync_variant != "tm":
+        if sync_variant not in ("tm", "async_tm"):
             raise ValueError(f"unknown sync_variant {sync_variant!r}")
+        self._async = sync_variant == "async_tm"
+        if path != "auto" and self._async:
+            raise ValueError(
+                "path= requires the synchronized tm fleet (sync_variant='tm'); "
+                "the 'async_tm' variant picks its own convolve structure"
+            )
+        if initial_positions is not None and not self._async:
+            # a silent drop would give every stream phase 0 with no error
+            raise ValueError(
+                "initial_positions requires the async fleet "
+                "(synchronized=True, sync_variant='async_tm'); the "
+                "synchronized variant shares one schedule"
+            )
         L, M = reduce_ratio(int(input_rate), int(output_rate))
         self._config = FirConfig(
             channels=channels, taps=latency.taps, ratio_num=L, ratio_den=M
@@ -80,19 +101,26 @@ class BatchedResamplerFir:
         self.n_streams = n_streams
         self.synchronized = synchronized
         self.max_chunk = max_chunk
+        self._skew_periods = skew_periods
         cutoff = fir_cutoff(
             latency.taps, attenuation, int(input_rate) / int(output_rate)
         )
         coeffs = fir_coefficients(latency.taps, attenuation, cutoff)
-        self._tm_step = make_fir_fleet_step_sync_tm(
-            self._config, coeffs, n_streams,
-            max_chunk=max_chunk, horizon=horizon, path=path,
-            device=self._device,
-        )
-        self._state = fir_fleet_init_sync_tm(
-            self._config, n_streams, max_chunk=max_chunk, horizon=horizon,
-            device=self._device,
-        )
+        kw = dict(max_chunk=max_chunk, horizon=horizon, device=self._device)
+        if self._async:
+            self._tm_step = make_fir_fleet_step_async_tm(
+                self._config, coeffs, n_streams, max_out=max_out,
+                skew_periods=skew_periods, **kw,
+            )
+            self._state = fir_fleet_init_async_tm(
+                self._config, n_streams, pos_num=initial_positions,
+                skew_periods=skew_periods, **kw,
+            )
+        else:
+            self._tm_step = make_fir_fleet_step_sync_tm(
+                self._config, coeffs, n_streams, path=path, **kw
+            )
+            self._state = fir_fleet_init_sync_tm(self._config, n_streams, **kw)
 
     @property
     def config(self) -> FirConfig:
@@ -101,7 +129,8 @@ class BatchedResamplerFir:
     @property
     def state(self) -> dict:
         """Fleet state: ring ``buffer`` tensor plus host-int ``start``,
-        ``fill`` and ``pos_num`` (``pos_hi`` / ``pos_lo`` when wide)."""
+        ``fill`` and ``pos_num`` (``pos_hi`` / ``pos_lo`` when wide); the
+        async fleet's positions are ``[B]`` int64 numpy arrays."""
         return self._state
 
     @state.setter
@@ -111,33 +140,60 @@ class BatchedResamplerFir:
     def buffer_size_output(self) -> int:
         return self._config.out_capacity * self._config.channels
 
-    def slew(self, samples) -> float:
-        """Shift the fleet's shared sampling phase by ``samples`` input
-        samples (a scalar: the synchronized fleet shares one schedule).
-        Resolution 1/M input samples, clamped to the buffered history and
-        (int32 envelope only) the int32 schedule envelope; returns the
-        applied slew."""
-        if np.ndim(samples) != 0:
+    def slew(self, samples):
+        """Shift the sampling phase by ``samples`` input samples: resolution
+        1/M input samples, clamped to the buffered history and (int32
+        envelope only) the int32 schedule envelope; returns the applied
+        slew.  The synchronized fleet shares one phase, so ``samples`` is a
+        scalar there; the async fleet takes a scalar or a per-stream
+        ``[n_streams]`` vector, returns ``[n_streams]``, and refuses a slew
+        that would widen the position spread to ``skew_periods * M``."""
+        M = self._config.ratio_den
+        if not self._async and np.ndim(samples) != 0:
             raise ValueError(
                 "synchronized fleets share one phase; per-stream slew "
                 "needs the async tm fleet (sync_variant='async_tm') "
                 "or the general (vmapped) fleet"
             )
-        M = self._config.ratio_den
-        delta = int(np.round(np.float64(samples) * M))
+        delta_f = np.round(np.atleast_1d(np.asarray(samples, np.float64)) * M)
+        delta_f = np.broadcast_to(delta_f, (self.n_streams if self._async else 1,))
+        st = self._state
         if self._config.wide:
             # exact Python ints: the two u32 words can exceed int64 together
-            pos = self._state["pos_hi"] * M + self._state["pos_lo"]
-            applied = max(delta, -pos)
-            moved = dict(pos_hi=(pos + applied) // M, pos_lo=(pos + applied) % M)
+            pos = np.asarray(
+                [int(h) * M + int(lo) for h, lo in zip(np.atleast_1d(st["pos_hi"]),
+                                                     np.atleast_1d(st["pos_lo"]))],
+                object,
+            )
+            # no int32 envelope; heavy downsampling carries pos past
+            # capacity*M, so only the history clamp applies
+            applied = np.maximum(np.asarray([int(d) for d in delta_f], object), -pos)
         else:
-            pos = self._state["pos_num"]
+            pos = np.atleast_1d(np.asarray(st["pos_num"], np.int64))
             ceiling = self._config.input_capacity * M
-            applied = min(max(delta, -pos), max(0, ceiling - pos))
-            moved = dict(pos_num=pos + applied)
-        if applied:
-            self._state = dict(self._state, **moved)
-        return applied / M
+            applied = np.clip(delta_f.astype(np.int64), -pos, np.maximum(0, ceiling - pos))
+        new_pos = pos + applied
+        if self._async:
+            spread = int(new_pos.max() - new_pos.min())
+            limit = self._skew_periods * M
+            if spread >= limit:
+                raise ValueError(
+                    f"per-stream slew would widen the fleet position spread "
+                    f"to {spread} (>= skew_periods*M = {limit}); the async tm "
+                    "fleet only tracks bounded drift: widen skew_periods or "
+                    "use the general (vmapped) fleet"
+                )
+        if np.any(applied != 0):
+            if self._config.wide:
+                moved = dict(pos_hi=np.asarray([p // M for p in new_pos], np.int64),
+                             pos_lo=np.asarray([p % M for p in new_pos], np.int64))
+            else:
+                moved = dict(pos_num=new_pos)
+            if not self._async:
+                moved = {k: int(v[0]) for k, v in moved.items()}
+            self._state = dict(st, **moved)
+        applied_s = np.asarray(applied / M, np.float64)
+        return applied_s if self._async else float(applied_s[0])
 
     def _step(self, chunks, n_valid: int):
         n = chunks.shape[1]
@@ -175,7 +231,8 @@ class BatchedResamplerFir:
         Returns ``(out [n_streams, out_cap, channels], consumed [B],
         produced [B], fleet_peak)``: ``out`` and the peak ``max|out|``
         stay on the device; ``consumed``/``produced`` are int32 numpy
-        arrays, frames per channel."""
+        arrays, frames per channel (every stream the same: the fleet
+        steps on one cadence)."""
         chunks = self._chunks(chunks, 3)
         B, n, _ = chunks.shape
         nv = n if n_valid is None else int(np.min(n_valid))

@@ -258,8 +258,8 @@ class WideSchedule:
     and states equal the JAX package's for every u32 pair -- including
     its documented under-skip for ``L//M > 2^32 - 8195`` (PARITY.md)."""
 
-    def __init__(self, config: FirConfig):
-        L, M, N = config.ratio_num, config.ratio_den, config.out_capacity
+    def __init__(self, config: FirConfig, out_cap: int | None = None):
+        L, M, N = config.ratio_num, config.ratio_den, out_cap or config.out_capacity
         self.M, self.taps = M, config.taps
         i = np.arange(N, dtype=np.int64)
         self.j_lane = np.minimum((i * L) // M, config.input_capacity + 2).astype(np.uint32)
@@ -277,18 +277,25 @@ class WideSchedule:
         o2 = o1 + wrap + np.uint32(self.taps)
         return int(((o1 >= pos_hi) & (o2 >= o1) & (o2 <= avail)).sum())
 
-    def advance(self, pos_hi: int, pos_lo: int, n_out: int, avail: int):
+    def advance(self, pos_hi, pos_lo, n_out: int, avail: int):
         """``(consumed, pos_hi', pos_lo')`` after emitting ``n_out``
         outputs: the stride ``n_out * L`` from the static tables, the
-        subframe carry, the saturating frame add, eager consumption."""
+        subframe carry, the saturating frame add, eager consumption.  The
+        words are Python ints (one shared position), or int64 arrays of
+        per-stream words (the async fleet), which all advance by the same
+        stride and are consumed by their minimum."""
         M = self.M
+        pos_hi, pos_lo = np.asarray(pos_hi, np.int64), np.asarray(pos_lo, np.int64)
         t2 = (pos_lo + int(self.nl_lo[n_out])) & _U32
-        carry = t2 < pos_lo or t2 >= M
-        lo_after = (t2 - M) & _U32 if carry else t2
+        carry = (t2 < pos_lo) | (t2 >= M)
+        lo_after = np.where(carry, (t2 - M) & _U32, t2)
         hi_raw = (pos_hi + int(self.nl_hi[n_out]) + carry) & _U32
-        hi_after = _U32 if hi_raw < pos_hi else hi_raw
-        consumed = min(hi_after, avail)
-        return consumed, hi_after - consumed, lo_after
+        hi_after = np.where(hi_raw < pos_hi, _U32, hi_raw)
+        consumed = min(int(hi_after.min()), avail)
+        hi_after -= consumed
+        if hi_after.ndim == 0:
+            return consumed, int(hi_after), int(lo_after)
+        return consumed, hi_after, lo_after
 
 
 def lane_residues(s: np.ndarray, M: int, pos):

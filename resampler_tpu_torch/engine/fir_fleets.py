@@ -1,6 +1,8 @@
-"""Synchronized time-major FIR fleet: PyTorch port of
+"""Time-major FIR fleets: PyTorch ports of
 ``resampler_tpu.engine.fir_fleets.make_fir_fleet_step_sync_tm``
-(periodic, farrow and lerp paths; the wide u32 schedule).
+(periodic, farrow and lerp paths; the wide u32 schedule) and
+``make_fir_fleet_step_async_tm`` (per-stream positions, kernel B6; see
+its docstring).
 
 ``n_streams`` phase-locked streams share one exact schedule.  Their
 frames live in a TIME-MAJOR ring ``[ring, B*C]`` (frames on the major
@@ -28,6 +30,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.fir_async_kernel import (
+    async_combine,
+    async_combine_plan,
+    async_combine_reference,
+)
 from ..ops.fir_dma_kernel import (
     dma_banded_contract,
     dma_farrow_contract,
@@ -52,7 +59,12 @@ from .fir import (
     zero_position,
 )
 
-__all__ = ["make_fir_fleet_step_sync_tm", "fir_fleet_init_sync_tm"]
+__all__ = [
+    "make_fir_fleet_step_sync_tm",
+    "fir_fleet_init_sync_tm",
+    "make_fir_fleet_step_async_tm",
+    "fir_fleet_init_async_tm",
+]
 
 
 def _sync_atlas(config: FirConfig, coeffs) -> np.ndarray:
@@ -176,7 +188,8 @@ def make_fir_fleet_step_sync_tm(
       fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring."""
     if precision == "bf16x4":
         raise NotImplementedError(
-            "precision='bf16x4' needs the split_hi_lo port (ROADMAP B7)"
+            "precision='bf16x4' (the bf16 hi/lo split contraction) needs a "
+            "split GEMM on the tensor cores, not ported yet (ROADMAP B7)"
         )
     if precision != "highest":
         raise ValueError(f"precision must be 'highest', not {precision!r}")
@@ -199,7 +212,6 @@ def make_fir_fleet_step_sync_tm(
     cap = config.input_capacity
     out_cap = config.out_capacity
     slack = config.read_slack
-    ring = _ring_rows(config, max_chunk, horizon)
     wide = WideSchedule(config) if config.wide else None
 
     if path == "periodic":
@@ -298,21 +310,219 @@ def make_fir_fleet_step_sync_tm(
             pos_after = pos + n_out * L
             consumed = min(pos_after // M, avail)
             pos_state = dict(pos_num=pos_after - consumed * M)
-        start += consumed
-
-        # ---- amortized compaction: the live window moves to the front;
-        # the source overlaps the destination, so it is cloned first ----
-        if fill + max_chunk + slack > ring:
-            ws = min(start, ring - cap)
-            buffer[:cap] = buffer[ws : ws + cap].clone()
-            buffer[cap:] = 0.0
-            start -= ws
-            fill -= ws
+        start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
 
         new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)
         return new_state, out, to_copy, n_out
 
     return step
+
+
+def _compact(buffer, start: int, fill: int, cap: int, max_chunk: int, slack: int):
+    """The amortized compaction: when the next append could pass the ring,
+    the live window moves to the front (cloned first: the source overlaps
+    the destination).  Returns ``(start, fill)``."""
+    ring = buffer.shape[0]
+    if fill + max_chunk + slack > ring:
+        ws = min(start, ring - cap)
+        buffer[:cap] = buffer[ws : ws + cap].clone()
+        buffer[cap:] = 0.0
+        start -= ws
+        fill -= ws
+    return start, fill
+
+
+def make_fir_fleet_step_async_tm(
+    config: FirConfig,
+    coeffs: np.ndarray,
+    n_streams: int,
+    *,
+    max_chunk: int,
+    horizon: int = 16,
+    skew_periods: int = 1,
+    out_layout: str = "bm",
+    max_out: int | None = None,
+    kernel: str = "auto",
+    mesh=None,
+    device="cuda",
+):
+    """Time-major ASYNCHRONOUS fleet step (the JAX package's
+    ``make_fir_fleet_step_async_tm``): the streams share the rate pair, the
+    ring and the chunk cadence, but each keeps its own exact position
+    (join phase, per-stream drift slew).
+
+    Per step only two numbers per stream diverge, the frame skew
+    ``base_rel`` and the subframe residue ``r`` (``pos_lo`` when wide), so
+    the schedule stays on the host in ``[B]`` numpy: ``n_out`` from the
+    laggard (``max(pos)``; wide: the lexicographic laggard's emission
+    mask), the shared frame ``b0 = min(min(pos) // M, avail)``, and the
+    consume by ``min(pos_after)``.  The device gets one ``[2, R]`` lane
+    upload (residue, skew) through pinned memory, the append, kernel B6
+    (``ops/fir_async_kernel.py``) with the ``n_out`` mask, and the output
+    relayout; no device-to-host sync.
+
+    ``kernel``: ``"auto"`` and ``"pallas_highest"`` launch B6 on the card
+    (its plain version on the CPU); ``"xla"`` runs the plain version on any
+    device (the differential).  ``"pallas"`` (the TPU's bf16x4
+    degree-banded contraction) is not ported; ``"pallas_interpret"`` is a
+    TPU-only mode.
+
+    ``max_out`` bounds the output lanes per step below
+    ``config.out_capacity``; production beyond it is deferred, never
+    dropped.  **Skew invariant**: ``max(pos) - min(pos) < skew_periods *
+    M`` (``fir_fleet_init_async_tm`` checks it; the step preserves the
+    spread).
+
+    ``step(state, chunks_tm [n <= max_chunk, B*C], n_valid) -> (state',
+    out, consumed, produced)``, ``out`` ``[B, out_cap, C]`` ("bm") or
+    ``[out_cap, B*C]`` ("tm"); every stream produces ``produced``."""
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP A11)")
+    if out_layout not in ("bm", "tm"):
+        raise ValueError(
+            f"out_layout must be 'bm' ([B, out_cap, C]) or 'tm' "
+            f"(time-major [out_cap, B*C]), not {out_layout!r}"
+        )
+    if skew_periods < 1:
+        raise ValueError("skew_periods must be >= 1")
+    if kernel == "pallas":
+        raise NotImplementedError(
+            "kernel='pallas' (B6's bf16x4 degree-banded contraction) is not "
+            "ported yet (ROADMAP B6b); 'auto' runs the f32 kernel"
+        )
+    if kernel not in ("auto", "xla", "pallas_highest"):
+        raise ValueError(
+            f"kernel must be 'auto', 'xla' or 'pallas_highest' "
+            f"('pallas_interpret' is a TPU mode), not {kernel!r}"
+        )
+    combine = async_combine_reference if kernel == "xla" else async_combine
+    device = resolve_device(device)
+    L, M, taps = config.ratio_num, config.ratio_den, config.taps
+    C = config.channels
+    B = n_streams
+    R = B * C
+    cap = config.input_capacity
+    out_cap = config.out_capacity
+    if max_out is not None:
+        out_cap = min(out_cap, max(int(max_out), 1))
+    slack = config.read_slack
+    wide = WideSchedule(config, out_cap) if config.wide else None
+    A, _ = farrow_matrix(coeffs, FARROW_DEGREE)
+    plan = async_combine_plan(
+        A=A, L=L, M=M, out_cap=out_cap, skew_periods=skew_periods,
+        clamp_j=cap + 2 if wide else None,
+    )
+    assert plan.reach <= slack, (plan.reach, slack)
+
+    def step(state: dict, chunks_tm, n_valid: int):
+        chunks_tm = torch.as_tensor(chunks_tm, dtype=torch.float32, device=device)
+        n_in = chunks_tm.shape[0]
+        if chunks_tm.shape != (n_in, R) or n_in > max_chunk:
+            raise ValueError(
+                f"chunks must be [n <= {max_chunk}, {R}], got "
+                f"{tuple(chunks_tm.shape)}"
+            )
+        if n_valid < 0:
+            raise ValueError(f"n_valid must be >= 0, got {n_valid}")
+        n_valid = min(int(n_valid), n_in)
+
+        buffer = state["buffer"]
+        start, fill = state["start"], state["fill"]
+        avail = fill - start
+
+        # ---- append, with the NaN fence of the sync fleet ----
+        to_copy = min(n_valid, cap - avail)
+        check_window(fill, n_in, buffer.shape[0], "ring append")
+        buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
+        fill += to_copy
+        avail += to_copy
+
+        # ---- the per-stream schedule, [B] numpy on the host ----
+        if wide:
+            pos_hi = _stream_words(state["pos_hi"], B, "pos_hi")
+            pos_lo = _stream_words(state["pos_lo"], B, "pos_lo")
+            mx_hi = int(pos_hi.max())
+            mx_lo = int(pos_lo[pos_hi == mx_hi].max())
+            n_out = min(wide.emitted(mx_hi, mx_lo, avail), out_cap)
+            b0 = min(int(pos_hi.min()), avail)
+            base_rel, res = pos_hi - b0, pos_lo
+        else:
+            pos = _stream_words(state["pos_num"], B, "pos_num")
+            n_out = _compute_n_out(config, int(pos.max()), avail, out_cap)
+            b0 = min(int(pos.min()) // M, avail)
+            base_rel, res = np.divmod(pos - b0 * M, M)
+        lanes = upload(np.stack([np.repeat(res, C), np.repeat(base_rel, C)]), device)
+
+        out = combine(buffer, start + b0, n_out, lanes, plan)  # [out_cap, R], masked
+        if out_layout == "bm":
+            out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+
+        # ---- consume: the shared scalar, the per-stream rest into pos ----
+        if wide:
+            consumed, hi, lo = wide.advance(pos_hi, pos_lo, n_out, avail)
+            pos_state = dict(pos_hi=hi, pos_lo=lo)
+        else:
+            pos_after = pos + n_out * L
+            consumed = min(int(pos_after.min()) // M, avail)
+            pos_state = dict(pos_num=pos_after - consumed * M)
+        start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
+
+        new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)
+        return new_state, out, to_copy, n_out
+
+    return step
+
+
+def _stream_words(words, B: int, key: str) -> np.ndarray:
+    arr = np.asarray(words, np.int64)
+    if arr.shape != (B,):
+        raise ValueError(f"{key} must hold one position per stream ({B},), got {arr.shape}")
+    return arr
+
+
+def fir_fleet_init_async_tm(
+    config: FirConfig,
+    n_streams: int,
+    *,
+    max_chunk: int,
+    horizon: int = 16,
+    pos_num=None,
+    skew_periods: int = 1,
+    device="cuda",
+) -> dict:
+    """Zero async fleet state: the ring as in ``fir_fleet_init_sync_tm``
+    and per-stream positions, ``[B]`` int64 numpy: ``pos_num``, or the
+    wide words ``pos_hi`` / ``pos_lo``.  ``pos_num`` (optional, ``[B]``
+    exact ints, in 1/M input frames) sets the initial positions; the skew
+    invariant ``max - min < skew_periods * M`` is checked here."""
+    M = config.ratio_den
+    if pos_num is None:
+        pos = [0] * n_streams
+    else:
+        pos = [int(p) for p in np.asarray(pos_num).reshape(-1)]
+        if len(pos) != n_streams:
+            raise ValueError(
+                f"pos_num must have shape ({n_streams},), got ({len(pos)},)"
+            )
+        if min(pos) < 0:
+            raise ValueError("initial positions must be non-negative")
+        if max(pos) - min(pos) >= skew_periods * M:
+            raise ValueError(
+                f"position spread {max(pos) - min(pos)} violates the skew "
+                f"invariant (< skew_periods*M = {skew_periods * M}); widen "
+                "skew_periods or use the vmapped engine"
+            )
+    state = fir_fleet_init_sync_tm(
+        config, n_streams, max_chunk=max_chunk, horizon=horizon, device=device
+    )
+    if config.wide:
+        state.update(
+            pos_hi=np.asarray([p // M for p in pos], np.int64),
+            pos_lo=np.asarray([p % M for p in pos], np.int64),
+        )
+    else:
+        state.update(pos_num=np.asarray(pos, np.int64))
+    return state
 
 
 def fir_fleet_init_sync_tm(

@@ -30,12 +30,15 @@ LAUNCHES = {
     "dma_farrow_contract_packed": 0,
     "magsplit_projector": 0,
     "magsplit_projector_pool": 0,
+    "async_combine": 0,
 }
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-#: one shared library per source; the header is included by both FIR sources
-_SOURCES = ("fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu")
+#: one shared library per source; the header is included by the B1 and B2 sources
+_SOURCES = (
+    "fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu", "fir_async_combine.cu",
+)
 _HEADERS = ("tiled_contract.cuh",)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = [
@@ -53,6 +56,8 @@ _SIGNATURES = {
     # prev, cur, w, out, R, N, M, s, cols, cols_pad, k_pad, r0_step, b0_off,
     # rows, wc, col_frags, stream
     "fft_magsplit_projector": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    # buffer, a_t, j, s, lanes, out, R, base0, n_out, out_cap, taps, M, skew, stream
+    "fir_async_combine": [_P] * 6 + [_I, _I64, _I, _I, _I, _I64, _I, _P],
 }
 _libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()

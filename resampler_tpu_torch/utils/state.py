@@ -8,7 +8,10 @@ package's keys and dtypes exactly:
 - FIR: ``buffer`` f32 ``[rows, lanes]``, and ``available_frames`` /
   ``pos_num`` (per-stream ``FirState``) or ``start`` / ``fill`` /
   ``pos_num`` (sync tm fleet state) as 0-d int32 arrays, and on the wide
-  schedule ``pos_hi`` / ``pos_lo`` as 0-d uint32 arrays;
+  schedule ``pos_hi`` / ``pos_lo`` as 0-d uint32 arrays.  The async tm
+  fleet keeps its positions per stream: ``pos_num`` ``[B]`` int32, or
+  ``pos_hi`` / ``pos_lo`` ``[B]`` uint32, beside a 0-d ``start`` /
+  ``fill`` (the port holds them as ``[B]`` int64 numpy arrays);
 - FFT: ``prev`` (magsplit, conv) or ``overlap`` (matmul, fft) f32
   ``[C, *]`` per stream or ``[B, C, *]`` per fleet, or the pool step's
   ``prev_idx`` as a 0-d int32 array.
@@ -38,6 +41,8 @@ _INT_KEYS = {
     "pos_lo": np.uint32,
     "prev_idx": np.int32,
 }
+#: the position words the async tm fleet keeps per stream
+_STREAM_KEYS = ("pos_num", "pos_hi", "pos_lo")
 
 
 def state_from_numpy(state_np: dict, device="cuda") -> dict:
@@ -60,13 +65,17 @@ def state_from_numpy(state_np: dict, device="cuda") -> dict:
             state[key] = torch.tensor(arr, dtype=torch.float32, device=dev)
         elif key in _INT_KEYS:
             dtype = np.dtype(_INT_KEYS[key])
-            if arr.shape != () or arr.dtype != dtype:
+            if arr.dtype == dtype and arr.shape == ():
+                state[key] = int(arr)
+            elif arr.dtype == dtype and arr.ndim == 1 and key in _STREAM_KEYS and "start" in state_np:
+                state[key] = arr.astype(np.int64)  # the async tm fleet's [B] positions
+            else:
                 raise TypeError(
-                    f"{key} must be a 0-d {dtype} array (shared schedule), "
-                    f"got shape {arr.shape} {arr.dtype}; per-stream schedules "
-                    "belong to the vmapped fleet (ROADMAP A6)"
+                    f"{key} must be a 0-d {dtype} array (a shared schedule) or, "
+                    f"for the async tm fleet's positions beside 'start', a [B] "
+                    f"one; got shape {arr.shape} {arr.dtype}.  Other per-stream "
+                    "schedules belong to the vmapped fleet (ROADMAP A6)"
                 )
-            state[key] = int(arr)
         else:
             raise ValueError(f"unknown state key {key!r}")
     return state
@@ -75,16 +84,18 @@ def state_from_numpy(state_np: dict, device="cuda") -> dict:
 def state_to_numpy(state: dict) -> dict:
     """The numpy form of a port state: each carry tensor f32 on the host,
     each schedule scalar a 0-d int32 (or, ``pos_hi`` / ``pos_lo``, uint32)
-    array; raises if one left its type's range."""
+    array, and per-stream positions ``[B]`` arrays of the same types;
+    raises if one left its type's range."""
     out = {}
     for key, value in state.items():
         if key in _FLOAT_KEYS:
             out[key] = value.detach().cpu().numpy().astype(np.float32, copy=True)
         elif key in _INT_KEYS:
             info = np.iinfo(_INT_KEYS[key])
-            if not info.min <= value <= info.max:
+            arr = np.asarray(value)
+            if arr.size and not info.min <= arr.min() <= arr.max() <= info.max:
                 raise OverflowError(f"{key}={value} does not fit {info.dtype}")
-            out[key] = np.asarray(value, info.dtype)
+            out[key] = arr.astype(info.dtype)
         else:
             raise ValueError(f"unknown state key {key!r}")
     return out

@@ -1,6 +1,6 @@
-"""Tests that need an NVIDIA card: kernels B1-B5, the FIR fleet (periodic
-and coprime) and the FFT engine on the card against the port's plain
-PyTorch versions and the CPU on the same inputs.  They skip
+"""Tests that need an NVIDIA card: kernels B1-B6, the FIR fleets (periodic,
+coprime, async), the serving runtime and the FFT engine on the card against
+the port's plain PyTorch versions and the CPU on the same inputs.  They skip
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 also runs on a GPU host without JAX (``--noconftest`` skips
 tests/conftest.py, which sets JAX up):
@@ -18,7 +18,10 @@ import resampler_tpu_torch as rt
 from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine.fir_fleets import _farrow_tm_plan, _sync_atlas
 from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
+from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
+
+torch.set_num_threads(1)  # several test workers share the machine's cores
 
 KERNEL_ATOL = 1e-5  # f32 sums in another order
 DEVICE_ATOL = 5e-5  # bench.py's device-vs-CPU gate
@@ -235,3 +238,90 @@ def test_fft_backends_on_card_match_cpu(cuda, backend):
         dev.resample(x, od)
         cpu.resample(x, oc)
         assert np.abs(od - oc).max() <= DEVICE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "in_hz,out_hz,taps,R,skew,starved",
+    [(44100, 44101, 128, 256, 1, False), (22050, 96000, 64, 128, 2, False),
+     (48000, 44101, 128, 6, 1, False), (4_000_000_000, 4_000_000_001, 128, 128, 1, False),
+     (44100, 44101, 128, 64, 1, True)],
+    ids=["near-unity", "upsample-skew2", "down-ragged-R6", "wide", "starved"],
+)
+def test_async_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R, skew, starved):
+    """B6 against its plain version on random residues and skews (past
+    ``skew_periods`` when starved), at every ``n_out`` bound."""
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        taps, rt.Attenuation.Db90, tfir.fir_cutoff(taps, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    out_cap = min(cfg.out_capacity, 512 * M // L + 64)
+    plan = b6.async_combine_plan(
+        A=tfir.farrow_matrix(coeffs)[0], L=L, M=M, out_cap=out_cap, skew_periods=skew,
+        clamp_j=cfg.input_capacity + 2 if cfg.wide else None,
+    )
+    rng = np.random.default_rng(8)
+    buf = torch.from_numpy(rng.standard_normal((plan.reach + 9, R), dtype=np.float32)).to(cuda)
+    res = rng.integers(0, M, R)
+    base_rel = rng.integers(0, skew + 1 + (5 if starved else 0), R)
+    lanes = torch.from_numpy(np.stack([res, base_rel])).to(cuda)
+    before = dict(kern.LAUNCHES)
+    for base0, n_out in ((0, out_cap), (9, out_cap // 2), (3, 1), (5, 0)):
+        got = b6.async_combine(buf, base0, n_out, lanes, plan)
+        ref = b6.async_combine_reference(buf, base0, n_out, lanes, plan)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= KERNEL_ATOL
+        assert torch.all(got[n_out:] == 0)
+    assert kern.LAUNCHES == dict(before, async_combine=before["async_combine"] + 4)
+    with pytest.raises(IndexError):
+        b6.async_combine(buf, 10, out_cap, lanes, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_hz,out_hz", [(44100, 44101), (600011, 600013)], ids=["narrow", "wide"])
+def test_async_fleet_on_card_matches_cpu(cuda, in_hz, out_hz):
+    """Card vs CPU on ragged feeds with NaN junk and a per-stream slew:
+    ints, positions and ring exact, samples within the device gate,
+    exactly one B6 launch per step and no other kernel."""
+    M = rt.types.reduce_ratio(in_hz, out_hz)[1]
+    kw = dict(synchronized=True, sync_variant="async_tm", max_chunk=512, horizon=2,
+              initial_positions=[0, M // 3, M - 1])
+    args = (3, 2, in_hz, out_hz, rt.Latency.Sample64, rt.Attenuation.Db90)
+    dev = rt.BatchedResamplerFir(*args, device=cuda, **kw)
+    cpu = rt.BatchedResamplerFir(*args, device="cpu", **kw)
+    rng = np.random.default_rng(4)
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    n_steps = 24
+    for i in range(n_steps):
+        nv = 512 if i % 2 else int(rng.integers(0, 513))
+        chunks = rng.standard_normal((3, 512, 2), dtype=np.float32)
+        chunks[:, nv:] = np.nan
+        od, cd, pd, _ = dev.resample(chunks, np.full((3,), nv))
+        oc, cc, pc, _ = cpu.resample(chunks, np.full((3,), nv))
+        assert np.array_equal(cd, cc) and np.array_equal(pd, pc)
+        assert (od.cpu() - oc).abs().max().item() <= DEVICE_ATOL
+        if i == 9:
+            assert np.array_equal(dev.slew([0.25, 0.0, -0.125]), cpu.slew([0.25, 0.0, -0.125]))
+        for k, v in cpu.state.items():
+            if k != "buffer":
+                assert np.array_equal(dev.state[k], v), k
+        assert torch.equal(dev.state["buffer"].cpu(), cpu.state["buffer"])
+    assert kern.LAUNCHES == dict({k: 0 for k in kern.LAUNCHES}, async_combine=n_steps)
+
+
+@pytest.mark.cuda
+def test_async_streaming_fleet_on_card_matches_cpu(cuda):
+    kw = dict(chunk_frames=256, synchronized="async", initial_positions=[0, 9999, 30000])
+    args = (3, 2, 44100, 44101, rt.Latency.Sample32, rt.Attenuation.Db90)
+    dev, cpu = rt.StreamingFleet(*args, device=cuda, **kw), rt.StreamingFleet(*args, device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    for _ in range(6):
+        for b in range(3):
+            x = rng.standard_normal(2 * int(rng.integers(0, 512))).astype(np.float32)
+            dev.push(b, x)
+            cpu.push(b, x)
+        for yd, yc in zip(dev.step(), cpu.step()):
+            assert yd.shape == yc.shape and np.isfinite(yd).all()
+            assert np.abs(yd - yc).max(initial=0.0) <= DEVICE_ATOL

@@ -6,7 +6,8 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch  # noqa: F401  (the port needs it; fail early if missing)
+import torch
+from threadpoolctl import threadpool_limits
 
 from resampler_tpu import types as jtypes
 from resampler_tpu.dsp import window as jwindow
@@ -16,6 +17,11 @@ from resampler_tpu_torch import types as ttypes
 from resampler_tpu_torch.dsp import window as twindow
 from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine import fir_fleets as tfleets
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 # the four bench pairs (bench.py main + bench_fir)
 PAIRS = [(44100, 48000), (48000, 44100), (22050, 48000), (48000, 96000)]

@@ -5,6 +5,8 @@ geometry, and the path rules.  Everything here is exact equality."""
 
 import numpy as np
 import pytest
+import torch
+from threadpoolctl import threadpool_limits
 
 from resampler_tpu import types as jtypes
 from resampler_tpu.engine import fir as jfir
@@ -12,6 +14,11 @@ from resampler_tpu.engine import fir_fleets as jfleets
 from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine import fir_fleets as tfleets
 from resampler_tpu_torch.types import Attenuation
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 # near-unity, mild downsampling, the three packed (q < 8) pairs, wide u32
 PAIRS = [

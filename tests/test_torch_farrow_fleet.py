@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import resampler_tpu as jrt
 import resampler_tpu_torch as trt
@@ -21,6 +22,11 @@ from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine import fir_fleets as tfleets
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.utils.state import state_to_numpy
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 # f32 sums in another order: the JAX suite's own dma-vs-xla tolerance for
 # this path (tests/test_pallas.py)

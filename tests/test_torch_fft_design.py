@@ -11,6 +11,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from resampler_tpu import types as jtypes
 from resampler_tpu.dsp import planner as jplanner
@@ -22,6 +23,11 @@ from resampler_tpu_torch.dsp import planner as tplanner
 from resampler_tpu_torch.engine import fft as tfft
 from resampler_tpu_torch.ops import fft_magsplit_kernel as tmag
 from resampler_tpu_torch.ops import matmul3 as tm3
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 #: the bench pair, the stopband pair, a 2x-output pair (each both ways)
 #: and two pairs without a band plan

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import resampler_tpu as jrt
 import resampler_tpu_torch as trt
@@ -24,6 +25,11 @@ from resampler_tpu.utils.checkpoint import load_state, save_state
 from resampler_tpu_torch.engine import fft as tfft
 from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 ATOL = 1e-5
 BACKENDS = ["magsplit", "matmul", "conv", "fft", "rfft"]

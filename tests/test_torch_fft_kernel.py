@@ -11,10 +11,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from resampler_tpu.ops import fft_magsplit_kernel as jmag
 from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.ops import fft_magsplit_kernel as tmag
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 ATOL = 1e-5
 

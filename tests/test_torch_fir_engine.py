@@ -5,6 +5,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import resampler_tpu as jrt
 import resampler_tpu_torch as trt
@@ -12,6 +13,11 @@ from resampler_tpu.engine import fir as jfir
 from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine import fir_fleets as tfleets
 from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 # samples: f32 accumulation order differs (einsum vs XLA dot); the JAX
 # suite's own device-vs-CPU scale is 5e-5, this is 5x tighter

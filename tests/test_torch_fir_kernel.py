@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from resampler_tpu.ops.fir_dma_kernel import dma_banded_contract as jax_dma
 from resampler_tpu_torch.engine import fir as tfir
@@ -17,6 +18,11 @@ from resampler_tpu_torch.engine.fir_fleets import _sync_atlas
 from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.types import Attenuation, reduce_ratio
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 # (in_hz, out_hz, taps, lanes R): the headline pair, the grouped small-M
 # pair (g 64: Lg 64, Mg 128) and a ragged fleet of R = 6 lanes

@@ -8,6 +8,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import resampler_tpu as jrt
 import resampler_tpu_torch as trt
@@ -18,6 +19,11 @@ from resampler_tpu_torch.engine import fir as tfir
 from resampler_tpu_torch.engine import fir_fleets as tfleets
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 ATOL = 1e-5  # f32 accumulation order (plain einsum vs XLA dot)
 MAX_CHUNK, HORIZON = 512, 3  # compacts every ~10 steps
@@ -185,7 +191,9 @@ def test_state_conversion_rejects_foreign_states():
     with pytest.raises(TypeError):  # the wide words are uint32
         state_from_numpy(dict(good, pos_hi=np.int32(0)), device="cpu")
     with pytest.raises(TypeError):  # per-stream schedules: the vmapped fleet
-        state_from_numpy(dict(good, pos_num=np.zeros(4, np.int32)), device="cpu")
+        state_from_numpy(dict(good, available_frames=np.zeros(4, np.int32)), device="cpu")
+    with pytest.raises(TypeError):  # [B] positions only beside the async ring's start
+        state_from_numpy(dict(buffer=good["buffer"], pos_num=np.zeros(4, np.int32)), device="cpu")
     with pytest.raises(TypeError):
         state_from_numpy(dict(good, buffer=good["buffer"].astype(np.float64)), device="cpu")
     with pytest.raises(ValueError):
@@ -197,14 +205,15 @@ def test_state_conversion_rejects_foreign_states():
 
 
 def test_unported_variants_raise():
-    """Coprime, lerp and wide fleets are ported (tests/test_torch_farrow_*.py);
-    the other variants raise naming their ROADMAP item."""
+    """Coprime, lerp and wide fleets are ported (tests/test_torch_farrow_*.py),
+    and the async fleet (tests/test_torch_async_*.py); the other variants
+    raise naming their ROADMAP item."""
     args = (4, 2, 44100, 48000)
     cases = [
         (dict(), "A6"),  # synchronized=False: the vmapped fleet
         (dict(synchronized=True, sync_variant="slide"), "A6"),
-        (dict(synchronized=True, sync_variant="async_tm"), "A8"),
         (dict(synchronized=True, mesh=object()), "A11"),
+        (dict(synchronized=True, sync_variant="async_tm", mesh=object()), "A11"),
     ]
     for kwargs, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -41,11 +41,30 @@ _BLOCKED_STEP = textwrap.dedent(
     f = rt.BatchedResamplerFft(2, 2, 22050, 48000, backend="magsplit", device="cpu")
     o = f.resample_many(np.ones((3, 2, 2, 588), np.float32))
     assert tuple(o.shape) == (3, 2, 2, 1280)
+    # the async fleet (B6's plain version), the serving runtime and its pool
+    import resampler_tpu_torch.ops.fir_async_kernel, resampler_tpu_torch.runtime
+    import resampler_tpu_torch.utils.native
+    for in_hz, out_hz in ((44100, 44101), (600011, 600013)):
+        f = rt.BatchedResamplerFir(
+            2, 2, in_hz, out_hz, rt.Latency.Sample32, synchronized=True,
+            sync_variant="async_tm", max_chunk=600, initial_positions=[0, 777],
+            device="cpu",
+        )
+        o, c, p, peak = f.resample(x.reshape(1, 600, 2).repeat(2, axis=0))
+        assert int(c[0]) == 600 and int(p[0]) > 0 and float(peak) > 0
+    s = rt.StreamingFleet(2, 2, 44100, 44101, chunk_frames=256, synchronized="async",
+                          initial_positions=[0, 777], device="cpu")
+    s.push(0, x)
+    s.push(1, x)
+    assert all(y.size > 0 and np.isfinite(y).all() for y in s.step())
     import torch
     for make in (
         lambda: rt.ResamplerFft(2, 44100, 48000),
         lambda: rt.BatchedResamplerFft(2, 2, 44100, 48000),
         lambda: rt.ResamplerFir(2, 44100, 48000),
+        lambda: rt.BatchedResamplerFir(2, 2, 44100, 44101, synchronized=True,
+                                       sync_variant="async_tm"),
+        lambda: rt.StreamingFleet(2, 2, 44100, 44101, synchronized="async"),
     ):
         if torch.cuda.is_available():
             break

@@ -1,0 +1,176 @@
+"""The port's async wrapper (``BatchedResamplerFir(sync_variant="async_tm")``),
+its serving runtime ``StreamingFleet`` and staging pool, and the async
+state's conversion, against the JAX package on the same seeded inputs:
+ints and states exactly equal, samples within the JAX suite's 2e-5."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from threadpoolctl import threadpool_limits
+
+import resampler_tpu as jrt
+import resampler_tpu_torch as trt
+from resampler_tpu.runtime import StreamingFleet as JaxStreamingFleet
+from resampler_tpu.utils.checkpoint import load_state, save_state
+from resampler_tpu.utils.native import HostStreamPool as JaxPool
+from resampler_tpu_torch.utils.native import HostStreamPool
+from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
+
+# several test workers share the machine's cores: one thread each for
+# torch and for numpy's BLAS (eight each oversubscribe the machine)
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
+ATOL = 2e-5  # tests/test_async_fleet.py
+CHUNK = 256
+M_441, M_WIDE = 44101, 600013
+
+
+def _fleets(in_hz, out_hz, phases, B=3, C=2, **kw):
+    kw = dict(synchronized=True, sync_variant="async_tm", max_chunk=CHUNK, horizon=3,
+              initial_positions=np.asarray(phases, object), **kw)
+    args = (B, C, in_hz, out_hz)
+    j = jrt.BatchedResamplerFir(*args, jrt.Latency.Sample32, jrt.Attenuation.Db90, **kw)
+    t = trt.BatchedResamplerFir(*args, trt.Latency.Sample32, trt.Attenuation.Db90,
+                                device="cpu", **kw)
+    return j, t
+
+
+def _assert_states_equal(jstate, tstate):
+    js, ts = jax.tree.map(np.asarray, jstate), state_to_numpy(tstate)
+    assert sorted(js) == sorted(ts)
+    for k in js:
+        assert js[k].dtype == ts[k].dtype, k
+        np.testing.assert_array_equal(ts[k], js[k], err_msg=k)
+
+
+def _compare(jres, tres):
+    (oj, cj, pj, kj), (ot, ct, pt, kt) = jres, tres
+    np.testing.assert_array_equal(ct, np.asarray(cj))
+    np.testing.assert_array_equal(pt, np.asarray(pj))
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=ATOL, rtol=0)
+    assert abs(float(kt) - float(kj)) <= ATOL
+
+
+@pytest.mark.parametrize(
+    "in_hz,out_hz,phases,slews",
+    [
+        # a per-stream slew within the skew, a scalar one, then the
+        # history clamp (every stream back to its oldest buffered frame)
+        (44100, 44101, [0, 11111, 44100 // 2], ([0.25, -0.0, 0.125], 0.75, -40.0)),
+        (600011, M_WIDE, [0, M_WIDE // 2, 17], ([0.25, 0.0, -0.125], -0.125, -40.0)),
+    ],
+    ids=["narrow", "wide"],
+)
+def test_async_wrapper_matches_jax(in_hz, out_hz, phases, slews):
+    """``resample`` over ragged feeds, per-stream and scalar ``slew``, the
+    history clamp, the skew refusal, and ``resample_many``."""
+    j, t = _fleets(in_hz, out_hz, phases)
+    _assert_states_equal(j.state, t.state)
+    rng = np.random.default_rng(9)
+    for i, nv in enumerate([CHUNK, 100, CHUNK, 0, CHUNK, 37, CHUNK, CHUNK, CHUNK]):
+        chunks = rng.standard_normal((3, CHUNK, 2)).astype(np.float32)
+        n_valid = np.full(3, nv)
+        n_valid[0] += 3  # the cadence takes the fleet minimum
+        _compare(j.resample(chunks, n_valid), t.resample(chunks, n_valid))
+        _assert_states_equal(j.state, t.state)
+        if i in (2, 4, 6):
+            s = slews[(i - 2) // 2]
+            got, want = t.slew(s), j.slew(np.asarray(s, np.float64))
+            assert got.shape == (3,) and got.dtype == np.float64
+            np.testing.assert_array_equal(got, np.asarray(want))
+            _assert_states_equal(j.state, t.state)
+    with pytest.raises(ValueError, match="spread"):
+        t.slew(np.asarray([10.0, -10.0, 0.0]))
+    with pytest.raises(ValueError, match="spread"):
+        j.slew(np.asarray([10.0, -10.0, 0.0]))
+    _assert_states_equal(j.state, t.state)  # a refused slew moves nothing
+    chunks4 = rng.standard_normal((4, 3, CHUNK, 2)).astype(np.float32)
+    nv4 = np.asarray([CHUNK, 50, 0, CHUNK])
+    _compare(j.resample_many(chunks4, nv4), t.resample_many(chunks4, nv4))
+    _assert_states_equal(j.state, t.state)
+
+
+def test_async_wrapper_options():
+    args = (2, 2, 44100, 44101)
+    with pytest.raises(ValueError, match="initial_positions"):
+        trt.BatchedResamplerFir(*args, synchronized=True, initial_positions=[0, 1], device="cpu")
+    with pytest.raises(ValueError, match="path"):
+        trt.BatchedResamplerFir(*args, synchronized=True, sync_variant="async_tm",
+                                path="lerp", device="cpu")
+    with pytest.raises(ValueError, match="skew invariant"):
+        trt.BatchedResamplerFir(*args, synchronized=True, sync_variant="async_tm",
+                                initial_positions=[0, M_441], device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        trt.StreamingFleet(2, 2, 44100, 48000, device="cpu")
+    with pytest.raises(ValueError):
+        trt.StreamingFleet(2, 2, 44100, 48000, synchronized="yes", device="cpu")
+
+
+def _stream(fleet_cls, kw, pushes, n_steps, B, C):
+    fleet = fleet_cls(B, C, 44100, 44101, chunk_frames=CHUNK, **kw)
+    outs = [[] for _ in range(B)]
+    for k in range(n_steps):
+        for b in range(B):
+            if pushes[k][b].size:
+                assert fleet.push(b, pushes[k][b]) == pushes[k][b].size
+        for b, o in enumerate(fleet.step()):
+            outs[b].append(o)
+    return [np.concatenate(o) for o in outs], [fleet.pending(b) for b in range(B)]
+
+
+@pytest.mark.parametrize("mode", [True, "async"])
+def test_streaming_fleet_matches_jax(mode):
+    """Ragged per-stream pushes through the staging pool and the carry."""
+    B, C = 3, 2
+    rng = np.random.default_rng(2)
+    pushes = [[(rng.standard_normal(C * int(rng.integers(0, 2 * CHUNK))) * 0.5).astype(np.float32)
+               for _ in range(B)] for _ in range(8)]
+    kw = dict(synchronized=mode)
+    if mode == "async":
+        kw["initial_positions"] = np.asarray([0, 9999, 44100])
+    jaxo, jpend = _stream(JaxStreamingFleet, dict(kw, latency=jrt.Latency.Sample32,
+                                                  attenuation=jrt.Attenuation.Db90), pushes, 8, B, C)
+    tor, tpend = _stream(trt.StreamingFleet, dict(kw, latency=trt.Latency.Sample32,
+                                                  attenuation=trt.Attenuation.Db90, device="cpu"),
+                         pushes, 8, B, C)
+    assert tpend == jpend
+    for a, b in zip(jaxo, tor):
+        assert a.shape == b.shape and a.size > 1000
+        np.testing.assert_allclose(b, a, atol=ATOL, rtol=0)
+
+
+def test_host_pool_matches_jax():
+    B, C = 3, 2
+    ours, theirs = HostStreamPool(B, C, capacity_frames=300), JaxPool(B, C, capacity_frames=300)
+    rng = np.random.default_rng(4)
+    for _ in range(6):
+        for b in range(B):
+            x = rng.standard_normal(int(rng.integers(0, 333))).astype(np.float32)
+            assert ours.push(b, x) == theirs.push(b, x)  # whole frames, up to capacity
+            assert ours.pending(b) == theirs.pending(b)
+        n = int(rng.integers(1, 200))
+        (bo, vo), (bt, vt) = ours.fill(n), theirs.fill(n)
+        np.testing.assert_array_equal(vo, vt)
+        np.testing.assert_array_equal(bo, bt)
+
+
+def test_async_state_round_trip(tmp_path):
+    """A JAX async fleet state (and its ``.npz`` checkpoint) loaded into
+    the port steps like JAX's; the port's numpy form is JAX's."""
+    for in_hz, out_hz, phases in ((44100, 44101, [0, 11111, 30000]),
+                                  (600011, M_WIDE, [0, M_WIDE // 2, 17])):
+        j, t = _fleets(in_hz, out_hz, phases)
+        rng = np.random.default_rng(6)
+        for _ in range(4):
+            j.resample(rng.standard_normal((3, CHUNK, 2)).astype(np.float32))
+        save_state(tmp_path / "fleet.npz", j.state)
+        for state_np in (jax.tree.map(np.asarray, j.state),
+                         load_state(tmp_path / "fleet.npz", to_device=False)):
+            t.state = state_from_numpy(state_np, device="cpu")
+            _assert_states_equal(j.state, t.state)
+        for _ in range(3):
+            chunks = rng.standard_normal((3, CHUNK, 2)).astype(np.float32)
+            _compare(j.resample(chunks), t.resample(chunks))
+            _assert_states_equal(j.state, t.state)
