@@ -13,9 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and precision: a CUDA card, both TF32 flags off, the card's
    name and power limit from nvidia-smi;
 2. build kernels B1 (csrc/fir_banded_contract.cu), B2/B3
-   (csrc/fir_farrow_contract.cu), B4/B5 (csrc/fft_magsplit.cu) and B6
-   (csrc/fir_async_combine.cu) with nvcc for sm_90a, one nvcc per source,
-   started together;
+   (csrc/fir_farrow_contract.cu), B4/B5 (csrc/fft_magsplit.cu), B6
+   (csrc/fir_async_combine.cu) and B8/B9 (csrc/fir_fleet_step.cu) with
+   nvcc for sm_90a, one nvcc per source (five), started together;
 3. each kernel against its plain version on the card at the main paths'
    shapes (plus a grouped small-M shape and ragged fleets), odd bases and
    the top bound, timed with CUDA events against its bound; B1 also
@@ -73,7 +73,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    >= 100 dB and within 0.5 dB of the CPU port);
 15. ``StreamingFleet(1024, 2, ..., synchronized="async")`` on the card
    with ragged pushes against the CPU ``StreamingFleet``, with the host
-   pool's drain timed beside the step.
+   pool's drain timed beside the step;
+16. kernels B9 and B8 (csrc/fir_fleet_step.cu) against their plain
+   version at the end-aligned fleets' shapes: (a) 44.1 -> 48 kHz, taps
+   128, 1024 stereo streams, chunk 4096; (b) the same with ragged
+   per-stream valid counts (0, 1, full), NaN junk past them and diverged
+   positions; (c) 48 -> 44.1 kHz; (d) 48000 -> 96000 (M 2) at 128 x 2;
+   (e) a ragged R of 6; timed with CUDA events against their bounds, and
+   one ``torch.matmul`` over the overlapping window view for the
+   contraction alone as the library yardstick;
+17. the vmapped fleet at full width, ``BatchedResamplerFir(1024, 2, 44100,
+   48000, Latency.Sample64, Attenuation.Db90)``, chunk 4096, 40
+   ``resample`` calls (every fifth with ragged per-stream valid counts)
+   and one ``resample_many(T=8)``: one B9 launch per emitting step and no
+   other kernel, every stream's schedule against a host recomputation,
+   streams 0-3 against a CPU fleet, Msamples/s, then a profile of 10
+   steps;
+18. the vmapped farrow fleet (256 stereo streams, 44100 -> 44101, chunk
+   2048; torch ops, no kernel) against a CPU fleet;
+19. the slide fleet at full width (``synchronized=True,
+   sync_variant="slide"``, 1024 x 2, 44.1 -> 48 kHz, chunk 4096): one B8
+   launch per emitting step, outputs equal to the time-major fleet (B1)
+   on the same feed, Msamples/s, then a profile of 10 steps;
+20. card against CPU on small vmapped (periodic, farrow, wide) and slide
+   fleets, ragged feeds with NaN junk past the valid frames;
+21. alias rejection of a 23 kHz tone through B9 and through B8 (48 ->
+   44.1 kHz, >= 100 dB);
+22. ``StreamingFleet(64, 8, 44100, 48000)`` (BASELINE config 5, the
+   vmapped fleet) with ragged pushes against the CPU ``StreamingFleet``,
+   with the pool's drain timed beside the step.
 
 It prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -112,6 +140,8 @@ from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
 from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
+from resampler_tpu_torch.ops import fir_kernel as b9
+from resampler_tpu_torch.ops import fir_sync_kernel as b8
 from resampler_tpu_torch.ops.matmul3 import split_hi_lo
 from resampler_tpu_torch.types import reduce_ratio
 
@@ -120,6 +150,8 @@ from resampler_tpu_torch.types import reduce_ratio
 KERNEL_ATOL = 1e-5
 #: card vs CPU on fleet outputs: bench.py's device-vs-CPU quality gate
 DEVICE_ATOL = 5e-5
+#: the slide fleet against the time-major fleet at 128 taps (phase 19)
+SLIDE_TM_ATOL = 4e-6
 #: H100 SXM data sheet: f32 CUDA-core and dense bf16 tensor-core peaks and
 #: the HBM3 rate, for the bounds
 F32_PEAK_TFLOPS = 67.0
@@ -139,6 +171,10 @@ SOURCES = {
                                 "resampler_tpu/ops/fft_magsplit_kernel.py:332"),
     "async_combine": ("resampler_tpu_torch/csrc/fir_async_combine.cu",
                       "resampler_tpu/ops/fir_async_kernel.py:294"),
+    "fir_fleet_step_sync": ("resampler_tpu_torch/csrc/fir_fleet_step.cu",
+                            "resampler_tpu/ops/fir_sync_kernel.py:52"),
+    "fir_fleet_step": ("resampler_tpu_torch/csrc/fir_fleet_step.cu",
+                       "resampler_tpu/ops/fir_kernel.py:116"),
 }
 
 
@@ -218,13 +254,14 @@ def phase_build() -> None:
 # --------------------------------------------------------------------------
 
 
-def timed_pair(kernel, plain, reps=20):
+def timed_pair(kernel, plain, reps=20, plain_reps=None):
     """Kernel and plain ms per call, in turns plain, kernel, kernel,
     plain (``fn(i)`` rotates its bases over the ring so successive calls
     do not find their rows in the 50 MB L2)."""
     for fn in (kernel, plain):
         fn(0)
-    t = [elapsed_ms(fn, reps) for fn in (plain, kernel, kernel, plain)]
+    n = (plain_reps or reps, reps, reps, plain_reps or reps)
+    t = [elapsed_ms(fn, k) for fn, k in zip((plain, kernel, kernel, plain), n)]
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
@@ -585,7 +622,7 @@ def phase_differential(device, in_hz, out_hz, path="auto", B=3, C=2, max_chunk=5
 def alias_db(device, in_hz, out_hz, B=2, C=2, max_chunk=4096, **fleet_kw):
     fleet = BatchedResamplerFir(
         B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90,
-        synchronized=True, max_chunk=max_chunk, device=device, **fleet_kw,
+        max_chunk=max_chunk, device=device, **{"synchronized": True, **fleet_kw},
     )
     t = np.arange(in_hz) / in_hz
     tone = (0.5 * np.sin(2 * np.pi * 23000 * t)).astype(np.float32)
@@ -1196,6 +1233,419 @@ def phase_async_streaming(device, smi, B=1024, C=2, chunk=1024, n_steps=6):
 
 
 
+# --------------------------------------------------------------------------
+# phases 16-22: the end-aligned fleets (vmapped, slide) and kernels B9, B8
+# --------------------------------------------------------------------------
+
+
+def step_bound(cfg, n_out, B):
+    """B8/B9's least time for one step: each emitted output's taps-wide dot
+    (2 x taps operations per channel) at the f32 peak, against the bytes
+    the step must move: per stream and channel the old columns the slide
+    keeps and the chunk frames it copies (valid_end together), the new
+    valid columns and the output lanes written, and the schedule."""
+    C = cfg.channels
+    flop = 2 * cfg.taps * C * int(np.broadcast_to(n_out, (B,)).sum())
+    nbytes = 4 * C * B * (2 * cfg.input_capacity + cfg.out_capacity) + 16 * B
+    return bound_ms(flop, nbytes) + (flop, nbytes)
+
+
+def step_case(device, in_hz, out_hz, taps, B, C, n, ragged, seed):
+    """A fleet state and feed at the shapes the end-aligned fleets hand
+    B9 and B8: a steady-state buffer (127 frames left after the last
+    consume, 44.1 -> 48 kHz's), or ragged per-stream frames, positions and
+    valid counts (0, 1 or full) with NaN junk past them."""
+    L, M = reduce_ratio(in_hz, out_hz)
+    cfg = FirConfig(channels=C, taps=taps, ratio_num=L, ratio_den=M)
+    plan = b9.FleetStepPlan(cfg, coeffs_for(in_hz, out_hz, taps))
+    rng = np.random.default_rng(seed)
+    buf = rng.standard_normal((B, C, cfg.buffer_alloc), dtype=np.float32)
+    buf[:, :, cfg.input_capacity:] = 0.0  # the zero slack of every state
+    if ragged:
+        avail = rng.integers(0, 600, B)
+        pos = rng.integers(0, 3 * M, B)
+        nv = rng.choice([0, 1, n], B)
+    else:
+        avail, pos, nv = np.full(B, taps - 1), np.full(B, M // 3), np.full(B, n)
+    chunks = rng.standard_normal((B, n, C), dtype=np.float32)
+    shared = chunks.copy()  # B8's feed: junk past the shared count
+    shared[:, int(nv[-1]):] = np.nan
+    chunks[np.arange(n)[None, :] >= nv[:, None]] = np.nan
+    t = {k: torch.from_numpy(v).to(device) for k, v in (("buf", buf), ("chunks", chunks),
+                                                          ("shared", shared))}
+    return cfg, plan, t, avail, pos, nv, np.full(B, cfg.out_capacity)
+
+
+def phase_step_kernels(device, cases):
+    """B9 and B8 against their plain version at each case; times (plain,
+    kernel, kernel, plain) against the bound.  The main case (the first)
+    gives the kernels' line, with one ``torch.matmul`` of its shared atlas
+    window over the ``as_strided`` window view of the new buffer (the
+    contraction alone) as the library yardstick."""
+    entries = {}
+    for n_case, (name, in_hz, out_hz, taps, B, C, n, ragged) in enumerate(cases):
+        cfg, plan, t, avail, pos, nv, budget = step_case(device, in_hz, out_hz, taps, B, C, n,
+                                                         ragged, 30 + n_case)
+        buf, chunks, shared = t["buf"], t["chunks"], t["shared"]
+        spare = torch.zeros_like(buf)
+        got = b9.fir_fleet_step(plan, buf, chunks, avail, pos, nv, budget, out_buffers=spare)
+        ref = b9.fir_fleet_step_reference(plan, buf, chunks, avail, pos, nv, budget)
+        torch.cuda.synchronize()
+        check(all(np.array_equal(g, r) for g, r in zip(got[2:], ref[2:])), f"B9 {name}: ints")
+        check(torch.equal(got[0], ref[0]), f"B9 {name}: buffers bit-equal")
+        check(bool(torch.isfinite(got[1]).all()), f"B9 {name}: finite outputs (the NaN fence)")
+        err9 = float((got[1] - ref[1]).abs().max())
+        sargs = (int(avail[-1]), int(pos[-1]), int(nv[-1]))
+        err8 = 0.0
+        for cm in (False, True):
+            feed = shared.transpose(1, 2).contiguous() if cm else shared
+            gs = b8.fir_fleet_step_sync(plan, buf, feed, *sargs, channel_major=cm)
+            rs = b8.fir_fleet_step_sync_reference(plan, buf, feed, *sargs, channel_major=cm)
+            torch.cuda.synchronize()
+            check(gs[2:] == rs[2:] and torch.equal(gs[0], rs[0]), f"B8 {name}: ints, buffers")
+            err8 = max(err8, float((gs[1] - rs[1]).abs().max()))
+        check(max(err9, err8) <= KERNEL_ATOL, f"B9/B8 vs plain {name}: {err9:.3e} / {err8:.3e}")
+        print(f"[16] B9/B8 {name}: buffers [{B}, {C}, {cfg.buffer_alloc}], L/M {cfg.ratio_num}/"
+              f"{cfg.ratio_den}, out_cap {cfg.out_capacity}, n_out {int(got[5].min())}-"
+              f"{int(got[5].max())}: max |kernel - plain| B9 {err9:.3e}, B8 {err8:.3e} "
+              "(buffers bit-equal, ints equal)")
+        # kernel and plain version on the same host schedule, made once:
+        # the wrappers' per-call numpy schedule and upload are host work
+        # the kernel's time should not include
+        s9 = b9.schedule(plan, avail, pos, nv, budget, n)
+        s8 = b9.schedule(plan, *([v] for v in sargs[:3]), [cfg.out_capacity], n)
+        dev_rows = {
+            k: torch.from_numpy(np.stack([sc[f] for f in ("to_copy", "n_out", "base", "r")], 1)
+                                .astype(np.int32)).to(device)
+            for k, sc in (("fir_fleet_step", s9), ("fir_fleet_step_sync", s8))
+        }
+        times = {}
+        for kname, feed, sc in (("fir_fleet_step", chunks, s9), ("fir_fleet_step_sync", shared, s8)):
+            rows_k = dev_rows[kname]
+            ms, plain_ms, tt = timed_pair(
+                lambda i: b9.launch_step(plan, buf, feed, rows_k, spare, kname),
+                lambda i: b9.step_reference(plan, buf, feed, sc, None),
+                plain_reps=5,  # ~15 ms a call at full width
+            )
+            b_ms, b_by, flop, nbytes = step_bound(cfg, sc["n_out"], B)
+            times[kname] = (ms, plain_ms, b_ms, b_by)
+            print(f"    {'B9' if kname == 'fir_fleet_step' else 'B8'}: kernel {tt[1]:.4f} / "
+                  f"{tt[2]:.4f} ms, plain {tt[0]:.4f} / {tt[3]:.4f} ms per call; bound {b_ms:.4f} ms "
+                  f"({b_by}: {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% "
+                  "of it reached)")
+        if not entries:
+            L, M, span, K = cfg.ratio_num, cfg.ratio_den, plan.span, plan.K
+            new, R = ref[0], B * C
+            base = int(b9.schedule(plan, avail, pos, nv, budget, n)["base"][0])
+            i0 = ((int(pos[0]) % M) * plan.l_inv) % M
+            c0 = (i0 * L) // M
+            a = plan.tables(device)["a2"][i0 : i0 + M, c0 : c0 + span].contiguous()
+
+            def library(i):
+                view = new.as_strided((R, span, K), (cfg.buffer_alloc, 1, L), base)
+                return torch.matmul(a, view)  # [R, M, K]
+
+            lib = library(0).view(B, C, M, K).permute(0, 3, 2, 1).reshape(B, K * M, C)
+            lib_n = int(got[5][0])
+            lib_err = float((lib[:, :lib_n] - ref[1][:, :lib_n]).abs().max())
+            del lib
+            lib_ms = elapsed_ms(library, 20)
+            print(f"    library torch.matmul(atlas window, as_strided window view of the new buffer), "
+                  f"the contraction alone: {lib_ms:.4f} ms, max |library - plain| {lib_err:.3e}")
+            for kname, (ms, plain_ms, b_ms, b_by) in times.items():
+                entries[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=lib_ms, max_abs_err=0.0)
+        entries["fir_fleet_step"]["max_abs_err"] = max(entries["fir_fleet_step"]["max_abs_err"], err9)
+        entries["fir_fleet_step_sync"]["max_abs_err"] = max(
+            entries["fir_fleet_step_sync"]["max_abs_err"], err8)
+        del t, buf, chunks, shared, spare, got, ref
+        torch.cuda.empty_cache()
+    return entries
+
+
+def expected_stream_schedules(cfg, B, nvs):
+    """Every stream's schedule as plain integer arithmetic, one stream at
+    a time: ``(to_copy [B], n_out [B])`` per step."""
+    L, M, cap, taps, out_cap = (
+        cfg.ratio_num, cfg.ratio_den, cfg.input_capacity, cfg.taps, cfg.out_capacity
+    )
+    avail, pos = [0] * B, [0] * B
+    for nv in nvs:
+        tc, no = [], []
+        for b in range(B):
+            to_copy = min(int(nv[b]), cap - avail[b])
+            a = avail[b] + to_copy
+            limit = (a - taps + 1) * M - pos[b]
+            n_out = min(-(-limit // L) if limit > 0 else 0, out_cap)
+            p = pos[b] + n_out * L
+            consumed = min(p // M, a)
+            avail[b], pos[b] = a - consumed, p - consumed * M
+            tc.append(to_copy)
+            no.append(n_out)
+        yield np.asarray(tc), np.asarray(no)
+
+
+def phase_vmapped_fleet(device, smi, B=1024, C=2, n=4096, n_steps=40, T=8, nbuf=8, mirror=4, warm=8):
+    """The default fleet (``synchronized=False``) at bench.py:44's width:
+    every fifth call feeds each stream 0, 1, n/3 or n frames, so the
+    streams' schedules diverge."""
+    torch.cuda.reset_peak_memory_stats()
+    args = (C, 44100, 48000, Latency.Sample64, Attenuation.Db90)
+    fleet = BatchedResamplerFir(B, *args, device=device)
+    cfg = fleet.config
+    rng = np.random.default_rng(7)
+    chunks_np = [rng.standard_normal((B, n, C), dtype=np.float32) for _ in range(nbuf)]
+    chunks = [torch.from_numpy(c).to(device) for c in chunks_np]
+    nvs = [rng.choice([0, 1, n // 3, n], B) if i % 5 == 4 else np.full(B, n)
+           for i in range(n_steps + T)]
+    many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
+    torch.cuda.synchronize()
+
+    zero_launches()  # count only this path's own launches
+    small, steps, peaks = [], [], []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        out, c, p, peak = fleet.resample(chunks[i % nbuf], nvs[i])
+        small.append(out[:mirror].clone())
+        steps.append((c, p))
+        peaks.append(peak)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    t1 = time.perf_counter()
+    outs, cs, ps, peak_many = fleet.resample_many(many, np.stack(nvs[n_steps:]))
+    torch.cuda.synchronize()
+    dt_many = time.perf_counter() - t1
+    launches = dict(_build.LAUNCHES)
+    steps += list(zip(cs, ps))
+    total = n_steps + T
+
+    for i, (want_c, want_p) in enumerate(expected_stream_schedules(cfg, B, nvs)):
+        check(np.array_equal(steps[i][0], want_c) and np.array_equal(steps[i][1], want_p),
+              f"vmapped fleet: step {i}: every stream's schedule == host recomputation")
+    emitting = sum(int(p.max()) > 0 for _, p in steps)
+    check(emitting == total, f"vmapped fleet: every step emits ({emitting} of {total})")
+    check(any(len(set(p.tolist())) > 1 for _, p in steps), "vmapped fleet: the schedules diverged")
+    check(launches == dict({k: 0 for k in launches}, fir_fleet_step=emitting),
+          f"vmapped fleet: one B9 launch per emitting step and nothing else: {launches}")
+    check(tuple(out.shape) == (B, cfg.out_capacity, C) and tuple(outs.shape) == (T, B, cfg.out_capacity, C),
+          "vmapped fleet: shapes")
+    check(bool(torch.isfinite(torch.stack(peaks)).all()) and bool(torch.isfinite(outs).all()),
+          "vmapped fleet: finite outputs")
+
+    cpu = BatchedResamplerFir(mirror, *args, device="cpu")
+    err = 0.0
+    for i in range(total):
+        ref, c, p, _ = cpu.resample(chunks_np[i % nbuf][:mirror], nvs[i][:mirror])
+        check(np.array_equal(c, steps[i][0][:mirror]) and np.array_equal(p, steps[i][1][:mirror]),
+              f"vmapped fleet: CPU mirror schedule at step {i}")
+        got = small[i] if i < n_steps else outs[i - n_steps, :mirror]
+        err = max(err, float((got.cpu() - ref).abs().max()))
+    check(err <= DEVICE_ATOL, f"vmapped fleet vs CPU mirror {err:.3e} > {DEVICE_ATOL}")
+
+    def rate(step_slice, seconds):
+        return sum(int(p.sum()) for _, p in step_slice) / seconds / 1e6
+
+    dt_warm, dt = t_end - t_warm, t_end - t0
+    print(f"[17] vmapped fleet: {B} streams x {C} ch, 44100 -> 48000 Hz taps 128, chunk {n}, every fifth "
+          f"call ragged per stream; {total} steps, launches {launches}; every stream's schedule == host "
+          f"recomputation; streams 0-{mirror - 1} vs CPU fleet max err {err:.3e}")
+    print(f"    fleet: {rate(steps[warm:n_steps], dt_warm):.1f} Msamples/s over resample() calls "
+          f"{warm + 1}-{n_steps} ({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step); all {n_steps} calls "
+          f"{rate(steps[:n_steps], dt):.1f}; first resample_many(T={T}) {rate(steps[n_steps:], dt_many):.1f} "
+          f"Msamples/s [output frames x streams per second, phase 4's count; card: {smi}]")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_kernel = profile_steps(fleet, chunks)
+    b9_us = sum(us for key, us in per_kernel.items() if "fleet_step" in key)
+    b_ms, b_by, _, _ = step_bound(cfg, steps[n_steps - 2][1], B)
+    print(f"    B9 in the profile: {b9_us / 1e3:.4f} ms/step against its bound {b_ms:.4f} ms ({b_by}) "
+          f"at a full-feed step ({100 * b_ms * 1e3 / b9_us if b9_us else 0:.1f}% of it reached)")
+    del fleet, chunks, many, outs, small
+    torch.cuda.empty_cache()
+    return launches["fir_fleet_step"]
+
+
+def phase_vmapped_farrow(device, smi, B=256, C=2, n=2048, n_steps=12, mirror=4):
+    """The vmapped fleet on a coprime pair at bench.py:142's width: the
+    batched Farrow convolve in torch ops (the JAX package leaves it to
+    XLA), no hand-written kernel."""
+    args = (C, 44100, 44101, Latency.Sample64, Attenuation.Db90)
+    fleet = BatchedResamplerFir(B, *args, device=device)
+    cpu = BatchedResamplerFir(mirror, *args, device="cpu")
+    rng = np.random.default_rng(8)
+    zero_launches()
+    err, produced, dt = 0.0, 0, 0.0
+    for i in range(n_steps):
+        x = rng.standard_normal((B, n, C), dtype=np.float32)
+        nv = rng.choice([0, n // 2, n], B) if i % 3 == 2 else np.full(B, n)
+        xd = torch.from_numpy(x).to(device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, c, p, _ = fleet.resample(xd, nv)
+        torch.cuda.synchronize()
+        if i >= 2:
+            dt += time.perf_counter() - t
+            produced += int(p.sum())
+        ref, cc, pc, _ = cpu.resample(x[:mirror], nv[:mirror])
+        check(np.array_equal(cc, c[:mirror]) and np.array_equal(pc, p[:mirror]), f"farrow mirror ints {i}")
+        err = max(err, float((out[:mirror].cpu() - ref).abs().max()))
+    check(err <= DEVICE_ATOL, f"vmapped farrow fleet vs CPU {err:.3e}")
+    check(sum(_build.LAUNCHES.values()) == 0, f"vmapped farrow fleet launched no kernel: {_build.LAUNCHES}")
+    print(f"[18] vmapped farrow fleet: {B} streams x {C} ch, 44100 -> 44101 Hz, chunk {n}, {n_steps} "
+          f"steps (ragged every third): torch ops, no kernel; streams 0-{mirror - 1} vs CPU max err "
+          f"{err:.3e}; {produced / dt / 1e6:.1f} Msamples/s over calls 3-{n_steps} "
+          f"({dt * 1e3 / (n_steps - 2):.3f} ms/step, host clock; card: {smi})")
+
+
+def phase_slide_fleet(device, smi, B=1024, C=2, n=4096, n_steps=40, T=8, nbuf=8, timed=24):
+    """The slide fleet at full width, in lockstep with the time-major
+    fleet on the same feed, then timed alone."""
+    torch.cuda.reset_peak_memory_stats()
+    args = (B, C, 44100, 48000, Latency.Sample64, Attenuation.Db90)
+    slide = BatchedResamplerFir(*args, synchronized=True, sync_variant="slide", device=device)
+    tm = BatchedResamplerFir(*args, synchronized=True, max_chunk=n, device=device)
+    rng = np.random.default_rng(9)
+    chunks = [torch.from_numpy(rng.standard_normal((B, n, C), dtype=np.float32)).to(device)
+              for _ in range(nbuf)]
+    many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
+    torch.cuda.synchronize()
+    zero_launches()
+    err, steps = 0.0, []
+    for i in range(n_steps):
+        os_, cs_, ps_, _ = slide.resample(chunks[i % nbuf])
+        ot, ct, pt, _ = tm.resample(chunks[i % nbuf])
+        check(np.array_equal(cs_, ct) and np.array_equal(ps_, pt), f"slide vs tm ints at step {i}")
+        err = max(err, float((os_ - ot).abs().max()))
+        steps.append(int(ps_[0]))
+    os_, cs_, ps_, _ = slide.resample_many(many)
+    ot, ct, pt, _ = tm.resample_many(many)
+    check(np.array_equal(cs_, ct) and np.array_equal(ps_, pt), "slide vs tm resample_many ints")
+    err = max(err, float((os_ - ot).abs().max()))
+    steps += ps_.tolist()
+    launches = dict(_build.LAUNCHES)
+    emitting = sum(p > 0 for p in steps)
+    # two f32 sums of 128 taps in different orders; the JAX suite's 2e-6
+    # (tests/test_batched.py:186) is for 32 taps, and the CPU port's slide
+    # and tm fleets already differ by 2.4e-6 at 128
+    check(err <= SLIDE_TM_ATOL, f"slide vs tm fleet {err:.3e} > {SLIDE_TM_ATOL}")
+    check(launches == dict({k: 0 for k in launches}, fir_fleet_step_sync=len(steps),
+                           dma_banded_contract=emitting) and emitting == len(steps),
+          f"slide fleet: one B8 launch per emitting step (and one B1 for the tm fleet): {launches}")
+    del tm, os_, ot
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    produced = 0
+    for i in range(timed):
+        _, _, p, _ = slide.resample(chunks[i % nbuf])
+        produced += int(p[0]) * B
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[19] slide fleet: {B} streams x {C} ch, 44100 -> 48000 Hz taps 128, chunk {n}: "
+          f"{len(steps)} steps in lockstep with the tm fleet, launches {launches}; max |slide - tm| "
+          f"{err:.3e}")
+    print(f"    fleet: {produced / dt / 1e6:.1f} Msamples/s over {timed} more resample() calls "
+          f"({dt * 1e3 / timed:.3f} ms/step) [output frames x streams per second; card: {smi}]")
+    print(f"    peak device memory (with the tm fleet) {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_kernel = profile_steps(slide, chunks)
+    b8_us = sum(us for key, us in per_kernel.items() if "fleet_step" in key)
+    b_ms, b_by, _, _ = step_bound(slide.config, steps[n_steps - 1], B)
+    print(f"    B8 in the profile: {b8_us / 1e3:.4f} ms/step against its bound {b_ms:.4f} ms ({b_by}) "
+          f"({100 * b_ms * 1e3 / b8_us if b8_us else 0:.1f}% of it reached)")
+    del slide, chunks, many
+    torch.cuda.empty_cache()
+    return launches["fir_fleet_step_sync"]
+
+
+def phase_end_aligned_differential(device, in_hz, out_hz, B=3, C=2, n=1024, n_steps=20, **kw):
+    """Card against CPU on a small vmapped or slide fleet: ragged feeds
+    with NaN junk past the valid frames, a slew part-way."""
+    args = (B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90)
+    dev = BatchedResamplerFir(*args, device=device, **kw)
+    cpu = BatchedResamplerFir(*args, device="cpu", **kw)
+    rng = np.random.default_rng(12)
+    err = 0.0
+    for i in range(n_steps):
+        nv = rng.integers(0, n + 1, B)
+        nv[i % B] = n
+        x = rng.standard_normal((B, n, C), dtype=np.float32)
+        valid = np.full(B, nv.min()) if kw else nv  # the slide fleet feeds the minimum
+        x[np.arange(n)[None, :] >= valid[:, None]] = np.nan
+        od, cd, pd, kd = dev.resample(x, nv)
+        oc, cc, pc, kc = cpu.resample(x, nv)
+        check(np.array_equal(cd, cc) and np.array_equal(pd, pc), f"ints at step {i}")
+        err = max(err, float((od.cpu() - oc).abs().max()), abs(float(kd) - float(kc)))
+        if i == 9:
+            s = 0.3 if kw else [0.3, -0.2, 2.0]
+            check(np.array_equal(dev.slew(s), cpu.slew(s)), "slew")
+        sd, sc = dev.state, cpu.state
+        check(all(np.array_equal(sd[k], sc[k]) for k in sc if k != "buffer"), f"state ints at step {i}")
+        check(torch.equal(sd["buffer"].cpu(), sc["buffer"]), f"buffer bit-equal at step {i}")
+    check(err <= DEVICE_ATOL, f"card vs CPU {in_hz}->{out_hz} {kw}: {err:.3e} > {DEVICE_ATOL}")
+    print(f"[20] card vs CPU, {in_hz} -> {out_hz} Hz ({kw.get('sync_variant', 'vmapped')}): {B}-stream "
+          f"stereo fleet, {n_steps} ragged steps with NaN junk: ints equal, buffers bit-equal, max "
+          f"|card - CPU| = {err:.3e}")
+
+
+def phase_end_aligned_alias(device):
+    for label, name, kw in (("B9 (vmapped fleet)", "fir_fleet_step", dict(synchronized=False)),
+                            ("B8 (slide fleet)", "fir_fleet_step_sync",
+                             dict(synchronized=True, sync_variant="slide"))):
+        before = _build.LAUNCHES[name]
+        db, n = alias_db(device, 48000, 44100, **kw)
+        launches = _build.LAUNCHES[name] - before
+        check(launches > 0, f"the tone ran through {label}")
+        check(db >= 100.0, f"alias rejection through {label} {db:.1f} dB >= 100")
+        print(f"[21] alias rejection through {label} (48 -> 44.1 kHz, 23 kHz tone): {db:.1f} dB over "
+              f"{n} frames, {launches} launches")
+
+
+def phase_vmapped_streaming(device, smi, B=64, C=8, chunk=2048, n_steps=6):
+    """BASELINE config 5: 64 concurrent 8-channel streams with arbitrary
+    input sizes, on the default runtime (the vmapped fleet)."""
+    rng = np.random.default_rng(13)
+    args = (B, C, 44100, 48000, Latency.Sample64, Attenuation.Db90)
+    dev = StreamingFleet(*args, chunk_frames=chunk, device=device)
+    cpu = StreamingFleet(*args, chunk_frames=chunk, device="cpu")
+    fill_s, engine_s = [], []
+
+    def timed(fn, into):
+        def call(*a):
+            t = time.perf_counter()
+            got = fn(*a)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t)
+            return got
+        return call
+
+    dev.pool.fill = timed(dev.pool.fill, fill_s)
+    dev.engine.resample = timed(dev.engine.resample, engine_s)
+    launches0 = _build.LAUNCHES["fir_fleet_step"]
+    err, produced, step_s = 0.0, 0, []
+    for _ in range(n_steps):
+        for b in range(B):
+            x = rng.standard_normal(C * int(rng.integers(0, 2 * chunk))).astype(np.float32)
+            check(dev.push(b, x) == x.size and cpu.push(b, x) == x.size, "push accepted")
+        t = time.perf_counter()
+        ys = dev.step()
+        step_s.append(time.perf_counter() - t)
+        for y, yc in zip(ys, cpu.step()):
+            check(y.shape == yc.shape and bool(np.isfinite(y).all()), "StreamingFleet outputs")
+            err = max(err, float(np.abs(y - yc).max(initial=0.0)))
+        produced += sum(y.size for y in ys) // C
+    launches = _build.LAUNCHES["fir_fleet_step"] - launches0
+    check(err <= DEVICE_ATOL, f"StreamingFleet card vs CPU {err:.3e} > {DEVICE_ATOL}")
+    check(launches == n_steps and produced > 0, f"StreamingFleet: {launches} B9 launches, {produced} frames")
+    print(f"[22] StreamingFleet({B}, {C}, 44100 -> 48000, chunk {chunk}; the vmapped fleet) on the card: "
+          f"{n_steps} steps of ragged pushes (0-2 chunks per stream), {produced} frames over all streams, "
+          f"{launches} B9 launches; every stream vs the CPU runtime max err {err:.3e}; step "
+          f"{1e3 * np.mean(step_s[1:]):.1f} ms of which the host pool's drain {1e3 * np.mean(fill_s[1:]):.1f} "
+          f"ms and the fleet step {1e3 * np.mean(engine_s[1:]):.1f} ms (steps 2-{n_steps}, host clock; "
+          f"card: {smi})")
+
+
 def main() -> None:
     smi = phase_device()
     device = torch.device("cuda")
@@ -1260,6 +1710,21 @@ def main() -> None:
                            initial_positions=[0, M // 3, M - 1])
     phase_async_alias(device)
     phase_async_streaming(device, smi)
+    entries.update(phase_step_kernels(device, [
+        ("(a) main 44.1->48k taps 128, 1024x2, chunk 4096", 44100, 48000, 128, 1024, 2, 4096, False),
+        ("(b) ragged feeds, NaN junk, diverged positions, 1024x2", 44100, 48000, 128, 1024, 2, 4096, True),
+        ("(c) 48->44.1k taps 128, 1024x2", 48000, 44100, 128, 1024, 2, 4096, False),
+        ("(d) 48000->96000 (M 2) taps 128, 128x2", 48000, 96000, 128, 128, 2, 4096, False),
+        ("(e) ragged R 6 (3x2)", 44100, 48000, 128, 3, 2, 4096, True),
+    ]))
+    launches["fir_fleet_step"] = phase_vmapped_fleet(device, smi)
+    phase_vmapped_farrow(device, smi)
+    launches["fir_fleet_step_sync"] = phase_slide_fleet(device, smi)
+    for in_hz, out_hz, kw in ((44100, 48000, {}), (44100, 44101, {}), (600011, 600013, {}),
+                              (44100, 48000, dict(synchronized=True, sync_variant="slide"))):
+        phase_end_aligned_differential(device, in_hz, out_hz, **kw)
+    phase_end_aligned_alias(device)
+    phase_vmapped_streaming(device, smi)
     print(json.dumps({"kernels": [
         {
             "name": name,

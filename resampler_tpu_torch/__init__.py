@@ -17,8 +17,13 @@ on the card (``ops/fft_magsplit_kernel.py``: B4, and B5 for the pool);
 the async multi-tenant FIR fleet
 ``BatchedResamplerFir(synchronized=True, sync_variant="async_tm")``
 (per-stream join phases and slew on one ring, kernel B6,
-``ops/fir_async_kernel.py``); and the serving runtime ``StreamingFleet``
-(``synchronized=True`` or ``"async"``) over a host staging pool.
+``ops/fir_async_kernel.py``); the default vmapped fleet
+``BatchedResamplerFir(synchronized=False)`` (each stream with its own
+schedule; kernel B9 on periodic ratios, ``ops/fir_kernel.py``) and the
+slide fleet ``sync_variant="slide"`` (kernel B8,
+``ops/fir_sync_kernel.py``); and the serving runtime ``StreamingFleet``
+(the vmapped fleet by default, ``synchronized=True`` or ``"async"``) over
+a host staging pool.
 Every public constructor takes ``device="cuda"`` (the default; it raises
 without a GPU) or ``"cpu"``, which must be asked for.
 """

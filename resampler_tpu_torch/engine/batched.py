@@ -1,10 +1,13 @@
 """Batched multi-stream resamplers: PyTorch ports of
 ``resampler_tpu.engine.batched``.
 
-- ``BatchedResamplerFir``: the phase-locked time-major fleet
+- ``BatchedResamplerFir``: the general vmapped fleet (the default,
+  ``synchronized=False``: every stream with its own schedule and valid
+  count, kernel B9 on periodic ratios), the phase-locked time-major fleet
   (``synchronized=True, sync_variant="tm"``) on every ratio and convolve
   path it serves (``path="periodic" | "farrow" | "lerp"``, the wide u32
-  schedule), and the async time-major fleet (``sync_variant="async_tm"``:
+  schedule), the end-aligned slide fleet (``sync_variant="slide"``,
+  kernel B8) and the async time-major fleet (``sync_variant="async_tm"``:
   per-stream join phases and slew, kernel B6);
 - ``BatchedResamplerFft``: the FFT fleet on every backend, with
   ``resample_many`` over the zero-copy pool step on the magsplit backend.
@@ -21,11 +24,20 @@ import torch
 from ..dsp.planner import plan_conversion
 from ..types import Attenuation, Latency, SampleRate, reduce_ratio
 from . import fft as fft_engine
-from .fir import FirConfig, fir_coefficients, fir_cutoff, resolve_device
+from .fir import (
+    FirConfig,
+    fir_coefficients,
+    fir_cutoff,
+    fir_init_batched,
+    make_fir_step_batched,
+    resolve_device,
+)
 from .fir_fleets import (
     fir_fleet_init_async_tm,
+    fir_fleet_init_sync,
     fir_fleet_init_sync_tm,
     make_fir_fleet_step_async_tm,
+    make_fir_fleet_step_sync,
     make_fir_fleet_step_sync_tm,
 )
 
@@ -35,14 +47,17 @@ __all__ = ["BatchedResamplerFir", "BatchedResamplerFft"]
 class BatchedResamplerFir:
     """``n_streams`` FIR resamplers stepped as one fleet on ``device``.
 
-    All streams share one configuration and the chunk cadence (every
-    stream is fed the same number of frames per step).  In the
-    synchronized fleet (``sync_variant="tm"``) they share one exact
-    schedule; in the async fleet (``sync_variant="async_tm"``) each keeps
-    its own position (``initial_positions``, per-stream ``slew``) within a
-    spread of ``skew_periods`` input frames.  Chunks arrive batch-major
-    ``[B, n, C]`` and are relaid to the ring's time-major ``[n, B*C]``
-    feed (lane ``b*C + c``).
+    All streams share one configuration.  The vmapped fleet (the default,
+    ``synchronized=False``) keeps each stream's state and schedule apart:
+    per-stream valid counts and per-stream ``slew``.  The synchronized
+    fleets step on one chunk cadence (the fleet minimum of the valid
+    counts): ``sync_variant="tm"`` and ``"slide"`` share one exact
+    schedule (on the time-major ring, or on the end-aligned buffer of the
+    vmapped fleet); in the async fleet (``sync_variant="async_tm"``) each
+    stream keeps its own position (``initial_positions``, per-stream
+    ``slew``) within a spread of ``skew_periods`` input frames.  Chunks
+    arrive batch-major ``[B, n, C]``; the ring fleets relay them to the
+    time-major ``[n, B*C]`` feed (lane ``b*C + c``).
     """
 
     def __init__(
@@ -69,29 +84,27 @@ class BatchedResamplerFir:
             raise NotImplementedError(
                 "mesh sharding is not ported yet (ROADMAP A11)"
             )
-        if not synchronized:
-            raise NotImplementedError(
-                "the vmapped fleet (synchronized=False) is not ported yet "
-                "(ROADMAP A6)"
-            )
-        if sync_variant == "slide":
-            raise NotImplementedError(
-                "sync_variant='slide' is not ported yet (ROADMAP A6)"
-            )
-        if sync_variant not in ("tm", "async_tm"):
+        if sync_variant not in ("tm", "async_tm", "slide"):
             raise ValueError(f"unknown sync_variant {sync_variant!r}")
-        self._async = sync_variant == "async_tm"
-        if path != "auto" and self._async:
+        # as in the JAX package, synchronized=False is the vmapped fleet
+        # whatever sync_variant says
+        self._kind = sync_variant if synchronized else "vmapped"
+        self._async = self._kind == "async_tm"
+        if path != "auto" and self._kind in ("async_tm", "slide"):
+            # a silent drop would serve another convolve structure
             raise ValueError(
-                "path= requires the synchronized tm fleet (sync_variant='tm'); "
-                "the 'async_tm' variant picks its own convolve structure"
+                "path= requires the vmapped fleet (synchronized=False) or the "
+                "synchronized tm fleet (sync_variant='tm'); the "
+                f"{sync_variant!r} variant picks its own convolve structure"
             )
         if initial_positions is not None and not self._async:
             # a silent drop would give every stream phase 0 with no error
             raise ValueError(
                 "initial_positions requires the async fleet "
                 "(synchronized=True, sync_variant='async_tm'); the "
-                "synchronized variant shares one schedule"
+                f"{'synchronized' if synchronized else 'vmapped'} variant "
+                "shares one schedule or starts at phase 0: use slew() to set "
+                "per-stream phases on the vmapped fleet"
             )
         L, M = reduce_ratio(int(input_rate), int(output_rate))
         self._config = FirConfig(
@@ -107,8 +120,18 @@ class BatchedResamplerFir:
         )
         coeffs = fir_coefficients(latency.taps, attenuation, cutoff)
         kw = dict(max_chunk=max_chunk, horizon=horizon, device=self._device)
-        if self._async:
-            self._tm_step = make_fir_fleet_step_async_tm(
+        if self._kind == "vmapped":
+            self._fleet_step = make_fir_step_batched(
+                self._config, coeffs, n_streams, path=path, device=self._device
+            )
+            self._state = fir_init_batched(self._config, n_streams, self._device)
+        elif self._kind == "slide":
+            self._fleet_step = make_fir_fleet_step_sync(
+                self._config, coeffs, n_streams, device=self._device
+            )
+            self._state = fir_fleet_init_sync(self._config, n_streams, self._device)
+        elif self._async:
+            self._fleet_step = make_fir_fleet_step_async_tm(
                 self._config, coeffs, n_streams, max_out=max_out,
                 skew_periods=skew_periods, **kw,
             )
@@ -117,7 +140,7 @@ class BatchedResamplerFir:
                 skew_periods=skew_periods, **kw,
             )
         else:
-            self._tm_step = make_fir_fleet_step_sync_tm(
+            self._fleet_step = make_fir_fleet_step_sync_tm(
                 self._config, coeffs, n_streams, path=path, **kw
             )
             self._state = fir_fleet_init_sync_tm(self._config, n_streams, **kw)
@@ -128,9 +151,12 @@ class BatchedResamplerFir:
 
     @property
     def state(self) -> dict:
-        """Fleet state: ring ``buffer`` tensor plus host-int ``start``,
-        ``fill`` and ``pos_num`` (``pos_hi`` / ``pos_lo`` when wide); the
-        async fleet's positions are ``[B]`` int64 numpy arrays."""
+        """Fleet state.  Ring fleets: ring ``buffer`` tensor plus host-int
+        ``start``, ``fill`` and ``pos_num`` (``pos_hi`` / ``pos_lo`` when
+        wide); the async fleet's positions are ``[B]`` int64 numpy arrays.
+        Vmapped fleet: ``buffer [B, C, alloc]`` and ``available_frames``
+        and the position words as ``[B]`` int64 numpy; slide fleet: the
+        same buffer with host ints."""
         return self._state
 
     @state.setter
@@ -144,19 +170,21 @@ class BatchedResamplerFir:
         """Shift the sampling phase by ``samples`` input samples: resolution
         1/M input samples, clamped to the buffered history and (int32
         envelope only) the int32 schedule envelope; returns the applied
-        slew.  The synchronized fleet shares one phase, so ``samples`` is a
-        scalar there; the async fleet takes a scalar or a per-stream
-        ``[n_streams]`` vector, returns ``[n_streams]``, and refuses a slew
-        that would widen the position spread to ``skew_periods * M``."""
+        slew.  The synchronized fleets share one phase, so ``samples`` is a
+        scalar there; the vmapped and async fleets take a scalar or a
+        per-stream ``[n_streams]`` vector and return ``[n_streams]``; the
+        async fleet refuses a slew that would widen the position spread to
+        ``skew_periods * M``."""
         M = self._config.ratio_den
-        if not self._async and np.ndim(samples) != 0:
+        per_stream = self._kind in ("vmapped", "async_tm")
+        if not per_stream and np.ndim(samples) != 0:
             raise ValueError(
                 "synchronized fleets share one phase; per-stream slew "
                 "needs the async tm fleet (sync_variant='async_tm') "
                 "or the general (vmapped) fleet"
             )
         delta_f = np.round(np.atleast_1d(np.asarray(samples, np.float64)) * M)
-        delta_f = np.broadcast_to(delta_f, (self.n_streams if self._async else 1,))
+        delta_f = np.broadcast_to(delta_f, (self.n_streams if per_stream else 1,))
         st = self._state
         if self._config.wide:
             # exact Python ints: the two u32 words can exceed int64 together
@@ -189,18 +217,30 @@ class BatchedResamplerFir:
                              pos_lo=np.asarray([p % M for p in new_pos], np.int64))
             else:
                 moved = dict(pos_num=new_pos)
-            if not self._async:
+            if not per_stream:
                 moved = {k: int(v[0]) for k, v in moved.items()}
             self._state = dict(st, **moved)
         applied_s = np.asarray(applied / M, np.float64)
-        return applied_s if self._async else float(applied_s[0])
+        return applied_s if per_stream else float(applied_s[0])
 
-    def _step(self, chunks, n_valid: int):
-        n = chunks.shape[1]
-        tm = chunks.permute(1, 0, 2).reshape(n, -1)
-        self._state, out, consumed, produced = self._tm_step(
-            self._state, tm, n_valid
-        )
+    def _step(self, chunks, n_valid):
+        """One step: ``n_valid`` is the shared count (an int), or on the
+        vmapped fleet one per stream; so are the counts returned."""
+        if self._kind == "vmapped":
+            budget = np.full(self.n_streams, self._config.out_capacity, np.int64)
+            self._state, out, consumed, produced = self._fleet_step(
+                self._state, chunks, n_valid, budget
+            )
+        elif self._kind == "slide":
+            self._state, out, consumed, produced = self._fleet_step(
+                self._state, chunks, n_valid
+            )
+        else:
+            n = chunks.shape[1]
+            tm = chunks.permute(1, 0, 2).reshape(n, -1)
+            self._state, out, consumed, produced = self._fleet_step(
+                self._state, tm, n_valid
+            )
         return out, consumed, produced, out.abs().amax()
 
     def _chunks(self, chunks, ndim: int):
@@ -212,7 +252,9 @@ class BatchedResamplerFir:
                 f"chunks must be [..., {self.n_streams}, n, "
                 f"{self._config.channels}], got {tuple(chunks.shape)}"
             )
-        if chunks.shape[-2] > self.max_chunk:
+        # the ring fleets size their ring by max_chunk; the end-aligned
+        # fleets take any chunk up to input_capacity (their steps check it)
+        if self._kind in ("tm", "async_tm") and chunks.shape[-2] > self.max_chunk:
             raise ValueError(
                 f"chunk of {chunks.shape[-2]} frames exceeds max_chunk="
                 f"{self.max_chunk} (set max_chunk at construction for "
@@ -225,16 +267,21 @@ class BatchedResamplerFir:
 
         - ``chunks``: ``[n_streams, frames, channels]`` f32 (numpy, or a
           tensor, ideally already on the fleet's device)
-        - ``n_valid``: optional ``[n_streams]`` valid frame counts; the
-          shared schedule takes their minimum (defaults to full chunks)
+        - ``n_valid``: optional ``[n_streams]`` valid frame counts
+          (defaults to full chunks); the synchronized fleets take their
+          minimum, the vmapped fleet each stream's own
 
         Returns ``(out [n_streams, out_cap, channels], consumed [B],
         produced [B], fleet_peak)``: ``out`` and the peak ``max|out|``
         stay on the device; ``consumed``/``produced`` are int32 numpy
-        arrays, frames per channel (every stream the same: the fleet
-        steps on one cadence)."""
+        arrays, frames per channel (on the synchronized fleets every
+        stream the same)."""
         chunks = self._chunks(chunks, 3)
         B, n, _ = chunks.shape
+        if self._kind == "vmapped":
+            nv = np.full(B, n, np.int64) if n_valid is None else n_valid
+            out, consumed, produced, peak = self._step(chunks, nv)
+            return out, consumed.astype(np.int32), produced.astype(np.int32), peak
         nv = n if n_valid is None else int(np.min(n_valid))
         out, consumed, produced, peak = self._step(chunks, nv)
         return (
@@ -246,22 +293,29 @@ class BatchedResamplerFir:
 
     def resample_many(self, chunks, n_valid=None):
         """Step ``T`` consecutive chunks per stream: ``chunks [T, B, n, C]``
-        -> ``(out [T, B, out_cap, C], consumed [T], produced [T], peak)``.
-        ``n_valid``: optional ``[T]`` (or ``[T, B]``, reduced by min)
-        valid counts.  The same steps as ``T`` calls of ``resample``."""
+        -> ``(out [T, B, out_cap, C], consumed, produced, peak)``, the same
+        steps as ``T`` calls of ``resample``.  ``n_valid``: optional valid
+        counts, ``[T]`` (or ``[T, B]``, reduced by min) on the synchronized
+        fleets, ``[T, B]`` (``[T]`` broadcasts) on the vmapped fleet;
+        ``consumed`` / ``produced`` come back ``[T]`` and ``[T, B]``
+        likewise."""
         chunks = self._chunks(chunks, 4)
-        T, _, n, _ = chunks.shape
+        T, B, n, _ = chunks.shape
+        vmapped = self._kind == "vmapped"
         if n_valid is None:
-            nv = np.full((T,), n, np.int64)
+            nv = np.full((T, B) if vmapped else (T,), n, np.int64)
         else:
             nv = np.asarray(n_valid, np.int64)
-            if nv.ndim == 2:
+            if vmapped and nv.ndim == 1:
+                nv = np.broadcast_to(nv[:, None], (T, B))
+            elif not vmapped and nv.ndim == 2:
                 nv = nv.min(axis=1)
-            if nv.shape != (T,):
+            want = (T, B) if vmapped else (T,)
+            if nv.shape != want:
                 raise ValueError(f"n_valid must be [T] or [T, B], got {nv.shape}")
         outs, cs, ps, peaks = [], [], [], []
         for t in range(T):
-            out, c, p, peak = self._step(chunks[t], int(nv[t]))
+            out, c, p, peak = self._step(chunks[t], nv[t] if vmapped else int(nv[t]))
             outs.append(out)
             cs.append(c)
             ps.append(p)

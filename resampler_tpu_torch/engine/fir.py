@@ -18,6 +18,12 @@ schedule (farrow only, as in the JAX package).  The wide schedule is kept
 as host Python ints and reproduces the JAX package's u32 arithmetic bit
 for bit (``WideSchedule``).  The table-lerp oracle ``path="gather"``
 raises ``NotImplementedError`` (ROADMAP A9).
+
+``make_fir_step_batched`` is the counterpart of ``jax.vmap(make_fir_step)``
+(the JAX package's general fleet): a ``[B, C, buffer_alloc]`` buffer and
+each stream's schedule as ``[B]`` int64 numpy arrays, computed on the host
+with whole-fleet numpy.  Its periodic step is kernel B9
+(``ops/fir_kernel.py``); the farrow and lerp steps are torch ops.
 """
 
 from __future__ import annotations
@@ -44,9 +50,11 @@ __all__ = [
     "farrow_block_size",
     "farrow_matrix",
     "fir_init",
+    "fir_init_batched",
     "fir_cutoff",
     "fir_coefficients",
     "make_fir_step",
+    "make_fir_step_batched",
     "resolve_convolve_path",
     "resolve_device",
     "resolve_path",
@@ -201,6 +209,22 @@ def fir_init(config: FirConfig, device="cuda") -> dict:
     )
 
 
+def fir_init_batched(config: FirConfig, n_streams: int, device="cuda") -> dict:
+    """Zero state of ``n_streams`` independent streams (the JAX package's
+    ``vmap(fir_init)``): ``buffer [B, C, buffer_alloc]`` f32 on ``device``,
+    ``available_frames`` and the position words as ``[B]`` int64 numpy."""
+    zeros = np.zeros(n_streams, np.int64)
+    return dict(
+        buffer=torch.zeros(
+            (n_streams, config.channels, config.buffer_alloc),
+            dtype=torch.float32,
+            device=resolve_device(device),
+        ),
+        available_frames=zeros.copy(),
+        **{k: zeros.copy() for k in zero_position(config)},
+    )
+
+
 _COEFF_CACHE: dict[tuple, np.ndarray] = {}
 _COEFF_LOCK = threading.Lock()
 
@@ -244,6 +268,50 @@ def _compute_n_out(config: FirConfig, pos_num: int, avail: int, out_budget: int)
     return min(max(n_from_input, 0), out_budget)
 
 
+def stream_schedule(config: FirConfig, avail, pos_num, n_valid, out_budget):
+    """``make_fir_step``'s copy-in and emission count for every stream at
+    once, ``[B]`` int64 numpy in and out: ``(to_copy, avail + to_copy,
+    n_out)``.  ``n_valid`` is already clipped to the chunk."""
+    L, M = config.ratio_num, config.ratio_den
+    to_copy = np.minimum(n_valid, config.input_capacity - avail)
+    avail = avail + to_copy
+    limit = (avail - config.taps + 1) * M - pos_num
+    # ceil(limit / L) where limit > 0, else <= 0 and clipped to 0
+    n_out = np.minimum(np.maximum(-(-limit // L), 0), out_budget)
+    return to_copy, avail, n_out
+
+
+def stream_consume(config: FirConfig, pos_num, n_out, avail):
+    """``make_fir_step``'s consume for every stream at once: ``(avail',
+    pos_num')`` after emitting ``n_out`` outputs, ``[B]`` int64 numpy."""
+    L, M = config.ratio_num, config.ratio_den
+    pos_after = pos_num + n_out * L
+    consumed = np.minimum(pos_after // M, avail)
+    return avail - consumed, pos_after - consumed * M
+
+
+def slide_in(buffers, chunks, to_copy: np.ndarray, valid_end: int):
+    """The end-aligned copy-in of every stream (the JAX step's masked
+    concat at the static seam and window ending at the new valid end):
+    ``[old[to_copy:valid_end] | chunk[:to_copy] | 0]`` per stream.
+    ``buffers [B, C, alloc]``, ``chunks [B, n, C]`` (any strides),
+    ``to_copy [B]``; returns a new ``[B, C, alloc]`` tensor.  Frames past
+    ``to_copy`` are selected out, never multiplied (the NaN fence)."""
+    B, C, alloc = buffers.shape
+    dev = buffers.device
+    tc = torch.from_numpy(np.array(to_copy, np.int64)).to(dev)
+    fresh = chunks.transpose(1, 2)  # [B, C, n]
+    frame = torch.arange(fresh.shape[2], device=dev)
+    fresh = torch.where((frame[None, :] < tc[:, None])[:, None, :], fresh, 0.0)
+    conc = torch.cat([buffers[:, :, :valid_end], fresh], dim=2)
+    cols = (tc[:, None] + torch.arange(valid_end, device=dev))[:, None, :]
+    return torch.cat(
+        [conc.gather(2, cols.expand(B, C, valid_end)),
+         buffers.new_zeros((B, C, alloc - valid_end))],
+        dim=2,
+    )
+
+
 _U32 = (1 << 32) - 1
 
 
@@ -268,34 +336,53 @@ class WideSchedule:
         self.nl_hi = np.minimum((n * L) // M, _U32).astype(np.uint32)
         self.nl_lo = ((n * L) % M).astype(np.uint32)
 
-    def emitted(self, pos_hi: int, pos_lo: int, avail: int) -> int:
+    def emitted(self, pos_hi, pos_lo, avail):
         """Lanes whose taps window ends inside the ``avail`` buffered
-        frames (the emission mask, counted on the host)."""
-        t = np.uint32(pos_lo) + self.s_lane
-        wrap = ((t < pos_lo) | (t >= self.M)).astype(np.uint32)
-        o1 = np.uint32(pos_hi) + self.j_lane
+        frames (the emission mask, counted on the host): an int, or for
+        ``[B]`` arrays of words and frames one count per stream."""
+        hi = np.asarray(pos_hi, np.uint32)[..., None]
+        lo = np.asarray(pos_lo, np.uint32)[..., None]
+        t = lo + self.s_lane
+        wrap = ((t < lo) | (t >= self.M)).astype(np.uint32)
+        o1 = hi + self.j_lane
         o2 = o1 + wrap + np.uint32(self.taps)
-        return int(((o1 >= pos_hi) & (o2 >= o1) & (o2 <= avail)).sum())
+        ok = (o1 >= hi) & (o2 >= o1) & (o2 <= np.asarray(avail, np.int64)[..., None])
+        n = ok.sum(axis=-1)
+        return int(n) if n.ndim == 0 else n.astype(np.int64)
+
+    def _stride(self, pos_hi, pos_lo, n_out):
+        """The words after a stride of ``n_out * L`` (``n_out`` an int or
+        one per stream): the static tables, the subframe carry and the
+        saturating frame add, as int64 arrays."""
+        M = self.M
+        pos_hi, pos_lo = np.asarray(pos_hi, np.int64), np.asarray(pos_lo, np.int64)
+        t2 = (pos_lo + self.nl_lo[n_out].astype(np.int64)) & _U32
+        carry = (t2 < pos_lo) | (t2 >= M)
+        lo_after = np.where(carry, (t2 - M) & _U32, t2)
+        hi_raw = (pos_hi + self.nl_hi[n_out].astype(np.int64) + carry) & _U32
+        return np.where(hi_raw < pos_hi, _U32, hi_raw), lo_after
 
     def advance(self, pos_hi, pos_lo, n_out: int, avail: int):
         """``(consumed, pos_hi', pos_lo')`` after emitting ``n_out``
-        outputs: the stride ``n_out * L`` from the static tables, the
-        subframe carry, the saturating frame add, eager consumption.  The
-        words are Python ints (one shared position), or int64 arrays of
-        per-stream words (the async fleet), which all advance by the same
-        stride and are consumed by their minimum."""
-        M = self.M
-        pos_hi, pos_lo = np.asarray(pos_hi, np.int64), np.asarray(pos_lo, np.int64)
-        t2 = (pos_lo + int(self.nl_lo[n_out])) & _U32
-        carry = (t2 < pos_lo) | (t2 >= M)
-        lo_after = np.where(carry, (t2 - M) & _U32, t2)
-        hi_raw = (pos_hi + int(self.nl_hi[n_out]) + carry) & _U32
-        hi_after = np.where(hi_raw < pos_hi, _U32, hi_raw)
+        outputs, with eager consumption.  The words are Python ints (one
+        shared position), or int64 arrays of per-stream words (the async
+        fleet), which all advance by the same stride and are consumed by
+        their minimum."""
+        hi_after, lo_after = self._stride(pos_hi, pos_lo, n_out)
         consumed = min(int(hi_after.min()), avail)
         hi_after -= consumed
         if hi_after.ndim == 0:
             return consumed, int(hi_after), int(lo_after)
         return consumed, hi_after, lo_after
+
+    def advance_each(self, pos_hi, pos_lo, n_out, avail):
+        """``advance`` for independent streams (the vmapped fleet): each
+        ``[B]`` word pair takes its own stride ``n_out[b] * L`` and is
+        consumed by its own frames, ``min(pos_hi', avail)``.  Returns
+        ``(avail', pos_hi', pos_lo')`` as int64 arrays."""
+        hi_after, lo_after = self._stride(pos_hi, pos_lo, n_out)
+        consumed = np.minimum(hi_after, avail)
+        return avail - consumed, hi_after - consumed, lo_after
 
 
 def lane_residues(s: np.ndarray, M: int, pos):
@@ -369,6 +456,24 @@ def _table_svd_basis(coeffs, tol: float = 1e-7):
     return (Uf[:, :r] * s[:r]).astype(np.float32), Vt[:r].astype(np.float32)
 
 
+def _basis_tables(config: FirConfig, coeffs, path: str):
+    """Static tables of the coprime-ratio convolve: each output's row
+    ``j = (i*L)//M`` (clamped at the buffer edge when wide: such lanes can
+    never be emitted, and the clamp bounds the region, as in the JAX
+    package) and split ``s = (i*L) % M``, the region length, the basis
+    ``A [d1, taps]`` and (lerp) the SVD factor ``U``."""
+    L, M, N = config.ratio_num, config.ratio_den, config.out_capacity
+    i = np.arange(N, dtype=np.int64)
+    j = (i * L) // M
+    if config.wide:
+        j = np.minimum(j, config.input_capacity + 2)
+    if path == "lerp":
+        U, A = _table_svd_basis(coeffs)
+    else:
+        U, (A, _) = None, farrow_matrix(coeffs)
+    return j, (i * L) % M, int(j[-1]) + 2 + config.taps, A, U
+
+
 def _convolve_basis(config: FirConfig, coeffs, path: str, device: torch.device):
     """Coprime-ratio path (``resampler_tpu.engine.fir._convolve_farrow``
     and ``_convolve_lerp``): per call
@@ -383,20 +488,9 @@ def _convolve_basis(config: FirConfig, coeffs, path: str, device: torch.device):
     ``Y[.., j_i + wrap_i]`` through blocked one-hot contractions because
     the TPU cannot gather; here it is one index, and the sum over ``d``
     is the same."""
-    L, M, taps, N = config.ratio_num, config.ratio_den, config.taps, config.out_capacity
+    M, taps = config.ratio_den, config.taps
     wide = config.wide
-    i = np.arange(N, dtype=np.int64)
-    j = (i * L) // M
-    s = (i * L) % M
-    if wide:
-        # lanes whose row offset exceeds the buffer can never be emitted;
-        # the clamp bounds the region (as in the JAX package)
-        j = np.minimum(j, config.input_capacity + 2)
-    region_len = int(j[-1]) + 2 + taps
-    if path == "lerp":
-        U, A = _table_svd_basis(coeffs)
-    else:
-        U, (A, _) = None, farrow_matrix(coeffs)
+    j, s, region_len, A, U = _basis_tables(config, coeffs, path)
     A = torch.from_numpy(A).to(device)  # [d1, taps]
 
     def convolve(buffer, read_pos: int, pos):
@@ -410,6 +504,81 @@ def _convolve_basis(config: FirConfig, coeffs, path: str, device: torch.device):
         region = buffer[:, start : start + region_len]
         y = torch.einsum("dt,cpt->cdp", A, region.unfold(1, taps, 1))
         return torch.einsum("nd,cdn->nc", v, y[:, :, idx])
+
+    return convolve
+
+
+def combine_basis_device(rem: torch.Tensor, M: int, U=None, phases: int = PHASES):
+    """``combine_basis`` on the device, for the ``[B, N]`` residues of a
+    vmapped fleet (host numpy over such tables cost far more than the
+    step; PERF.md): the same f32 operations, in the same order, on an
+    int64 tensor of residues; ``U`` (lerp) a tensor on its device."""
+    M_f = torch.tensor(np.float32(M), device=rem.device)
+    if U is None:
+        u = 2.0 * (rem.to(torch.float32) / M_f) - 1.0
+        ts = [torch.ones_like(u), u]
+        for _ in range(FARROW_DEGREE - 1):
+            ts.append(2.0 * u * ts[-1] - ts[-2])
+        return torch.stack(ts, dim=-1)
+    pf = rem * phases
+    p1 = pf // M
+    p2 = torch.clamp(p1 + 1, max=phases - 1)
+    fp = (pf - p1 * M).to(torch.float32) / M_f
+    u1, u2 = U[p1], U[p2]
+    return u1 + fp[..., None] * (u2 - u1)
+
+
+def _convolve_basis_batched(config: FirConfig, coeffs, path: str, device: torch.device):
+    """``_convolve_basis`` for independent streams: each stream's region
+    starts at its own row and each output takes its own stream's residue.
+    ``convolve(buffers [B, C, alloc], avail [B], pos, n_out [B]) -> out
+    [B, out_cap, C]`` (lanes past each ``n_out`` zero), ``pos`` the
+    ``[B]`` ``pos_num`` or the wide ``(pos_hi, pos_lo)`` words.  The
+    ``[B, N]`` residues and combine coefficients are computed on the
+    device from each stream's residue word (``lane_residues``' exact
+    integer arithmetic, u32 sums wrapped as in JAX when wide).  Streams
+    that emit nothing read no region of their own."""
+    M, taps, N = config.ratio_den, config.taps, config.out_capacity
+    valid_end = config.input_capacity
+    wide = config.wide
+    j, s, region_len, A, U = _basis_tables(config, coeffs, path)
+    A = torch.from_numpy(A).to(device)  # [d1, taps]
+    d1 = A.shape[0]
+    j, s = torch.from_numpy(j).to(device), torch.from_numpy(s).to(device)
+    U = None if U is None else torch.from_numpy(U).to(device)
+    lane = torch.arange(N, device=device)
+    rows = torch.arange(region_len, device=device)
+
+    def convolve(buffers, avail, pos, n_out):
+        B, C, alloc = buffers.shape
+        emitting = n_out > 0
+        base = np.minimum(pos[0] if wide else pos // M, avail)
+        start = np.where(emitting, valid_end - avail + base, 0)
+        bad = emitting & ((start < 0) | (start + region_len > alloc))
+        if bad.any():
+            b = int(np.flatnonzero(bad)[0])
+            check_window(int(start[b]), region_len, alloc, f"stream {b} region")
+        # one upload: each stream's residue word, region start and n_out
+        words = upload(np.stack([pos[1] if wide else pos % M, start, n_out]), device)
+        res = words[0][:, None]
+        t = res + s  # [B, N]
+        if wide:
+            t = t & _U32
+            wrap = (t < res) | (t >= M)
+            rem = torch.where(wrap, (t - M) & _U32, t)
+        else:
+            wrap = t >= M
+            rem = t - M * wrap
+        v = combine_basis_device(rem, M, U)  # [B, N, d1]
+        idx = j + wrap
+        region = buffers.gather(
+            2, (words[1][:, None] + rows)[:, None, :].expand(B, C, region_len)
+        )
+        y = torch.einsum("dt,bcpt->bcdp", A, region.unfold(2, taps, 1))
+        sel = y.gather(3, idx[:, None, None, :].expand(B, C, d1, N))
+        out = torch.einsum("bnd,bcdn->bnc", v, sel)
+        keep = lane[None, :] < words[2][:, None]
+        return torch.where(keep[:, :, None], out, 0.0)
 
     return convolve
 
@@ -445,6 +614,33 @@ def check_window(start: int, size: int, limit: int, what: str) -> None:
         )
 
 
+def phase_rows(config: FirConfig, coeffs) -> np.ndarray:
+    """``W [M, taps]`` f32: the table row blended for each residue ``rho``
+    (rows ``floor(rho*P/M)`` and the next, clamped, lerped by the
+    fraction; the JAX package's arithmetic, in numpy f32)."""
+    M = config.ratio_den
+    table = np.asarray(coeffs, np.float32)
+    pf = np.arange(M, dtype=np.int64) * config.phases
+    p1 = pf // M
+    p2 = np.minimum(p1 + 1, config.phases - 1)
+    frac = ((pf - p1 * M) / M).astype(np.float32)[:, None]
+    return (1.0 - frac) * table[p1] + frac * table[p2]
+
+
+def _sync_atlas(config: FirConfig, coeffs) -> np.ndarray:
+    """Doubled banded-kernel atlas ``[2M, 2L + taps + 1]``:
+    ``A2[i, s] = W[(i*L) % M][s - (i*L)//M]`` with ``W = phase_rows``
+    (numpy, same arithmetic as the JAX package's ``_sync_atlas``)."""
+    L, M, taps = config.ratio_num, config.ratio_den, config.taps
+    w_resid = phase_rows(config, coeffs)
+    i = np.arange(2 * M, dtype=np.int64)
+    a2 = np.zeros((2 * M, 2 * L + taps + 1), np.float32)
+    for ii in range(2 * M):
+        off = int((i[ii] * L) // M)
+        a2[ii, off : off + taps] = w_resid[int((i[ii] * L) % M)]
+    return a2
+
+
 def _convolve_periodic(config: FirConfig, coeffs, device: torch.device):
     """Small-denominator path: the polyphase schedule is periodic with
     ``M`` outputs per ``L`` inputs, so with ``r = pos_num mod M`` every
@@ -459,8 +655,6 @@ def _convolve_periodic(config: FirConfig, coeffs, device: torch.device):
     run as im2col + matmul.  The JAX conv branch (``L >> taps``) is NOT a
     ``conv1d``: cuDNN would run it in TF32.  Its stride-``L`` windows are
     an ``unfold`` view instead."""
-    from .fir_fleets import _sync_atlas
-
     L, M, taps, C = config.ratio_num, config.ratio_den, config.taps, config.channels
     span = L + taps + 1
     K = -(-config.out_capacity // M)
@@ -609,6 +803,112 @@ def make_fir_step(
             pos_state = dict(pos_num=pos_after - consumed * M)
         new_state = dict(buffer=buffer, available_frames=avail - consumed, **pos_state)
         return new_state, out, to_copy, n_out
+
+    return step
+
+
+def stream_words(values, n: int, what: str) -> np.ndarray:
+    """``values`` as ``[n]`` int64 numpy, one per stream; any other shape
+    raises."""
+    arr = np.asarray(values, np.int64)
+    if arr.shape != (n,):
+        raise ValueError(f"{what} must hold one value per stream ({n},), got {arr.shape}")
+    return arr
+
+
+def stream_ints(values, n_streams: int, what: str) -> np.ndarray:
+    """A per-stream count as ``[B]`` int64 numpy (a scalar broadcasts);
+    negative counts raise."""
+    arr = np.broadcast_to(np.asarray(values, np.int64), (n_streams,)).copy()
+    if (arr < 0).any():
+        raise ValueError(f"{what} must be >= 0, got {arr.min()}")
+    return arr
+
+
+def make_fir_step_batched(
+    config: FirConfig, coeffs: np.ndarray, n_streams: int, *, path: str = "auto",
+    device="cuda",
+):
+    """Build the chunk step of ``n_streams`` independent streams, the
+    counterpart of the JAX package's ``jax.vmap(make_fir_step)``.
+
+    ``step(state, chunks [B, n, C] f32, n_valid [B], out_budget [B]) ->
+    (state', out [B, out_capacity, C] f32, consumed [B], produced [B])``
+    with ``consumed`` / ``produced`` int64 numpy; ``state`` as
+    ``fir_init_batched`` makes it.  Per stream the semantics of
+    ``make_fir_step``: each stream has its own ``avail``, position,
+    ``n_valid`` and budget.
+
+    The schedule is whole-fleet numpy on the host, so a step never waits
+    on the device.  On the periodic path the step is kernel B9
+    (``ops/fir_kernel.py``: copy-in and contraction in one launch on the
+    card, its plain version on the CPU); it writes the next buffer into
+    a second ``[B, C, alloc]`` tensor and recycles the previous state's
+    buffer as the one after (the JAX wrapper donates its state for the
+    same reason), so a state's buffer is overwritten two steps later.
+    Farrow, lerp and the wide schedule run the copy-in (``slide_in``) and
+    a batched ``_convolve_basis`` in torch ops, as the JAX package leaves
+    them to XLA."""
+    path = resolve_path(config, path)
+    device = resolve_device(device)
+    coeffs = np.asarray(coeffs, np.float32)
+    assert coeffs.shape == (config.phases, config.taps)
+    B, C = n_streams, config.channels
+    valid_end = config.input_capacity
+
+    def checked(state, chunks, n_valid, out_budget):
+        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=device)
+        if chunks.ndim != 3 or chunks.shape[0] != B or chunks.shape[2] != C or (
+            chunks.shape[1] > valid_end
+        ):
+            raise ValueError(
+                f"chunks must be [{B}, n <= {valid_end}, {C}], got {tuple(chunks.shape)}"
+            )
+        if tuple(state["buffer"].shape) != (B, C, config.buffer_alloc):
+            raise ValueError(f"state buffer must be [{B}, {C}, {config.buffer_alloc}]")
+        n_valid = np.minimum(stream_ints(n_valid, B, "n_valid"), chunks.shape[1])
+        return chunks, n_valid, stream_ints(out_budget, B, "out_budget")
+
+    if path == "periodic":
+        from ..ops.fir_kernel import FleetStepPlan, SpareBuffer, fir_fleet_step
+
+        plan = FleetStepPlan(config, coeffs)
+        spare = SpareBuffer()
+
+        def step(state: dict, chunks, n_valid, out_budget):
+            chunks, n_valid, budget = checked(state, chunks, n_valid, out_budget)
+            buffer = state["buffer"]
+            buffer, out, avail, pos, to_copy, n_out = fir_fleet_step(
+                plan, buffer, chunks, state["available_frames"], state["pos_num"],
+                n_valid, budget, out_buffers=spare.swap(buffer),
+            )
+            return dict(buffer=buffer, available_frames=avail, pos_num=pos), out, to_copy, n_out
+
+        return step
+
+    convolve = _convolve_basis_batched(config, coeffs, path, device)
+    wide = WideSchedule(config) if config.wide else None
+
+    def step(state: dict, chunks, n_valid, out_budget):
+        chunks, n_valid, budget = checked(state, chunks, n_valid, out_budget)
+        avail = np.asarray(state["available_frames"], np.int64)
+        if wide:
+            pos = (np.asarray(state["pos_hi"], np.int64), np.asarray(state["pos_lo"], np.int64))
+            to_copy = np.minimum(n_valid, valid_end - avail)
+            avail = avail + to_copy
+            n_out = np.minimum(wide.emitted(*pos, avail), budget)
+        else:
+            pos = np.asarray(state["pos_num"], np.int64)
+            to_copy, avail, n_out = stream_schedule(config, avail, pos, n_valid, budget)
+        buffer = slide_in(state["buffer"], chunks, to_copy, valid_end)
+        out = convolve(buffer, avail, pos, n_out)
+        if wide:
+            avail, hi, lo = wide.advance_each(*pos, n_out, avail)
+            pos_state = dict(pos_hi=hi, pos_lo=lo)
+        else:
+            avail, pos = stream_consume(config, pos, n_out, avail)
+            pos_state = dict(pos_num=pos)
+        return dict(buffer=buffer, available_frames=avail, **pos_state), out, to_copy, n_out
 
     return step
 

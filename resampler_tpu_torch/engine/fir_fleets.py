@@ -1,8 +1,9 @@
-"""Time-major FIR fleets: PyTorch ports of
+"""FIR fleets: PyTorch ports of
 ``resampler_tpu.engine.fir_fleets.make_fir_fleet_step_sync_tm``
-(periodic, farrow and lerp paths; the wide u32 schedule) and
+(periodic, farrow and lerp paths; the wide u32 schedule),
 ``make_fir_fleet_step_async_tm`` (per-stream positions, kernel B6; see
-its docstring).
+its docstring) and the end-aligned slide fleet ``make_fir_fleet_step_sync``
+(kernel B8; see its docstring).
 
 ``n_streams`` phase-locked streams share one exact schedule.  Their
 frames live in a TIME-MAJOR ring ``[ring, B*C]`` (frames on the major
@@ -40,12 +41,15 @@ from ..ops.fir_dma_kernel import (
     dma_farrow_contract,
     dma_farrow_contract_packed,
 )
+from ..ops.fir_kernel import FleetStepPlan, SpareBuffer
+from ..ops.fir_sync_kernel import fir_fleet_step_sync
 from .fir import (
     FARROW_DEGREE,
     FirConfig,
     WideSchedule,
     _compute_n_out,
     _periodic_group_factor,
+    _sync_atlas,
     _table_svd_basis,
     check_window,
     combine_basis,
@@ -55,11 +59,14 @@ from .fir import (
     resolve_convolve_path,
     resolve_device,
     resolve_path,
+    stream_words,
     upload,
     zero_position,
 )
 
 __all__ = [
+    "make_fir_fleet_step_sync",
+    "fir_fleet_init_sync",
     "make_fir_fleet_step_sync_tm",
     "fir_fleet_init_sync_tm",
     "make_fir_fleet_step_async_tm",
@@ -67,25 +74,64 @@ __all__ = [
 ]
 
 
-def _sync_atlas(config: FirConfig, coeffs) -> np.ndarray:
-    """Doubled banded-kernel atlas ``[2M, 2L + taps + 1]``:
-    ``A2[i, s] = W[(i*L) % M][s - (i*L)//M]`` with ``W[rho]`` the table
-    row blended for residue ``rho`` (numpy, same arithmetic as the JAX
-    package's ``_sync_atlas``)."""
-    L, M, taps = config.ratio_num, config.ratio_den, config.taps
-    table = np.asarray(coeffs, np.float32)
-    rho = np.arange(M, dtype=np.int64)
-    pf = rho * config.phases
-    p1 = pf // M
-    p2 = np.minimum(p1 + 1, config.phases - 1)
-    frac = ((pf - p1 * M) / M).astype(np.float32)[:, None]
-    w_resid = (1.0 - frac) * table[p1] + frac * table[p2]
-    i = np.arange(2 * M, dtype=np.int64)
-    a2 = np.zeros((2 * M, 2 * L + taps + 1), np.float32)
-    for ii in range(2 * M):
-        off = int((i[ii] * L) // M)
-        a2[ii, off : off + taps] = w_resid[int((i[ii] * L) % M)]
-    return a2
+def make_fir_fleet_step_sync(
+    config: FirConfig,
+    coeffs: np.ndarray,
+    n_streams: int,
+    *,
+    channel_major: bool = False,
+    device="cuda",
+):
+    """Synchronized slide-fleet step (the JAX package's
+    ``make_fir_fleet_step_sync``): ``n_streams`` streams in phase lockstep
+    on the end-aligned buffer ``[B, C, alloc]`` of ``make_fir_step``.
+
+    ``step(state, chunks, n_valid) -> (state', out [B, out_cap, C],
+    consumed, produced)``; ``chunks`` is ``[B, n, C]``, or ``[B, C, n]``
+    with ``channel_major=True``; ``state`` is ``{"buffer": [B, C, alloc],
+    "available_frames", "pos_num"}`` with one shared schedule as Python
+    ints.  Periodic ratios only (``ValueError`` otherwise, as in JAX).
+
+    The step is kernel B8 (``ops/fir_sync_kernel.py``: the masked copy-in
+    and the contraction in one launch on the card, its plain version on
+    the CPU).  It writes the next buffer into a second tensor and
+    recycles the previous state's buffer as the one after, as
+    ``make_fir_step_batched`` does."""
+    if resolve_convolve_path(config) != "periodic":
+        raise ValueError(
+            "synchronized fleet step requires the periodic convolve path"
+        )
+    device = resolve_device(device)
+    plan = FleetStepPlan(config, coeffs)
+    spare = SpareBuffer()
+    shape = (n_streams, config.channels, config.buffer_alloc)
+
+    def step(state: dict, chunks, n_valid: int):
+        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=device)
+        buffer = state["buffer"]
+        if tuple(buffer.shape) != shape:
+            raise ValueError(f"state buffer must be {list(shape)}, got {tuple(buffer.shape)}")
+        buffer, out, avail, pos, to_copy, n_out = fir_fleet_step_sync(
+            plan, buffer, chunks, state["available_frames"], state["pos_num"], n_valid,
+            channel_major=channel_major, out_buffers=spare.swap(buffer),
+        )
+        return dict(buffer=buffer, available_frames=avail, pos_num=pos), out, to_copy, n_out
+
+    return step
+
+
+def fir_fleet_init_sync(config: FirConfig, n_streams: int, device="cuda") -> dict:
+    """Zero slide-fleet state: ``buffer [B, C, alloc]`` f32 on ``device``,
+    the shared ``available_frames`` and ``pos_num`` as Python ints."""
+    return dict(
+        buffer=torch.zeros(
+            (n_streams, config.channels, config.buffer_alloc),
+            dtype=torch.float32,
+            device=resolve_device(device),
+        ),
+        available_frames=0,
+        pos_num=0,
+    )
 
 
 def _farrow_tm_plan(config: FirConfig, coeffs, basis: str = "cheb") -> dict:
@@ -439,15 +485,15 @@ def make_fir_fleet_step_async_tm(
 
         # ---- the per-stream schedule, [B] numpy on the host ----
         if wide:
-            pos_hi = _stream_words(state["pos_hi"], B, "pos_hi")
-            pos_lo = _stream_words(state["pos_lo"], B, "pos_lo")
+            pos_hi = stream_words(state["pos_hi"], B, "pos_hi")
+            pos_lo = stream_words(state["pos_lo"], B, "pos_lo")
             mx_hi = int(pos_hi.max())
             mx_lo = int(pos_lo[pos_hi == mx_hi].max())
             n_out = min(wide.emitted(mx_hi, mx_lo, avail), out_cap)
             b0 = min(int(pos_hi.min()), avail)
             base_rel, res = pos_hi - b0, pos_lo
         else:
-            pos = _stream_words(state["pos_num"], B, "pos_num")
+            pos = stream_words(state["pos_num"], B, "pos_num")
             n_out = _compute_n_out(config, int(pos.max()), avail, out_cap)
             b0 = min(int(pos.min()) // M, avail)
             base_rel, res = np.divmod(pos - b0 * M, M)
@@ -471,13 +517,6 @@ def make_fir_fleet_step_async_tm(
         return new_state, out, to_copy, n_out
 
     return step
-
-
-def _stream_words(words, B: int, key: str) -> np.ndarray:
-    arr = np.asarray(words, np.int64)
-    if arr.shape != (B,):
-        raise ValueError(f"{key} must hold one position per stream ({B},), got {arr.shape}")
-    return arr
 
 
 def fir_fleet_init_async_tm(

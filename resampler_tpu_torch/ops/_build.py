@@ -31,6 +31,8 @@ LAUNCHES = {
     "magsplit_projector": 0,
     "magsplit_projector_pool": 0,
     "async_combine": 0,
+    "fir_fleet_step_sync": 0,
+    "fir_fleet_step": 0,
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -38,6 +40,7 @@ _CSRC = _PKG / "csrc"
 #: one shared library per source; the header is included by the B1 and B2 sources
 _SOURCES = (
     "fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu", "fir_async_combine.cu",
+    "fir_fleet_step.cu",
 )
 _HEADERS = ("tiled_contract.cuh",)
 _BUILD_DIR = _PKG / "_build"
@@ -58,6 +61,9 @@ _SIGNATURES = {
     "fft_magsplit_projector": [_P, _P, _P, _P] + [_I] * 12 + [_P],
     # buffer, a_t, j, s, lanes, out, R, base0, n_out, out_cap, taps, M, skew, stream
     "fir_async_combine": [_P] * 6 + [_I, _I64, _I, _I, _I, _I64, _I, _P],
+    # old, chunks, sched, sched stride, w_t, next, out, B, C, alloc, valid_end,
+    # chunk strides (b, f, c), out_cap, taps, L, M, stream
+    "fir_fleet_step": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_I64] * 3 + [_I] * 4 + [_P],
 }
 _libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()

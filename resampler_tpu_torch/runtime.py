@@ -8,8 +8,8 @@ produced samples as numpy.  Frames the fleet could not accept are held in
 a per-stream host carry and fed first on the next step: nothing is lost,
 order is preserved.
 
-    fleet = StreamingFleet(n_streams=64, channels=2, input_rate=44100,
-                           output_rate=48000, synchronized=True)
+    fleet = StreamingFleet(n_streams=64, channels=8, input_rate=44100,
+                           output_rate=48000)
     fleet.push(stream_id, interleaved_f32)
     outputs = fleet.step()     # list of n_streams interleaved arrays
 """
@@ -34,8 +34,9 @@ class StreamingFleet:
     excess in the per-stream carry (right for uniform producers).
     ``synchronized="async"`` keeps the shared cadence but gives every
     stream its own phase (``initial_positions``; per-stream ``slew`` on
-    ``self.engine``).  ``synchronized=False``, the vmapped fleet with
-    per-stream schedules, is not ported yet (ROADMAP A6)."""
+    ``self.engine``).  ``synchronized=False`` (the default) drives the
+    vmapped fleet: each stream's schedule and valid count are its own, so
+    ragged producers never wait for the slowest."""
 
     def __init__(
         self,

@@ -11,7 +11,11 @@ package's keys and dtypes exactly:
   schedule ``pos_hi`` / ``pos_lo`` as 0-d uint32 arrays.  The async tm
   fleet keeps its positions per stream: ``pos_num`` ``[B]`` int32, or
   ``pos_hi`` / ``pos_lo`` ``[B]`` uint32, beside a 0-d ``start`` /
-  ``fill`` (the port holds them as ``[B]`` int64 numpy arrays);
+  ``fill`` (the port holds them as ``[B]`` int64 numpy arrays).  The
+  vmapped fleet's state has a rank-3 ``buffer [B, C, alloc]`` and no
+  ``start``: ``available_frames`` and ``pos_num`` (or ``pos_hi`` /
+  ``pos_lo``) are ``[B]`` arrays, held as ``[B]`` int64 numpy; the slide
+  fleet's has the same buffer beside 0-d schedule scalars;
 - FFT: ``prev`` (magsplit, conv) or ``overlap`` (matmul, fft) f32
   ``[C, *]`` per stream or ``[B, C, *]`` per fleet, or the pool step's
   ``prev_idx`` as a 0-d int32 array.
@@ -30,7 +34,7 @@ from ..engine.fir import resolve_device
 __all__ = ["state_from_numpy", "state_to_numpy"]
 
 #: carry tensors and the ranks they may have
-_FLOAT_KEYS = {"buffer": (2,), "prev": (2, 3), "overlap": (2, 3)}
+_FLOAT_KEYS = {"buffer": (2, 3), "prev": (2, 3), "overlap": (2, 3)}
 #: schedule scalars and their numpy dtype
 _INT_KEYS = {
     "available_frames": np.int32,
@@ -43,6 +47,18 @@ _INT_KEYS = {
 }
 #: the position words the async tm fleet keeps per stream
 _STREAM_KEYS = ("pos_num", "pos_hi", "pos_lo")
+
+
+def _per_stream(key: str, arr: np.ndarray, state_np: dict) -> bool:
+    """Whether ``arr`` is a legal ``[B]`` schedule array: the async tm
+    fleet's positions beside ``start``, or any schedule word of the
+    vmapped fleet (a ``[B, C, alloc]`` buffer, no ``start``)."""
+    if arr.ndim != 1:
+        return False
+    if "start" in state_np:
+        return key in _STREAM_KEYS
+    buf = np.asarray(state_np.get("buffer", np.zeros(())))
+    return buf.ndim == 3 and arr.shape[0] == buf.shape[0]
 
 
 def state_from_numpy(state_np: dict, device="cuda") -> dict:
@@ -67,14 +83,14 @@ def state_from_numpy(state_np: dict, device="cuda") -> dict:
             dtype = np.dtype(_INT_KEYS[key])
             if arr.dtype == dtype and arr.shape == ():
                 state[key] = int(arr)
-            elif arr.dtype == dtype and arr.ndim == 1 and key in _STREAM_KEYS and "start" in state_np:
-                state[key] = arr.astype(np.int64)  # the async tm fleet's [B] positions
+            elif arr.dtype == dtype and _per_stream(key, arr, state_np):
+                state[key] = arr.astype(np.int64)  # one per stream
             else:
                 raise TypeError(
-                    f"{key} must be a 0-d {dtype} array (a shared schedule) or, "
-                    f"for the async tm fleet's positions beside 'start', a [B] "
-                    f"one; got shape {arr.shape} {arr.dtype}.  Other per-stream "
-                    "schedules belong to the vmapped fleet (ROADMAP A6)"
+                    f"{key} must be a 0-d {dtype} array (a shared schedule), or "
+                    f"a [B] one: the async tm fleet's positions beside 'start', "
+                    f"or the vmapped fleet's schedule beside a [B, C, alloc] "
+                    f"buffer; got shape {arr.shape} {arr.dtype}"
                 )
         else:
             raise ValueError(f"unknown state key {key!r}")

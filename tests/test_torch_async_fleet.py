@@ -158,5 +158,5 @@ def test_init_validation_and_options():
             make(tc, coeffs, 2, max_chunk=256, device="cpu", **bad)
     step = make(tc, coeffs, 2, max_chunk=256, device="cpu")
     state = tfleets.fir_fleet_init_async_tm(tc, 2, max_chunk=256, device="cpu")
-    with pytest.raises(ValueError, match="one position per stream"):
+    with pytest.raises(ValueError, match="one value per stream"):
         step(dict(state, pos_num=0), torch.zeros((256, 2)), 256)

@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA card: kernels B1-B6, the FIR fleets (periodic,
-coprime, async), the serving runtime and the FFT engine on the card against
+"""Tests that need an NVIDIA card: kernels B1-B6, B8 and B9, the FIR fleets
+(periodic, coprime, async, vmapped, slide), the serving runtime and the FFT
+engine on the card against
 the port's plain PyTorch versions and the CPU on the same inputs.  They skip
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 also runs on a GPU host without JAX (``--noconftest`` skips
@@ -20,6 +21,8 @@ from resampler_tpu_torch.engine.fir_fleets import _farrow_tm_plan, _sync_atlas
 from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
 from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
+from resampler_tpu_torch.ops import fir_kernel as b9
+from resampler_tpu_torch.ops import fir_sync_kernel as b8
 
 torch.set_num_threads(1)  # several test workers share the machine's cores
 
@@ -320,6 +323,125 @@ def test_async_streaming_fleet_on_card_matches_cpu(cuda):
     for _ in range(6):
         for b in range(3):
             x = rng.standard_normal(2 * int(rng.integers(0, 512))).astype(np.float32)
+            dev.push(b, x)
+            cpu.push(b, x)
+        for yd, yc in zip(dev.step(), cpu.step()):
+            assert yd.shape == yc.shape and np.isfinite(yd).all()
+            assert np.abs(yd - yc).max(initial=0.0) <= DEVICE_ATOL
+
+
+def _step_case(in_hz, out_hz, taps, C):
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=C, taps=taps, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        taps, rt.Attenuation.Db90, tfir.fir_cutoff(taps, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    return cfg, b9.FleetStepPlan(cfg, coeffs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "in_hz,out_hz,taps,B,C",
+    [(44100, 48000, 128, 64, 2), (48000, 44100, 64, 5, 2), (48000, 96000, 64, 8, 2),
+     (44100, 48000, 32, 3, 3), (44100, 48000, 32, 2, 8)],
+    ids=["44k1-48k", "48k-44k1", "M2", "C3", "C8"],
+)
+def test_fleet_step_kernels_match_plain_on_card(cuda, in_hz, out_hz, taps, B, C):
+    """B9 (per-stream schedules: ragged valid counts, 0 among them, NaN
+    junk past them, diverged positions) and B8 (one shared schedule,
+    channel-major and frames-major) against their plain version: counts
+    exact, buffers bit-equal, outputs within 1e-5; one launch each."""
+    cfg, plan = _step_case(in_hz, out_hz, taps, C)
+    rng = np.random.default_rng(9)
+    n = 1024
+    buf = torch.from_numpy(rng.standard_normal((B, C, cfg.buffer_alloc), dtype=np.float32))
+    buf[:, :, cfg.input_capacity:] = 0.0  # the zero slack of every state
+    buf = buf.to(cuda)
+    avail = rng.integers(2 * taps, cfg.input_capacity - n, B)
+    pos = rng.integers(0, 3 * cfg.ratio_den, B)
+    nv = rng.integers(0, n + 1, B)
+    avail[0], nv[0], nv[-1] = 0, 0, n  # stream 0 emits nothing
+    chunks = rng.standard_normal((B, n, C), dtype=np.float32)
+    shared = chunks.copy()  # B8's feed: junk past the shared count nv[1]
+    shared[:, nv[1]:] = np.nan
+    chunks[np.arange(n)[None, :] >= nv[:, None]] = np.nan
+    chunks, shared = torch.from_numpy(chunks).to(cuda), torch.from_numpy(shared).to(cuda)
+    budget = np.full(B, cfg.out_capacity)
+    before = dict(kern.LAUNCHES)
+    got = b9.fir_fleet_step(plan, buf, chunks, avail, pos, nv, budget,
+                            out_buffers=torch.zeros_like(buf))
+    ref = b9.fir_fleet_step_reference(plan, buf, chunks, avail, pos, nv, budget)
+    for cm in (False, True):
+        feed = shared.transpose(1, 2).contiguous() if cm else shared
+        got_s = b8.fir_fleet_step_sync(plan, buf, feed, int(avail[1]), int(pos[1]), int(nv[1]),
+                                       channel_major=cm)
+        ref_s = b8.fir_fleet_step_sync_reference(plan, buf, feed, int(avail[1]), int(pos[1]),
+                                                 int(nv[1]), channel_major=cm)
+        torch.cuda.synchronize()
+        assert got_s[2:] == ref_s[2:] and got_s[5] > 0
+        assert torch.equal(got_s[0], ref_s[0])
+        assert (got_s[1] - ref_s[1]).abs().max().item() <= KERNEL_ATOL
+    torch.cuda.synchronize()
+    for g, r in zip(got[2:], ref[2:]):
+        np.testing.assert_array_equal(g, r)
+    assert torch.equal(got[0], ref[0]) and torch.isfinite(got[1]).all()
+    assert (got[1] - ref[1]).abs().max().item() <= KERNEL_ATOL
+    assert (got[5] == 0).any() and (got[5] > 0).any()
+    assert kern.LAUNCHES == dict(before, fir_fleet_step=before["fir_fleet_step"] + 1,
+                                 fir_fleet_step_sync=before["fir_fleet_step_sync"] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "in_hz,out_hz,kwargs",
+    [(44100, 48000, {}), (44100, 44101, {}), (600011, 600013, {}),
+     (44100, 48000, dict(synchronized=True, sync_variant="slide"))],
+    ids=["vmapped-periodic", "vmapped-farrow", "vmapped-wide", "slide"],
+)
+def test_end_aligned_fleets_on_card_match_cpu(cuda, in_hz, out_hz, kwargs):
+    """Card vs CPU on ragged feeds with NaN junk: ints and states equal,
+    buffers bit-equal, samples within the device gate; one B9 (vmapped,
+    periodic) or B8 (slide) launch per step, no kernel on coprime pairs."""
+    args = (3, 2, in_hz, out_hz, rt.Latency.Sample64, rt.Attenuation.Db90)
+    dev = rt.BatchedResamplerFir(*args, device=cuda, **kwargs)
+    cpu = rt.BatchedResamplerFir(*args, device="cpu", **kwargs)
+    rng = np.random.default_rng(10)
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    n_steps = 16
+    for i in range(n_steps):
+        nv = rng.integers(0, 1025, 3)
+        nv[i % 3] = 1024
+        chunks = rng.standard_normal((3, 1024, 2), dtype=np.float32)
+        chunks[np.arange(1024)[None, :] >= nv[:, None]] = np.nan
+        od, cd, pd, _ = dev.resample(chunks, nv)
+        oc, cc, pc, _ = cpu.resample(chunks, nv)
+        assert np.array_equal(cd, cc) and np.array_equal(pd, pc)
+        assert (od.cpu() - oc).abs().max().item() <= DEVICE_ATOL
+        if i == 7:
+            s = 0.25 if kwargs else [0.25, -0.5, 1.0]
+            assert np.array_equal(dev.slew(s), cpu.slew(s))
+        for k, v in cpu.state.items():
+            if k != "buffer":
+                assert np.array_equal(dev.state[k], v), k
+        assert torch.equal(dev.state["buffer"].cpu(), cpu.state["buffer"])
+    want = dict({k: 0 for k in kern.LAUNCHES})
+    if kwargs:
+        want["fir_fleet_step_sync"] = n_steps
+    elif in_hz == 44100 and out_hz == 48000:
+        want["fir_fleet_step"] = n_steps
+    assert kern.LAUNCHES == want
+
+
+@pytest.mark.cuda
+def test_vmapped_streaming_fleet_on_card_matches_cpu(cuda):
+    args = (4, 2, 44100, 48000, rt.Latency.Sample32, rt.Attenuation.Db90)
+    dev = rt.StreamingFleet(*args, chunk_frames=512, device=cuda)
+    cpu = rt.StreamingFleet(*args, chunk_frames=512, device="cpu")
+    rng = np.random.default_rng(11)
+    for _ in range(6):
+        for b in range(4):
+            x = rng.standard_normal(2 * int(rng.integers(0, 1024))).astype(np.float32)
             dev.push(b, x)
             cpu.push(b, x)
         for yd, yc in zip(dev.step(), cpu.step()):

@@ -206,12 +206,12 @@ def test_state_conversion_rejects_foreign_states():
 
 def test_unported_variants_raise():
     """Coprime, lerp and wide fleets are ported (tests/test_torch_farrow_*.py),
-    and the async fleet (tests/test_torch_async_*.py); the other variants
-    raise naming their ROADMAP item."""
+    the async fleet (tests/test_torch_async_*.py), the vmapped and slide
+    fleets (tests/test_torch_vmapped_fleet.py, test_torch_slide_fleet.py);
+    the other variants raise naming their ROADMAP item."""
     args = (4, 2, 44100, 48000)
     cases = [
-        (dict(), "A6"),  # synchronized=False: the vmapped fleet
-        (dict(synchronized=True, sync_variant="slide"), "A6"),
+        (dict(mesh=object()), "A11"),
         (dict(synchronized=True, mesh=object()), "A11"),
         (dict(synchronized=True, sync_variant="async_tm", mesh=object()), "A11"),
     ]

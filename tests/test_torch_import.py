@@ -57,6 +57,21 @@ _BLOCKED_STEP = textwrap.dedent(
     s.push(0, x)
     s.push(1, x)
     assert all(y.size > 0 and np.isfinite(y).all() for y in s.step())
+    # the vmapped fleet (B9's plain version, and torch ops on a coprime
+    # pair), the slide fleet (B8's plain version), the default runtime
+    import resampler_tpu_torch.ops.fir_kernel, resampler_tpu_torch.ops.fir_sync_kernel
+    for in_hz, out_hz in ((44100, 48000), (44100, 44101)):
+        f = rt.BatchedResamplerFir(2, 2, in_hz, out_hz, rt.Latency.Sample32, device="cpu")
+        o, c, p, peak = f.resample(x.reshape(1, 600, 2).repeat(2, axis=0), [600, 300])
+        assert c.tolist() == [600, 300] and p[0] > p[1] > 0 and float(peak) > 0
+    f = rt.BatchedResamplerFir(2, 2, 44100, 48000, rt.Latency.Sample32, synchronized=True,
+                               sync_variant="slide", device="cpu")
+    o, c, p, peak = f.resample(x.reshape(1, 600, 2).repeat(2, axis=0))
+    assert (int(c[0]), int(p[0])) == (600, n_out)
+    s = rt.StreamingFleet(2, 2, 44100, 48000, chunk_frames=256, device="cpu")
+    s.push(1, x)
+    y0, y1 = s.step()
+    assert y0.size == 0 and y1.size > 0 and np.isfinite(y1).all()
     import torch
     for make in (
         lambda: rt.ResamplerFft(2, 44100, 48000),
@@ -65,6 +80,8 @@ _BLOCKED_STEP = textwrap.dedent(
         lambda: rt.BatchedResamplerFir(2, 2, 44100, 44101, synchronized=True,
                                        sync_variant="async_tm"),
         lambda: rt.StreamingFleet(2, 2, 44100, 44101, synchronized="async"),
+        lambda: rt.BatchedResamplerFir(2, 2, 44100, 48000),
+        lambda: rt.StreamingFleet(2, 2, 44100, 48000),
     ):
         if torch.cuda.is_available():
             break

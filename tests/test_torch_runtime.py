@@ -1,7 +1,8 @@
 """The port's async wrapper (``BatchedResamplerFir(sync_variant="async_tm")``),
-its serving runtime ``StreamingFleet`` and staging pool, and the async
-state's conversion, against the JAX package on the same seeded inputs:
-ints and states exactly equal, samples within the JAX suite's 2e-5."""
+its serving runtime ``StreamingFleet`` (on the vmapped, time-major and
+async fleets) and staging pool, and the async state's conversion, against
+the JAX package on the same seeded inputs: ints and states exactly equal,
+samples within the JAX suite's 2e-5."""
 
 import jax
 import numpy as np
@@ -102,8 +103,10 @@ def test_async_wrapper_options():
     with pytest.raises(ValueError, match="skew invariant"):
         trt.BatchedResamplerFir(*args, synchronized=True, sync_variant="async_tm",
                                 initial_positions=[0, M_441], device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        trt.StreamingFleet(2, 2, 44100, 48000, device="cpu")
+    s = trt.StreamingFleet(2, 2, 44100, 48000, device="cpu")  # the vmapped fleet
+    s.push(0, np.ones(2 * 700, np.float32))
+    y0, y1 = s.step()
+    assert y0.size > 0 and y1.size == 0 and s.pending(1) == 0
     with pytest.raises(ValueError):
         trt.StreamingFleet(2, 2, 44100, 48000, synchronized="yes", device="cpu")
 
@@ -120,7 +123,7 @@ def _stream(fleet_cls, kw, pushes, n_steps, B, C):
     return [np.concatenate(o) for o in outs], [fleet.pending(b) for b in range(B)]
 
 
-@pytest.mark.parametrize("mode", [True, "async"])
+@pytest.mark.parametrize("mode", [False, True, "async"])
 def test_streaming_fleet_matches_jax(mode):
     """Ragged per-stream pushes through the staging pool and the carry."""
     B, C = 3, 2
@@ -139,6 +142,53 @@ def test_streaming_fleet_matches_jax(mode):
     for a, b in zip(jaxo, tor):
         assert a.shape == b.shape and a.size > 1000
         np.testing.assert_allclose(b, a, atol=ATOL, rtol=0)
+
+
+def _lockstep(args, kw, feeds, rtol=0.0):
+    """A JAX and a port ``StreamingFleet`` fed the same pushes, step for
+    step; ``feeds`` yields ``(pushes {stream: interleaved}, steps)``."""
+    j = JaxStreamingFleet(*args, jrt.Latency.Sample16, jrt.Attenuation.Db90, **kw)
+    t = trt.StreamingFleet(*args, trt.Latency.Sample16, trt.Attenuation.Db90, device="cpu", **kw)
+    outs = [[] for _ in range(args[0])]
+    for pushes, steps in feeds:
+        for b, x in pushes.items():
+            assert j.push(b, x) == t.push(b, x) == x.size
+        for _ in range(steps):
+            for b, (yj, yt) in enumerate(zip(j.step(), t.step())):
+                assert yj.shape == yt.shape
+                np.testing.assert_allclose(yt, yj, atol=ATOL, rtol=rtol)
+                outs[b].append(yt)
+            assert [t.pending(b) for b in range(args[0])] == [j.pending(b) for b in range(args[0])]
+    return [np.concatenate(o) for o in outs]
+
+
+@pytest.mark.parametrize("case", ["ragged-lengths", "incremental", "backpressure"])
+def test_vmapped_streaming_fleet_matches_jax(case):
+    """The default runtime (``synchronized=False``, the vmapped fleet)
+    against the JAX runtime in the scenarios of tests/test_runtime.py:
+    ragged stream lengths drained, incremental pushes, and a push past
+    what the fleet's buffer takes in one step."""
+    rng = np.random.default_rng(12)
+    if case == "ragged-lengths":
+        args, kw = (6, 2, 48000, 44100), dict(chunk_frames=512)
+        lengths = [100, 4096, 7777, 0, 1, 9000]
+        feeds = [({b: (rng.standard_normal(2 * n) * 0.5).astype(np.float32)
+                   for b, n in enumerate(lengths) if n}, 24)]
+        outs = _lockstep(args, kw, feeds)
+        assert outs[3].size == 0 and outs[5].size > 8000
+    elif case == "incremental":
+        args, kw = (3, 1, 44100, 48000), dict(chunk_frames=256)
+        feeds = [({0: rng.standard_normal(int(rng.integers(1, 700))).astype(np.float32),
+                   2: rng.standard_normal(int(rng.integers(0, 300))).astype(np.float32)}, 1)
+                 for _ in range(16)]
+        outs = _lockstep(args, kw, feeds + [({}, 3)])
+        assert outs[0].size > outs[2].size > 0 and outs[1].size == 0
+    else:
+        args, kw = (1, 1, 48000, 48000), dict(chunk_frames=4096, queue_capacity_frames=1 << 15)
+        # a ramp up to 12288: f32 sums in another order differ by ulps
+        # of ~1e-3 there, so this case holds a relative 2e-6
+        outs = _lockstep(args, kw, [({0: np.arange(3 * 4096, dtype=np.float32)}, 6)], rtol=2e-6)
+        assert outs[0].size > 3 * 4096 - 64  # all but the filter's tail
 
 
 def test_host_pool_matches_jax():
