@@ -13,9 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and precision: a CUDA card, both TF32 flags off, the card's
    name and power limit from nvidia-smi;
 2. build kernels B1 (csrc/fir_banded_contract.cu), B2/B3
-   (csrc/fir_farrow_contract.cu), B4/B5 (csrc/fft_magsplit.cu), B6
-   (csrc/fir_async_combine.cu) and B8/B9 (csrc/fir_fleet_step.cu) with
-   nvcc for sm_90a, one nvcc per source (five), started together;
+   (csrc/fir_farrow_contract.cu), B4/B5 (csrc/fft_magsplit.cu), B6/B6b
+   (csrc/fir_async_combine.cu), B8/B9 (csrc/fir_fleet_step.cu) and B7
+   (csrc/matmul3.cu) with nvcc for sm_90a, one nvcc per source (six),
+   started together;
 3. each kernel against its plain version on the card at the main paths'
    shapes (plus a grouped small-M shape and ragged fleets), odd bases and
    the top bound, timed with CUDA events against its bound; B1 also
@@ -50,8 +51,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. the FFT quality gates through the kernel, by bench.py's procedures:
    ``fft_bench_pair_floor_db`` (1176 -> 1280, 8 streams, against f64)
    and ``fft_stopband_db`` (22.05 -> 48 kHz impulse), each >= 99 dB;
-10. the per-stream ``ResamplerFft.process`` on the card against the CPU,
-   magsplit (auto) and matmul;
+10. the per-stream ``ResamplerFft.process`` on the card: magsplit (auto)
+   against the CPU, matmul (kernel B7, three bf16 passes) against B7's
+   plain version on the same chunks;
 11. kernel B6 (csrc/fir_async_combine.cu) against its plain version at the
    async fleet's shapes (R 2048 unless noted): (a) 44100 -> 44101, taps
    128, max_out 2176, skew 1; (b) 22050 -> 96000, skew 2; (c) 48000 ->
@@ -101,7 +103,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    44.1 kHz, >= 100 dB);
 22. ``StreamingFleet(64, 8, 44100, 48000)`` (BASELINE config 5, the
    vmapped fleet) with ragged pushes against the CPU ``StreamingFleet``,
-   with the pool's drain timed beside the step.
+   with the pool's drain timed beside the step;
+23. kernel B7 (csrc/matmul3.cu) against its plain version: the FFT
+   projector [16384, 1176] @ [1176, 2560] in three passes, the main path's
+   tm window (K 28, R 2048, Mg 160, span 276; the overlapping ring view,
+   a time-major output view) in four, a ragged strided shape with NaN and
+   Inf rows; the floor against f64; times against the bound and one f32
+   ``torch.matmul`` of the same product;
+24. kernel B6b (the bf16x4 form of csrc/fir_async_combine.cu) against its
+   plain version at B6's cases (a)-(g), timed against its bound;
+25. the bf16x4 tm fleet at full width (``make_fir_fleet_step_sync_tm(...,
+   precision="bf16x4")``, 1024 stereo streams, 44.1 -> 48 kHz, taps 128,
+   max_chunk 4096, horizon 16, 40 steps): one B7 launch per emitting step
+   and no B1, the exact schedule, every output against the f32 tm fleet
+   on the same feed, streams 0-3 against a CPU fleet, Msamples/s and a
+   profile of 10 steps; alias rejection through B7 (48 -> 44.1 kHz, 23 kHz
+   tone, >= 100 dB);
+26. the async fleet with ``kernel="pallas"`` (B6b) at full width, 1024 x
+   2, 44100 -> 44101 and 4000000000 -> 4000000001, max_out 2176: one B6b
+   launch per step, the schedule against a host recomputation, every
+   output against the f32 async fleet (B6) on the same feed, Msamples/s;
+   alias rejection through B6b (48000 -> 44101 Hz, >= 100 dB);
+27. ``BatchedResamplerFft(8192, 2, 44100, 48000, backend="matmul")`` on
+   the card (B7, three passes): one B7 launch per call, streams 0-3
+   against B7's plain version, Msamples/s and a profile; the conv backend
+   at 1024 streams the same way; ``fft_bench_pair_floor_db`` and
+   ``fft_stopband_db`` through B7 on both backends, each >= 99 dB.
 
 It prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -142,6 +169,7 @@ from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.ops import fir_kernel as b9
 from resampler_tpu_torch.ops import fir_sync_kernel as b8
+from resampler_tpu_torch.ops import matmul3 as m3
 from resampler_tpu_torch.ops.matmul3 import split_hi_lo
 from resampler_tpu_torch.types import reduce_ratio
 
@@ -152,6 +180,12 @@ KERNEL_ATOL = 1e-5
 DEVICE_ATOL = 5e-5
 #: the slide fleet against the time-major fleet at 128 taps (phase 19)
 SLIDE_TM_ATOL = 4e-6
+#: the bf16x4 tm fleet against the f32 one: four passes keep ~16 bits of
+#: each operand (3.3e-5 measured on the CPU port at outputs up to 4.3)
+BF16X4_VS_F32_ATOL = 1e-4
+#: the bf16x4 async fleet (B6b) against the f32 one (B6): the JAX suite's
+#: bf16x4-vs-XLA bound (tests/test_async_kernel.py)
+ASYNC_BF16X4_ATOL = 8e-5
 #: H100 SXM data sheet: f32 CUDA-core and dense bf16 tensor-core peaks and
 #: the HBM3 rate, for the bounds
 F32_PEAK_TFLOPS = 67.0
@@ -175,6 +209,9 @@ SOURCES = {
                             "resampler_tpu/ops/fir_sync_kernel.py:52"),
     "fir_fleet_step": ("resampler_tpu_torch/csrc/fir_fleet_step.cu",
                        "resampler_tpu/ops/fir_kernel.py:116"),
+    "async_combine_bf16x4": ("resampler_tpu_torch/csrc/fir_async_combine.cu",
+                             "resampler_tpu/ops/fir_async_kernel.py:294"),
+    "matmul3": ("resampler_tpu_torch/csrc/matmul3.cu", "resampler_tpu/ops/matmul3.py:78"),
 }
 
 
@@ -619,11 +656,15 @@ def phase_differential(device, in_hz, out_hz, path="auto", B=3, C=2, max_chunk=5
 # --------------------------------------------------------------------------
 
 
-def alias_db(device, in_hz, out_hz, B=2, C=2, max_chunk=4096, **fleet_kw):
-    fleet = BatchedResamplerFir(
-        B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90,
-        max_chunk=max_chunk, device=device, **{"synchronized": True, **fleet_kw},
-    )
+def alias_db(device, in_hz, out_hz, B=2, C=2, max_chunk=4096, fleet=None, **fleet_kw):
+    """Alias rejection of a 23 kHz tone through a fleet (a
+    ``BatchedResamplerFir`` made from ``fleet_kw`` unless ``fleet`` is
+    given: any object with its ``resample(chunks, n_valid)``)."""
+    if fleet is None:
+        fleet = BatchedResamplerFir(
+            B, C, in_hz, out_hz, Latency.Sample64, Attenuation.Db90,
+            max_chunk=max_chunk, device=device, **{"synchronized": True, **fleet_kw},
+        )
     t = np.arange(in_hz) / in_hz
     tone = (0.5 * np.sin(2 * np.pi * 23000 * t)).astype(np.float32)
     pieces, offset = [], 0
@@ -870,11 +911,11 @@ def phase_fft_fleet(device, smi, B=8192, C=2, n_steps=40, T=8, nbuf=8, mirror=4,
     return launches
 
 
-def fft_stopband_db(device) -> float:
+def fft_stopband_db(device, backend="auto") -> float:
     """bench.py:709-725: the impulse response of ResamplerFft(2, 22050,
     48000) on channel 0, passband peak minus stopband peak."""
     C = 2
-    rf = ResamplerFft(C, 22050, 48000, device=device)
+    rf = ResamplerFft(C, 22050, 48000, backend=backend, device=device)
     x = np.zeros(10 * rf.chunk_size_input(), np.float32)
     x[len(x) // 2 - (len(x) // 2) % C] = 1.0
     y = rf.process(x)[0::C]
@@ -891,13 +932,13 @@ def fft_stopband_db(device) -> float:
     return float(mag_db[b(20.0) : b(nyq * 0.9) + 1].max() - mag_db[b(nyq * 1.1) : b(48000 / 2 * 0.95) + 1].max())
 
 
-def fft_bench_pair_floor_db(device) -> float:
+def fft_bench_pair_floor_db(device, backend="auto") -> float:
     """bench.py:454-490: the bench pair's production step (1176 -> 1280,
     8 stereo streams, two chunks) against the f64 projector."""
     cfg = fft_engine.FftConfig(channels=2, fft_size_input=1176, fft_size_output=1280)
     B = 8
-    step = fft_engine.make_fft_fleet_step(cfg, B, device=device)
-    state = fft_engine.fft_fleet_init(cfg, B, device=device)
+    step = fft_engine.make_fft_fleet_step(cfg, B, backend=backend, device=device)
+    state = fft_engine.fft_fleet_init(cfg, B, backend=backend, device=device)
     rng = np.random.default_rng(11)
     proj = fft_engine.get_projection_matrix(1176, 1280).astype(np.float64)
     overlap = np.zeros((B, 2, 1280))
@@ -926,23 +967,63 @@ def phase_fft_quality(device):
           f"fft_stopband_db {stop_db:.2f} dB ({n_stop} launches); gates >= 99 dB")
 
 
+def fft_b7_plain(backend, chunks, n_in, n_out):
+    """The card's ``matmul`` or ``conv`` FFT step (B7, three passes) on
+    consecutive chunks ``[T, R, N]``, through B7's plain version on the
+    chunks' device: ``[T, R, M]``."""
+    if backend == "matmul":
+        weight = fft_engine.get_projection_matrix(n_in, n_out)
+    else:
+        w = fft_engine.input_domain_conv_operator(n_in, n_out)
+        g, lp, mp = w.shape[0] - 1, w.shape[1], w.shape[2]
+        weight = w.reshape((g + 1) * lp, mp)
+    t_hi, t_lo = (h.to(chunks.device) for h in m3.split_weight(torch.from_numpy(weight)))
+    prev, overlap, outs = torch.zeros_like(chunks[0]), 0.0, []
+    for x in chunks:
+        if backend == "matmul":
+            full = m3.matmul3_reference(x, t_hi, t_lo, passes=3)
+            outs.append(full[:, :n_out] + overlap)
+            overlap = full[:, n_out:]
+        else:
+            x2 = torch.cat([prev, x], dim=1)
+            win = x2.as_strided((x.shape[0], g, (g + 1) * lp), (2 * n_in, lp, 1))
+            outs.append(m3.matmul3_reference(win, t_hi, t_lo, passes=3).reshape(x.shape[0], n_out))
+            prev = x
+    return torch.stack(outs)
+
+
 def phase_fft_per_stream(device):
+    """magsplit (auto) against the CPU port; matmul, which runs B7 in three
+    bf16 passes on the card where the CPU runs f32, against B7's plain
+    version on the same chunks."""
     t = np.arange(44100) / 44100
     x = np.stack(
         [0.5 * np.sin(2 * np.pi * 440 * t), 0.25 * np.sin(2 * np.pi * 1000 * t)], axis=1
     ).astype(np.float32).reshape(-1)
-    for backend, cpu_backend in (("auto", "magsplit"), ("matmul", "matmul")):
-        before = _build.LAUNCHES["magsplit_projector"]
+    for backend in ("auto", "matmul"):
+        before = dict(_build.LAUNCHES)
         r = ResamplerFft(2, 44100, 48000, backend=backend, device=device)
         y_dev = r.process(x)
-        launched = _build.LAUNCHES["magsplit_projector"] - before
-        y_cpu = ResamplerFft(2, 44100, 48000, backend=cpu_backend, device="cpu").process(x)
-        check(y_dev.shape == y_cpu.shape and y_dev.size > 0, "per-stream FFT output length")
-        err = float(np.abs(y_dev - y_cpu).max())
-        check(err <= DEVICE_ATOL, f"per-stream FFT {backend} card vs CPU: {err:.3e} > {DEVICE_ATOL}")
-        check((launched > 0) == (backend == "auto"), f"per-stream FFT {backend}: {launched} B4 launches")
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in ("magsplit_projector", "matmul3")}
+        if backend == "auto":
+            y_ref = ResamplerFft(2, 44100, 48000, backend="magsplit", device="cpu").process(x)
+            tol, against = DEVICE_ATOL, "the CPU (magsplit)"
+        else:
+            ci, co = r.chunk_size_input(), r.chunk_size_output()
+            n = -(-x.size // ci)
+            padded = np.zeros(n * ci, np.float32)
+            padded[: x.size] = x
+            chunks = torch.from_numpy(padded.reshape(n, -1, 2).transpose(0, 2, 1).copy()).to(device)
+            ref = fft_b7_plain("matmul", chunks, r.fft_size_input, r.fft_size_output)
+            y_ref = ref.permute(0, 2, 1).reshape(-1).cpu().numpy()[: -(-x.size * co // ci)]
+            tol, against = KERNEL_ATOL, "B7's plain version on the same chunks"
+        check(y_dev.shape == y_ref.shape and y_dev.size > 0, "per-stream FFT output length")
+        err = float(np.abs(y_dev - y_ref).max())
+        check(err <= tol, f"per-stream FFT {backend} vs {against}: {err:.3e} > {tol}")
+        want = {"magsplit_projector": backend == "auto", "matmul3": backend == "matmul"}
+        check(all((launched[k] > 0) == v for k, v in want.items()), f"per-stream FFT {backend}: launches {launched}")
         print(f"[10] ResamplerFft.process(1 s stereo, 44100 -> 48000 Hz, backend {backend}) on the card "
-              f"vs CPU ({cpu_backend}): {y_dev.size} values, max err {err:.3e}, {launched} B4 launches")
+              f"vs {against}: {y_dev.size} values, max err {err:.3e}, launches {launched}")
 
 # --------------------------------------------------------------------------
 # phases 11-15: the async multi-tenant fleet and kernel B6
@@ -955,13 +1036,13 @@ def async_max_out(in_hz, out_hz, chunk=2048):
     return (chunk * M) // L + 128
 
 
-def async_plan(in_hz, out_hz, taps, skew, chunk=2048):
+def async_plan(in_hz, out_hz, taps, skew, chunk=2048, precision="highest"):
     L, M = reduce_ratio(in_hz, out_hz)
     cfg = FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
     out_cap = min(cfg.out_capacity, async_max_out(in_hz, out_hz, chunk))
     plan = b6.async_combine_plan(
         A=farrow_matrix(coeffs_for(in_hz, out_hz, taps))[0], L=L, M=M, out_cap=out_cap,
-        skew_periods=skew, clamp_j=cfg.input_capacity + 2 if cfg.wide else None,
+        skew_periods=skew, clamp_j=cfg.input_capacity + 2 if cfg.wide else None, precision=precision,
     )
     return cfg, plan
 
@@ -971,32 +1052,39 @@ def async_bound(plan, L, n_out, res, R, C):
     emitted outputs need (8 x taps multiply-adds at each distinct row
     ``floor((res + n*L)/M)``, n < n_out) plus the 8-term combine of every
     emitted output, at the f32 peak; against the ring rows those outputs
-    cover (read once), the output written once and the lane words."""
+    cover (read once), the output written once and the lane words.  For
+    B6b the responses take ``8 + 3 (dc + 1)`` bf16 products per tap, all
+    counted at the bf16 tensor-core peak (the least the card could take
+    for bf16 products)."""
     M, d1, taps = plan.M, plan.d1, plan.taps
+    split = plan.precision == "bf16x4"
+    per_tap = d1 + 3 * (plan.dc + 1) if split else d1
     rows = 0
     n = np.arange(max(n_out, 1), dtype=np.int64)
     for lane_res in np.unique(res):
         f = (int(lane_res) + n[:n_out] * L) // M
         rows += (1 + int((np.diff(f) > 0).sum()) if n_out else 0) * int((res == lane_res).sum())
-    flop = 2 * d1 * taps * rows + 2 * d1 * n_out * R
+    flop = 2 * per_tap * taps * rows + 2 * d1 * n_out * R
     covered = np.zeros(plan.reach + 1, bool)
     for j in plan.j[:n_out]:
         covered[j : j + 2 + taps + plan.skew - 1] = True
     nbytes = 4 * (int(covered.sum()) * R + plan.out_cap * R) + 16 * R
-    return bound_ms(flop, nbytes) + (flop, nbytes)
+    return bound_ms(flop, nbytes, BF16_PEAK_TFLOPS if split else F32_PEAK_TFLOPS) + (flop, nbytes)
 
 
-def phase_async_kernel(device, cases):
-    """B6 against its plain version at each case's bases and ``n_out``
-    bounds; each case's times (plain, kernel, kernel, plain) against its
-    bound.  The main case (the first) gives the kernel's line.  No single
-    PyTorch call computes B6 (per-lane row offsets and per-stream skews
-    are no uniform stride), so it has no library time."""
+def phase_async_kernel(device, cases, precision="highest"):
+    """B6 (or B6b, ``precision="bf16x4"``) against its plain version at
+    each case's bases and ``n_out`` bounds; each case's times (plain,
+    kernel, kernel, plain) against its bound.  The main case (the first)
+    gives the kernel's line.  No single PyTorch call computes B6 (per-lane
+    row offsets and per-stream skews are no uniform stride), so it has no
+    library time."""
     entry = None
     worst = 0.0
+    kname, phase = ("B6b", 24) if precision == "bf16x4" else ("B6", 11)
     for n, (name, in_hz, out_hz, taps, R, skew, starved) in enumerate(cases):
         L, M = reduce_ratio(in_hz, out_hz)
-        cfg, plan = async_plan(in_hz, out_hz, taps, skew)
+        cfg, plan = async_plan(in_hz, out_hz, taps, skew, precision=precision)
         ring = fir_fleets._ring_rows(cfg, 2048, 16)
         rng = np.random.default_rng(20 + n)
         buf = torch.from_numpy(rng.standard_normal((ring, R), dtype=np.float32)).to(device)
@@ -1014,10 +1102,10 @@ def phase_async_kernel(device, cases):
                 got = b6.async_combine(buf, base0, n_out, lanes, plan)
                 ref = b6.async_combine_reference(buf, base0, n_out, lanes, plan)
                 err = max(err, float((got - ref).abs().max()))
-                check(bool((got[n_out:] == 0).all()), f"B6 {name}: masked lanes are zero")
+                check(bool((got[n_out:] == 0).all()), f"{kname} {name}: masked lanes are zero")
                 calls += 1
         torch.cuda.synchronize()
-        check(err <= KERNEL_ATOL, f"B6 vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
+        check(err <= KERNEL_ATOL, f"{kname} vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
         worst = max(worst, err)
         rot = np.linspace(0, top, 8).astype(int).tolist()
         ms, plain_ms, t = timed_pair(
@@ -1025,7 +1113,7 @@ def phase_async_kernel(device, cases):
             lambda i: b6.async_combine_reference(buf, rot[i % 8], n_main, lanes, plan),
         )
         b_ms, b_by, flop, nbytes = async_bound(plan, L, n_main, res, R, C)
-        print(f"[11] B6 {name}: ring [{ring}, {R}], L/M {L}/{M}, out_cap {plan.out_cap}, skew {skew}: "
+        print(f"[{phase}] {kname} {name}: ring [{ring}, {R}], L/M {L}/{M}, out_cap {plan.out_cap}, skew {skew}: "
               f"max |kernel - plain| = {err:.3e} over {calls} calls")
         print(f"    n_out {n_main}: kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per "
               f"call; kernel {flop / ms / 1e9:.2f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}: "
@@ -1646,6 +1734,404 @@ def phase_vmapped_streaming(device, smi, B=64, C=8, chunk=2048, n_steps=6):
           f"card: {smi})")
 
 
+# --------------------------------------------------------------------------
+# phases 23-27: the bf16 split-precision forms, kernels B7 and B6b
+# --------------------------------------------------------------------------
+
+
+def phase_matmul3_kernel(device):
+    """B7 against its plain version at its paths' shapes, NaN and Inf rows
+    confined to their rows, the floor against f64; times (plain, kernel,
+    kernel, plain) against the bound and one f32 ``torch.matmul`` of the
+    same product (TF32 off) as the library yardstick.  The FFT projector
+    gives the kernel's line."""
+    entry, worst = None, 0.0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+
+    # (a) the FFT projector at 8192 stereo streams, three passes; the calls
+    # rotate over 8 inputs (616 MB) so that each finds its rows outside L2
+    T = fft_engine.get_projection_matrix(1176, 1280)
+    t_hi, t_lo = (h.to(device) for h in m3.split_weight(torch.from_numpy(T)))
+    pool = torch.randn((8, 16384, 1176), generator=gen, device=device)
+    got = m3.matmul3(pool[0], t_hi, t_lo, passes=3)
+    ref = m3.matmul3_reference(pool[0], t_hi, t_lo, passes=3)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(err <= KERNEL_ATOL, f"B7 vs plain at the projector: {err:.3e} > {KERNEL_ATOL}")
+    worst = max(worst, err)
+    ref64 = pool[0, :64].double() @ torch.from_numpy(T).to(device).double()
+
+    def floor(out):
+        e = out[:64].double() - ref64
+        return float(-20 * torch.log10(e.pow(2).mean().sqrt() / ref64.pow(2).mean().sqrt()))
+
+    fl_kernel, fl_plain = floor(got), floor(ref)
+    check(fl_kernel >= 99.0, f"B7 floor at the projector {fl_kernel:.2f} dB >= 99")
+    ms, plain_ms, t = timed_pair(
+        lambda i: m3.matmul3(pool[i % 8], t_hi, t_lo, passes=3),
+        lambda i: m3.matmul3_reference(pool[i % 8], t_hi, t_lo, passes=3),
+        plain_reps=5,
+    )
+    t32 = torch.from_numpy(T).to(device)
+    lib = torch.matmul(pool[0], t32)
+    lib_err = float((lib - ref).abs().max())
+    del lib, got, ref
+    lib_ms = elapsed_ms(lambda i: torch.matmul(pool[i % 8], t32), 20)
+    M_, K_, N_ = 16384, 1176, 2560
+    flop = 2 * M_ * K_ * N_ * 3
+    nbytes = 4 * M_ * K_ + 2 * 2 * K_ * N_ + 4 * M_ * N_
+    b_ms, b_by = bound_ms(flop, nbytes, BF16_PEAK_TFLOPS)
+    print(f"[23] B7 projector [{M_}, {K_}] @ [{K_}, {N_}], 3 passes: max |kernel - plain| = {err:.3e}; "
+          f"floor vs f64 (64 rows) kernel {fl_kernel:.2f} dB, plain {fl_plain:.2f} dB")
+    print(f"    kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per call; kernel "
+          f"{flop / ms / 1e9:.1f} TFLOP/s ({100 * b_ms / ms:.1f}% of the bound {b_ms:.4f} ms, {b_by}: "
+          f"{flop / 1e9:.1f} GFLOP at {BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16, {nbytes / 1e6:.1f} MB); library "
+          f"f32 torch.matmul(x, T), TF32 off: {lib_ms:.4f} ms, max |library - plain| {lib_err:.3e}")
+    entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del pool, t32
+
+    # (b) the main path's tm window, four passes, at several atlas windows
+    # and bases: the overlapping ring view and the time-major output view
+    L, M, taps, R = 147, 160, 128, 2048
+    cfg = FirConfig(channels=2, taps=taps, ratio_num=L, ratio_den=M)
+    span, K = L + taps + 1, -(-cfg.out_capacity // M)
+    ring = fir_fleets._ring_rows(cfg, 4096, 16)
+    buf = torch.randn((ring, R), generator=gen, device=device)
+    a2 = fir_fleets._sync_atlas(cfg, coeffs_for(44100, 48000, taps))
+    a_hi, a_lo = (h.to(device) for h in m3.split_weight(torch.from_numpy(np.ascontiguousarray(a2.T))))
+    windows = [((i0 * L) // M, i0) for i0 in (0, 77, M - 1)]
+    top = ring - ((K - 1) * L + span)
+    out = torch.empty((K, M, R), device=device)
+
+    def tm_call(fn, base, c0, i0):
+        x = buf[base:].as_strided((K, R, span), (L * R, 1, R))
+        return fn(x, a_hi[c0 : c0 + span, i0 : i0 + M], a_lo[c0 : c0 + span, i0 : i0 + M], passes=4,
+                  out=out.permute(0, 2, 1))
+
+    err = 0.0
+    for c0, i0 in windows:
+        for base in (1, 3, 4097, 2 * (ring // 4) + 1, top):
+            got = tm_call(m3.matmul3, base, c0, i0).clone()
+            ref = tm_call(m3.matmul3_reference, base, c0, i0)
+            err = max(err, float((got - ref).abs().max()))
+    torch.cuda.synchronize()
+    check(err <= KERNEL_ATOL, f"B7 vs plain at the tm window: {err:.3e} > {KERNEL_ATOL}")
+    worst = max(worst, err)
+    rot = np.linspace(0, top, 8).astype(int).tolist()
+    c0, i0 = windows[1]
+    ms_w, plain_w, t = timed_pair(lambda i: tm_call(m3.matmul3, rot[i % 8], c0, i0),
+                                  lambda i: tm_call(m3.matmul3_reference, rot[i % 8], c0, i0))
+    a32 = torch.from_numpy(np.ascontiguousarray(a2[i0 : i0 + M, c0 : c0 + span])).to(device)
+    lib_w = elapsed_ms(lambda i: torch.matmul(
+        a32, buf[rot[i % 8]:].as_strided((K, span, R), (L * R, R, 1))), 20)
+    flop = 2 * K * R * span * M * 4
+    nbytes = 4 * (((K - 1) * L + span) * R + K * M * R) + 2 * 2 * span * M
+    bw_ms, bw_by = bound_ms(flop, nbytes, BF16_PEAK_TFLOPS)
+    print(f"[23] B7 tm window K {K} R {R} span {span} Mg {M}, 4 passes, {len(windows)} atlas windows x 5 "
+          f"bases: max |kernel - plain| = {err:.3e}")
+    print(f"    kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per call; kernel "
+          f"{flop / ms_w / 1e9:.1f} TFLOP/s; bound {bw_ms:.4f} ms ({bw_by}: {flop / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB; {100 * bw_ms / ms_w:.1f}% of it reached); library f32 "
+          f"torch.matmul(atlas window, window view): {lib_w:.4f} ms")
+    entry["tm_window"] = dict(ms=ms_w, plain_ms=plain_w, bound_ms=bw_ms, bound_by=bw_by, library_ms=lib_w)
+    del buf, out
+
+    # (c) ragged strided, NaN and Inf rows
+    big = torch.randn((3, 77, 301), generator=gen, device=device)
+    x = big[:, 5:, 7:300]
+    x[1, 9, 4] = float("nan")
+    x[2, 70, 0] = float("inf")
+    w = torch.randn((293, 97), generator=gen, device=device) / 17
+    w_hi, w_lo = m3.split_weight(w)
+    got = m3.matmul3(x, w_hi, w_lo, passes=3)
+    ref = m3.matmul3_reference(x, w_hi, w_lo, passes=3)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    check(torch.equal(torch.isfinite(got), fin), "B7 ragged: non-finite pattern")
+    check(not fin[1, 9].any() and not fin[2, 70].any() and int(fin.sum()) == fin.numel() - 2 * 97,
+          "B7 ragged: only the NaN and Inf rows go non-finite")
+    err = float((got[fin] - ref[fin]).abs().max())
+    check(err <= KERNEL_ATOL, f"B7 vs plain ragged: {err:.3e}")
+    worst = max(worst, err)
+    print(f"[23] B7 ragged [3, 72, 293] @ [293, 97] strided, NaN and Inf rows: max |kernel - plain| = "
+          f"{err:.3e}, non-finite only in those rows")
+    entry["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return entry
+
+
+class TmFleet:
+    """A functional fleet step behind ``BatchedResamplerFir.resample``'s
+    call: ``resample(chunks, n_valid)`` takes ``[B, n, C]`` chunks (numpy or
+    a tensor) or a time-major ``[n, B*C]`` tensor, and returns ``(out [B,
+    out_cap, C], consumed [B], produced [B], peak)``."""
+
+    def __init__(self, step, state, B, C, device):
+        self.step, self.state, self.B, self.C, self.device = step, state, B, C, device
+
+    def resample(self, chunks, n_valid=None):
+        chunks = torch.as_tensor(chunks, device=self.device)
+        if chunks.ndim == 3:
+            chunks = chunks.permute(1, 0, 2).reshape(chunks.shape[1], self.B * self.C)
+        nv = chunks.shape[0] if n_valid is None else int(np.min(n_valid))
+        self.state, out, c, p = self.step(self.state, chunks, nv)
+        return out, np.full(self.B, c), np.full(self.B, p), out.abs().amax()
+
+
+def tm_fleet(device, in_hz, out_hz, B, C=2, precision="bf16x4", max_chunk=4096, horizon=16, **kw):
+    L, M = reduce_ratio(in_hz, out_hz)
+    cfg = FirConfig(channels=C, taps=Latency.Sample64.taps, ratio_num=L, ratio_den=M)
+    coeffs = coeffs_for(in_hz, out_hz, cfg.taps)
+    step = fir_fleets.make_fir_fleet_step_sync_tm(
+        cfg, coeffs, B, max_chunk=max_chunk, horizon=horizon, precision=precision, device=device, **kw)
+    state = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=max_chunk, horizon=horizon, device=device)
+    return cfg, TmFleet(step, state, B, C, device)
+
+
+def async_fleet(device, in_hz, out_hz, B, phases, kernel, C=2, max_chunk=2048, horizon=16, **kw):
+    L, M = reduce_ratio(in_hz, out_hz)
+    cfg = FirConfig(channels=C, taps=Latency.Sample64.taps, ratio_num=L, ratio_den=M)
+    step = fir_fleets.make_fir_fleet_step_async_tm(
+        cfg, coeffs_for(in_hz, out_hz, cfg.taps), B, max_chunk=max_chunk, horizon=horizon, kernel=kernel,
+        device=device, **kw)
+    state = fir_fleets.fir_fleet_init_async_tm(cfg, B, max_chunk=max_chunk, horizon=horizon, pos_num=phases,
+                                               device=device)
+    return cfg, TmFleet(step, state, B, C, device)
+
+
+def phase_bf16x4_tm_fleet(device, smi, B=1024, C=2, max_chunk=4096, n_steps=40, nbuf=8, warm=8, mirror=4):
+    """The tm fleet's ``precision="bf16x4"`` at full width (B7, four
+    passes), counted and timed, keeping streams 0-3; a CPU fleet of those
+    streams on the same feed; then a second bf16x4 fleet in lockstep with
+    the f32 fleet (B1), every output compared as it comes (the timed run
+    keeps no full outputs, so the allocator does not grow in it); alias
+    rejection through B7."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, fleet = tm_fleet(device, 44100, 48000, B, C, out_layout="tm")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(42)
+    chunks = [torch.randn((max_chunk, B * C), generator=gen, device=device) for _ in range(nbuf)]
+    torch.cuda.synchronize()
+
+    zero_launches()  # count only this path's own launches
+    small, steps, fills, peaks = [], [], [], []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        out, c, p, peak = fleet.resample(chunks[i % nbuf])
+        small.append(out[:, : mirror * C].clone())
+        steps.append((int(c[0]), int(p[0])))
+        fills.append(fleet.state["fill"])
+        peaks.append(peak)
+    torch.cuda.synchronize()
+    dt_warm, dt = time.perf_counter() - t_warm, time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+
+    check(steps == list(expected_schedule(cfg, [max_chunk] * n_steps)), "bf16x4 tm fleet: exact schedule")
+    emitting = sum(p > 0 for _, p in steps)
+    check(launches == dict({k: 0 for k in launches}, matmul3=emitting),
+          f"bf16x4 tm fleet: one B7 launch per emitting step ({emitting}), no B1: {launches}")
+    compactions = sum(b < a for a, b in zip(fills, fills[1:]))
+    check(compactions >= 2, f"bf16x4 tm fleet: {compactions} compactions >= 2")
+    check(bool(torch.isfinite(torch.stack(peaks)).all()), "bf16x4 tm fleet: finite outputs")
+
+    # streams 0-3 on a CPU fleet (B7's plain version), then a second bf16x4
+    # fleet in lockstep with the f32 fleet (B1), every output
+    _, cpu = tm_fleet("cpu", 44100, 48000, mirror, C, out_layout="tm")
+    err_f32 = err_cpu = 0.0
+    for i in range(n_steps):
+        oc, c, p, _ = cpu.resample(chunks[i % nbuf][:, : mirror * C].cpu())
+        check((int(c[0]), int(p[0])) == steps[i], f"CPU mirror schedule at step {i}")
+        err_cpu = max(err_cpu, float((small[i].cpu() - oc).abs().max()))
+    _, again = tm_fleet(device, 44100, 48000, B, C, out_layout="tm")
+    _, f32 = tm_fleet(device, 44100, 48000, B, C, precision="highest", out_layout="tm")
+    for i in range(n_steps):
+        o16, c, p, _ = again.resample(chunks[i % nbuf])
+        check((int(c[0]), int(p[0])) == steps[i] and torch.equal(o16[:, : mirror * C], small[i]),
+              f"the second bf16x4 fleet repeats the first at step {i}")
+        o32, c, p, _ = f32.resample(chunks[i % nbuf])
+        check((int(c[0]), int(p[0])) == steps[i], f"f32 fleet schedule at step {i}")
+        err_f32 = max(err_f32, float((o16 - o32).abs().max()))
+    check(0 < err_f32 <= BF16X4_VS_F32_ATOL, f"bf16x4 vs f32 tm fleet {err_f32:.3e} (0, {BF16X4_VS_F32_ATOL}]")
+    check(err_cpu <= DEVICE_ATOL, f"bf16x4 tm fleet vs CPU mirror {err_cpu:.3e} > {DEVICE_ATOL}")
+    rate = sum(p for _, p in steps[warm:]) * B / dt_warm / 1e6
+    print(f"[25] bf16x4 tm fleet: {B} streams x {C} ch, 44100 -> 48000 Hz taps {cfg.taps}, chunk {max_chunk}, "
+          f"{n_steps} steps ({emitting} emitting, {compactions} compactions), launches {launches}; schedule "
+          f"exact; every output vs the f32 tm fleet (B1) max {err_f32:.3e}; streams 0-{mirror - 1} vs CPU "
+          f"(B7's plain version) max {err_cpu:.3e}")
+    print(f"    fleet: {rate:.1f} Msamples/s over steps {warm + 1}-{n_steps} "
+          f"({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step); all {n_steps} steps "
+          f"{sum(p for _, p in steps) * B / dt / 1e6:.1f} [output frames x streams per second; card: {smi}]")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del again, f32
+    profile_steps(fleet, chunks)
+    del fleet, chunks
+    torch.cuda.empty_cache()
+
+    before = _build.LAUNCHES["matmul3"]
+    db, n = alias_db(device, 48000, 44100, fleet=tm_fleet(device, 48000, 44100, 2)[1])
+    launched = _build.LAUNCHES["matmul3"] - before
+    check(launched > 0, "the tone ran through B7")
+    check(db >= 100.0, f"alias rejection through B7 {db:.2f} dB >= 100")
+    print(f"[25] alias rejection through B7 (bf16x4 tm fleet, 48 -> 44.1 kHz, 23 kHz tone): {db:.2f} dB over "
+          f"{n} frames, {launched} launches")
+    return launches["matmul3"]
+
+
+def phase_async_pallas_fleet(device, smi, label, in_hz, out_hz, B=1024, C=2, max_chunk=2048, n_steps=40,
+                             nbuf=8, warm=8):
+    """The async fleet with ``kernel="pallas"`` (B6b) at full width,
+    counted and timed; then a second such fleet in lockstep with the f32
+    async fleet (B6) on the same feed, every output compared as it comes."""
+    L, M = reduce_ratio(in_hz, out_hz)
+    max_out = async_max_out(in_hz, out_hz, max_chunk)
+    phases = np.random.default_rng(7).integers(0, M, B)
+    cfg, fleet = async_fleet(device, in_hz, out_hz, B, phases, "pallas", max_out=max_out, out_layout="tm")
+    out_cap = min(cfg.out_capacity, max_out)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(43)
+    chunks = [torch.randn((max_chunk, B * C), generator=gen, device=device) for _ in range(nbuf)]
+    torch.cuda.synchronize()
+
+    zero_launches()  # count only this path's own launches
+    steps, peaks = [], []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        _, c, p, peak = fleet.resample(chunks[i % nbuf])
+        steps.append((int(c[0]), int(p[0])))
+        peaks.append(peak)
+    torch.cuda.synchronize()
+    dt_warm, dt = time.perf_counter() - t_warm, time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(launches == dict({k: 0 for k in launches}, async_combine_bf16x4=n_steps),
+          f"{label}: exactly one B6b launch per step and nothing else: {launches}")
+    sched = (0, [int(p) for p in phases])
+    for i, step in enumerate(steps):
+        to_copy, n_out, _, sched = expected_async_schedule(cfg, out_cap, sched, max_chunk)
+        check((to_copy, n_out) == step, f"{label}: step {i} {step} == host schedule {(to_copy, n_out)}")
+    check(async_positions(fleet.state, M, cfg.wide) == sched[1], f"{label}: positions == host schedule")
+    check(bool(torch.isfinite(torch.stack(peaks)).all()), f"{label}: finite outputs")
+
+    _, again = async_fleet(device, in_hz, out_hz, B, phases, "pallas", max_out=max_out, out_layout="tm")
+    _, f32 = async_fleet(device, in_hz, out_hz, B, phases, "auto", max_out=max_out, out_layout="tm")
+    err = 0.0
+    for i in range(n_steps):
+        o16, c, p, _ = again.resample(chunks[i % nbuf])
+        o32, c32, p32, _ = f32.resample(chunks[i % nbuf])
+        check((int(c[0]), int(p[0])) == (int(c32[0]), int(p32[0])) == steps[i],
+              f"{label}: schedules at step {i}")
+        err = max(err, float((o16 - o32).abs().max()))
+    check(err <= ASYNC_BF16X4_ATOL, f"{label}: B6b vs B6 fleet {err:.3e} > {ASYNC_BF16X4_ATOL}")
+    rate = sum(p for _, p in steps[warm:]) * B * C / dt_warm / 1e6
+    print(f"[26] {label}: {B} streams x {C} ch, {in_hz} -> {out_hz} Hz taps {cfg.taps}, max_out {max_out}, "
+          f"kernel='pallas'; {n_steps} steps, launches {launches}; schedule == host recomputation; every "
+          f"output vs the f32 fleet (B6) max {err:.3e}")
+    print(f"    fleet: {rate:.1f} Msamples/s over steps {warm + 1}-{n_steps} "
+          f"({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step); all {n_steps} steps "
+          f"{sum(p for _, p in steps) * B * C / dt / 1e6:.1f} [output frames x streams x channels per "
+          f"second, phase 12's count; card: {smi}]")
+    profile_steps(fleet, chunks)
+    del fleet, again, f32, chunks
+    torch.cuda.empty_cache()
+    return launches["async_combine_bf16x4"]
+
+
+def phase_async_pallas_alias(device):
+    M = reduce_ratio(48000, 44101)[1]
+    before = _build.LAUNCHES["async_combine_bf16x4"]
+    fleet = async_fleet(device, 48000, 44101, 2, [0, M // 2], "pallas", max_chunk=4096)[1]
+    db, n = alias_db(device, 48000, 44101, fleet=fleet)
+    launched = _build.LAUNCHES["async_combine_bf16x4"] - before
+    check(launched > 0, "the tone ran through B6b")
+    check(db >= 100.0, f"alias rejection through B6b {db:.2f} dB >= 100")
+    print(f"[26] alias rejection through B6b (async fleet, kernel='pallas', 48000 -> 44101 Hz, 23 kHz tone): "
+          f"{db:.2f} dB over {n} frames, {launched} launches")
+
+
+def phase_fft_b7(device, smi, backend, B, C=2, n_steps=40, T=8, nbuf=8, warm=8, mirror=4):
+    """``BatchedResamplerFft(B, C, 44100, 48000, backend)`` on the card,
+    matmul or conv: one B7 launch per call and per chunk of
+    ``resample_many``, streams 0-3 against B7's plain version on the same
+    chunks."""
+    torch.cuda.reset_peak_memory_stats()
+    fleet = BatchedResamplerFft(B, C, 44100, 48000, backend=backend, device=device)
+    n_in, n_out = fleet.config.fft_size_input, fleet.config.fft_size_output
+    gen = torch.Generator(device=device)
+    gen.manual_seed(44)
+    chunks = [torch.randn((B, C, n_in), generator=gen, device=device) for _ in range(nbuf)]
+    many = torch.stack([chunks[(n_steps + t) % nbuf] for t in range(T)])
+    torch.cuda.synchronize()
+
+    zero_launches()  # count only this path's own launches
+    small = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        small.append(fleet.resample(chunks[i % nbuf])[:mirror].clone())
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    outs = fleet.resample_many(many)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches == dict({k: 0 for k in launches}, matmul3=n_steps + T),
+          f"FFT {backend} fleet: one B7 launch per call and chunk: {launches}")
+    check(bool(torch.isfinite(outs).all()) and float(outs.abs().max()) > 0, f"FFT {backend}: finite outputs")
+    seq = torch.stack([chunks[i % nbuf][:mirror] for i in range(n_steps)] + [many[t, :mirror] for t in range(T)])
+    ref = fft_b7_plain(backend, seq.reshape(n_steps + T, mirror * C, n_in), n_in, n_out)
+    got = torch.cat([torch.stack(small), outs[:, :mirror]]).reshape(n_steps + T, mirror * C, n_out)
+    err = float((got - ref).abs().max())
+    check(err <= KERNEL_ATOL, f"FFT {backend} fleet vs B7's plain version {err:.3e} > {KERNEL_ATOL}")
+    per_step = B * C * n_out
+    dt_warm = t_end - t_warm
+    print(f"[27] FFT fleet, backend {backend}: {B} streams x {C} ch, 44100 -> 48000 Hz (N {n_in}, M {n_out}): "
+          f"{n_steps} resample() + resample_many(T={T}); launches {launches}; streams 0-{mirror - 1} vs B7's "
+          f"plain version max err {err:.3e}")
+    print(f"    fleet: {per_step * (n_steps - warm) / dt_warm / 1e6:.1f} Msamples/s over resample() calls "
+          f"{warm + 1}-{n_steps} ({dt_warm * 1e3 / (n_steps - warm):.3f} ms/step) [B x C x M output samples "
+          f"per step; card: {smi}]")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if backend == "matmul":
+        profile_steps(fleet, chunks)
+    del fleet, chunks, many, outs, small
+    torch.cuda.empty_cache()
+    return launches["matmul3"]
+
+
+def phase_fft_b7_quality(device):
+    for backend in ("matmul", "conv"):
+        zero_launches()
+        pair_db = fft_bench_pair_floor_db(device, backend)
+        n_pair = _build.LAUNCHES["matmul3"]
+        stop_db = fft_stopband_db(device, backend)
+        n_stop = _build.LAUNCHES["matmul3"] - n_pair
+        check(n_pair == 2 and n_stop > 0 and sum(_build.LAUNCHES.values()) == n_pair + n_stop,
+              f"{backend} quality gates ran through B7 ({n_pair}, {n_stop} launches)")
+        check(pair_db >= 99.0, f"{backend} fft_bench_pair_floor_db {pair_db:.2f} >= 99")
+        check(stop_db >= 99.0, f"{backend} fft_stopband_db {stop_db:.2f} >= 99")
+        print(f"[27] FFT quality through B7 ({backend}, 3 passes): fft_bench_pair_floor_db {pair_db:.2f} dB "
+              f"({n_pair} launches), fft_stopband_db {stop_db:.2f} dB ({n_stop} launches); gates >= 99 dB")
+
+
+#: B6's and B6b's cases (phases 11 and 24)
+ASYNC_CASES = [
+    ("(a) main 44100->44101 taps 128, 1024x2", 44100, 44101, 128, 2048, 1, False),
+    ("(b) 22050->96000 skew 2, 1024x2", 22050, 96000, 128, 2048, 2, False),
+    ("(c) downsampling 48000->44101, 1024x2", 48000, 44101, 128, 2048, 1, False),
+    ("(d) wide 4000000000->4000000001, 1024x2", 4_000_000_000, 4_000_000_001, 128, 2048, 1, False),
+    ("(e) heavy downsampling 367500->1601, 1024x2", 367500, 1601, 128, 2048, 1, False),
+    ("(f) ragged 44100->44101, R 6", 44100, 44101, 128, 6, 1, False),
+    ("(g) starved, base_rel past skew_periods, 1024x2", 44100, 44101, 128, 2048, 1, True),
+]
+
+
 def main() -> None:
     smi = phase_device()
     device = torch.device("cuda")
@@ -1688,15 +2174,7 @@ def main() -> None:
         launches[name] = fft_launches[name]
     phase_fft_quality(device)
     phase_fft_per_stream(device)
-    entries["async_combine"] = phase_async_kernel(device, [
-        ("(a) main 44100->44101 taps 128, 1024x2", 44100, 44101, 128, 2048, 1, False),
-        ("(b) 22050->96000 skew 2, 1024x2", 22050, 96000, 128, 2048, 2, False),
-        ("(c) downsampling 48000->44101, 1024x2", 48000, 44101, 128, 2048, 1, False),
-        ("(d) wide 4000000000->4000000001, 1024x2", 4_000_000_000, 4_000_000_001, 128, 2048, 1, False),
-        ("(e) heavy downsampling 367500->1601, 1024x2", 367500, 1601, 128, 2048, 1, False),
-        ("(f) ragged 44100->44101, R 6", 44100, 44101, 128, 6, 1, False),
-        ("(g) starved, base_rel past skew_periods, 1024x2", 44100, 44101, 128, 2048, 1, True),
-    ])
+    entries["async_combine"] = phase_async_kernel(device, ASYNC_CASES)
     launches["async_combine"] = sum(
         phase_async_fleet(device, smi, label, in_hz, out_hz)
         for label, in_hz, out_hz in (
@@ -1725,6 +2203,20 @@ def main() -> None:
         phase_end_aligned_differential(device, in_hz, out_hz, **kw)
     phase_end_aligned_alias(device)
     phase_vmapped_streaming(device, smi)
+    entries["matmul3"] = phase_matmul3_kernel(device)
+    entries["async_combine_bf16x4"] = phase_async_kernel(device, ASYNC_CASES, precision="bf16x4")
+    launches["matmul3"] = phase_bf16x4_tm_fleet(device, smi)
+    launches["async_combine_bf16x4"] = sum(
+        phase_async_pallas_fleet(device, smi, label, in_hz, out_hz)
+        for label, in_hz, out_hz in (
+            ("async fleet (B6b)", 44100, 44101),
+            ("async fleet (B6b), wide", 4_000_000_000, 4_000_000_001),
+        )
+    )
+    phase_async_pallas_alias(device)
+    launches["matmul3"] += phase_fft_b7(device, smi, "matmul", 8192)
+    phase_fft_b7(device, smi, "conv", 1024)
+    phase_fft_b7_quality(device)
     print(json.dumps({"kernels": [
         {
             "name": name,

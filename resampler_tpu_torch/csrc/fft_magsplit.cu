@@ -8,8 +8,9 @@
 //                      + sum_{i < wc}   hi(x2[r, rb + i]) * wcorr[q, i, c]
 //                      + sum_{i < wc}   lo(x2[r, rb + i]) * wcorr[q, wc + i, c]
 //
-// hi, lo = split_hi_lo(x) (JAX's rule: integer round to nearest even on the
-// f32 bits; a non-finite value passes through, so its lo is NaN).  Every
+// hi, lo = split_hi_lo(x) (JAX's rule, csrc/bf16_split.cuh: integer round to
+// nearest even on the f32 bits; a non-finite value passes through, so its lo
+// is NaN).  Every
 // product hi*w is exact in f32, so this is the plain version's arithmetic
 // up to the order of the f32 sums.
 //
@@ -48,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "bf16_split.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -61,24 +64,6 @@ constexpr int kBPad = 8;
 struct Geometry {
   int R, N, M, cols, cols_pad, k_pad, r0_step, b0_off, rows, wc;
 };
-
-// Subnormals to zero of the same sign.
-__device__ __forceinline__ float flush(float x) {
-  return fabsf(x) < 1.17549435e-38f ? x * 0.0f : x;
-}
-
-// One part of split_hi_lo of x: hi (lo == false) or lo, as bf16.  As the
-// port's plain version (ops/matmul3.py), the residual a - hi treats
-// subnormal operands and results as zero, as XLA does.
-__device__ __forceinline__ __nv_bfloat16 split_part(float a, bool lo) {
-  const uint32_t u = __float_as_uint(a);
-  const bool finite = (u & 0x7F800000u) != 0x7F800000u;
-  const uint32_t r = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-  const float hi = finite ? __uint_as_float(r) : a;
-  if (lo) return __float2bfloat16_rn(flush(flush(a) - flush(hi)));
-  return finite ? __ushort_as_bfloat16(static_cast<unsigned short>(r >> 16))
-                : __float2bfloat16_rn(a);
-}
 
 // x2 column of K index k (k < rows + 2*wc) in group q, and whether k is in
 // the lo half of the correction band.
@@ -151,7 +136,7 @@ magsplit_kernel(const float* __restrict__ prev, const float* __restrict__ cur,
     if (k < ktot) band_col(g, q, k, &lo);
 #pragma unroll
     for (int i = 0; i < kAPerThread; ++i) {
-      As[a_r + 8 * i][a_k] = split_part(a_raw[i], lo);
+      As[a_r + 8 * i][a_k] = bf16_split_part(a_raw[i], lo);
     }
 #pragma unroll
     for (int j = 0; j < NF; ++j) {

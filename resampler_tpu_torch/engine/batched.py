@@ -335,8 +335,9 @@ class BatchedResamplerFft:
     The chunk operator is linear and identical for every (stream,
     channel), so each step folds ``streams x channels`` into the rows of
     one operator call: one launch of kernel B4 on the magsplit backend
-    (``"auto"`` on the card where the pair has a band plan), one f32
-    matmul on the matmul backend.
+    (``"auto"`` on the card where the pair has a band plan), one launch of
+    kernel B7 on the matmul and conv backends on the card (one f32 matmul
+    on the CPU).
     """
 
     def __init__(

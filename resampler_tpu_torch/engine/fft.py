@@ -12,11 +12,16 @@ Backends, as in the JAX package:
   takes it on the card wherever ``plan_magsplit`` has a plan for the pair
   (the JAX package's TPU rule: the hand-written kernel is the production
   path);
-- ``"matmul"``: the dense ``[N, 2M]`` projector as one float32
-  ``torch.matmul`` (TF32 off): ``"auto"`` off the card and for pairs
-  without a band plan;
-- ``"conv"``: the channelized banded form, as a strided window view and a
-  matmul (not ``conv1d``: cuDNN runs TF32 by default);
+- ``"matmul"``: the dense ``[N, 2M]`` projector as one product:
+  ``"auto"`` off the card and for pairs without a band plan;
+- ``"conv"``: the channelized banded form, as a strided window view and one
+  product (not ``conv1d``: cuDNN runs TF32 by default);
+
+  on the card both products are kernel B7 in three bf16 passes
+  (``ops/matmul3.py``, the weight split once per device), which is the JAX
+  package's ``Precision.HIGH`` arithmetic on a device with bf16 passes; on
+  the CPU, where JAX's ``Precision.HIGH`` is f32, they are float32
+  ``torch.matmul`` (TF32 off);
 - ``"fft"`` and ``"rfft"``: the reference dataflow on ``torch.fft``
   (``dsp/rfft.py`` exists in the JAX package only because TPU runtimes
   reject complex dtypes; it is not ported).
@@ -38,6 +43,7 @@ import torch
 
 from ..dsp.planner import plan_conversion
 from ..dsp.window import WindowType, calculate_cutoff_kaiser, make_sincs_for_kaiser
+from ..ops.matmul3 import matmul3, split_weight
 from ..types import InvalidInputBufferSize, InvalidOutputBufferSize, SampleRate
 from .fir import resolve_device
 
@@ -234,7 +240,7 @@ def conv_backend_viable(n_in: int, n_out: int) -> bool:
 
 _PROJ_CACHE: dict[tuple[int, int], np.ndarray] = {}
 _PROJ_LOCK = threading.Lock()
-_TENSOR_CACHE: dict[tuple, torch.Tensor] = {}
+_TENSOR_CACHE: dict[tuple, torch.Tensor | tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def get_projection_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -266,6 +272,19 @@ def _projection_tensor(n_in: int, n_out: int, device: torch.device) -> torch.Ten
     return _design_tensor("proj", n_in, n_out, device, get_projection_matrix)
 
 
+def _split_design(name: str, n_in: int, n_out: int, device: torch.device, make):
+    """A host design matrix's bf16 split ``(hi, lo)`` on ``device`` (B7's
+    weight), made and uploaded once per device."""
+    key = (name + ":split", n_in, n_out, str(device))
+    with _PROJ_LOCK:
+        pair = _TENSOR_CACHE.get(key)
+    if pair is None:
+        halves = split_weight(torch.from_numpy(np.ascontiguousarray(make(n_in, n_out))))
+        with _PROJ_LOCK:
+            pair = _TENSOR_CACHE.setdefault(key, tuple(h.to(device) for h in halves))
+    return pair
+
+
 # --------------------------------------------------------------------------
 # Functional steps
 # --------------------------------------------------------------------------
@@ -294,10 +313,30 @@ def _make_magsplit_op(config: FftConfig, device: torch.device):
 
 def _make_conv_op(config: FftConfig, device: torch.device):
     """``f(x2 [R, 2N]) -> out [R, M]``: the channelized banded form as a
-    stride-``L'`` window view of ``x2`` and one f32 matmul."""
+    stride-``L'`` window view of ``x2`` and one product: B7 in three
+    passes on the card, f32 ``torch.matmul`` on the CPU."""
     n_in, n_out = config.fft_size_input, config.fft_size_output
     g = math.gcd(n_in, n_out)
     lp, mp = n_in // g, n_out // g
+
+    if device.type == "cuda":
+        w_hi, w_lo = _split_design(
+            "conv", n_in, n_out, device,
+            lambda a, b: input_domain_conv_operator(a, b).reshape((g + 1) * lp, mp),
+        )
+
+        def conv_op(x2):
+            # windows [g, R, (g+1) L'] and out [R, g, M'] as [g, R, M']:
+            # strided views, no copies
+            x2 = x2.contiguous()
+            R = x2.shape[0]
+            out = x2.new_empty((R, g, mp))
+            windows = x2.as_strided((g, R, (g + 1) * lp), (lp, 2 * n_in, 1))
+            matmul3(windows, w_hi, w_lo, passes=3, out=out.permute(1, 0, 2))
+            return out.reshape(R, n_out)
+
+        return conv_op
+
     w = _design_tensor("conv", n_in, n_out, device, input_domain_conv_operator)
     w2 = w.reshape((g + 1) * lp, mp)
 
@@ -310,10 +349,14 @@ def _make_conv_op(config: FftConfig, device: torch.device):
 
 
 def _make_spectral_op(config: FftConfig, backend: str, device: torch.device):
-    """``f(x [R, N]) -> full [R, 2M]``: the dense projector or the
-    reference dataflow on ``torch.fft``."""
+    """``f(x [R, N]) -> full [R, 2M]``: the dense projector (B7 in three
+    passes on the card, f32 ``torch.matmul`` on the CPU) or the reference
+    dataflow on ``torch.fft``."""
     n_in, n_out = config.fft_size_input, config.fft_size_output
     if backend == "matmul":
+        if device.type == "cuda":
+            t_hi, t_lo = _split_design("proj", n_in, n_out, device, get_projection_matrix)
+            return lambda x: matmul3(x, t_hi, t_lo, passes=3)
         proj = _projection_tensor(n_in, n_out, device)
         return lambda x: torch.matmul(x, proj)
     if backend not in ("fft", "rfft"):

@@ -1,9 +1,9 @@
 """FIR fleets: PyTorch ports of
 ``resampler_tpu.engine.fir_fleets.make_fir_fleet_step_sync_tm``
 (periodic, farrow and lerp paths; the wide u32 schedule),
-``make_fir_fleet_step_async_tm`` (per-stream positions, kernel B6; see
-its docstring) and the end-aligned slide fleet ``make_fir_fleet_step_sync``
-(kernel B8; see its docstring).
+``make_fir_fleet_step_async_tm`` (per-stream positions, kernel B6, or B6b
+for ``kernel="pallas"``; see its docstring) and the end-aligned slide
+fleet ``make_fir_fleet_step_sync`` (kernel B8; see its docstring).
 
 ``n_streams`` phase-locked streams share one exact schedule.  Their
 frames live in a TIME-MAJOR ring ``[ring, B*C]`` (frames on the major
@@ -11,9 +11,10 @@ axis, stream-channel lanes ``b*C + c`` on the minor one), so a step is:
 one contiguous append at row ``fill``, one fleet-wide contraction, and a
 consume that only advances ``start``.  Every ~``horizon`` steps the live
 window is compacted to the front of the ring.  The contraction is kernel
-B1 on periodic ratios, and on coprime ones the Farrow positioning matmul
-followed by kernel B2 (blocks of q >= 8 outputs) or B3 (q < 8)
-(``ops/fir_dma_kernel.py``).
+B1 on periodic ratios (kernel B7 in four bf16 passes for
+``precision="bf16x4"``, ``ops/matmul3.py``), and on coprime ones the
+Farrow positioning matmul followed by kernel B2 (blocks of q >= 8 outputs)
+or B3 (q < 8) (``ops/fir_dma_kernel.py``).
 
 The schedule scalars (``start``, ``fill``, ``pos_num`` or the wide
 ``pos_hi``/``pos_lo``, and per step ``to_copy``, ``n_out``, ``consumed``)
@@ -43,6 +44,7 @@ from ..ops.fir_dma_kernel import (
 )
 from ..ops.fir_kernel import FleetStepPlan, SpareBuffer
 from ..ops.fir_sync_kernel import fir_fleet_step_sync
+from ..ops.matmul3 import matmul3, split_weight
 from .fir import (
     FARROW_DEGREE,
     FirConfig,
@@ -221,24 +223,26 @@ def make_fir_fleet_step_sync_tm(
     for ``out_layout="bm"`` or the raw time-major ``[out_cap, B*C]`` for
     ``"tm"``.  Per-stream semantics equal ``make_fir_step``.
 
-    On a CUDA device the contraction always launches a kernel (B1, B2 or
-    B3); on the CPU it runs that kernel's plain PyTorch version.
+    On a CUDA device the contraction always launches a kernel (B1, B7, B2
+    or B3); on the CPU it runs that kernel's plain PyTorch version.
 
     - ``path="periodic"``: small-M families (reduced M < 128) contract
       against a grouped ``(gL, gM)`` atlas whose rows are bit-identical
       to the reduced one (``_periodic_group_factor``), while the atlas
-      window is still indexed with the reduced ``L, M``.
+      window is still indexed with the reduced ``L, M``.  The contraction
+      is B1 (f32) for ``precision="highest"``; for ``"bf16x4"`` the atlas
+      is split once at build (``split_hi_lo``, stored transposed) and B7
+      contracts each step's window of both halves with the ring window
+      view in four bf16 passes (the JAX form's four products,
+      ``resampler_tpu/engine/fir_fleets.py:594-617``).
     - ``path="farrow"`` / ``"lerp"`` (every ratio the periodic path does
       not take, and selectable on any): ``farrow_weights`` builds every
       output's banded weights ``a_blk [K, q, w]`` once for the whole
-      fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring."""
-    if precision == "bf16x4":
-        raise NotImplementedError(
-            "precision='bf16x4' (the bf16 hi/lo split contraction) needs a "
-            "split GEMM on the tensor cores, not ported yet (ROADMAP B7)"
-        )
-    if precision != "highest":
-        raise ValueError(f"precision must be 'highest', not {precision!r}")
+      fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring.
+      ``precision`` does not apply there (the JAX package's farrow
+      contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3."""
+    if precision not in ("highest", "bf16x4"):
+        raise ValueError(f"precision must be 'highest' or 'bf16x4', not {precision!r}")
     if resolve_convolve_path(config, path) == "gather":
         raise ValueError(
             "synchronized tm fleet step supports the periodic, farrow and "
@@ -272,17 +276,33 @@ def make_fir_fleet_step_sync_tm(
         atlas_cfg = (
             dataclasses.replace(config, ratio_num=Lg, ratio_den=Mg) if g > 1 else config
         )
-        a2 = torch.from_numpy(_sync_atlas(atlas_cfg, coeffs)).to(device)
+        a2_np = _sync_atlas(atlas_cfg, coeffs)
         l_inv = pow(L, -1, M) if M > 1 else 0
+        if precision == "bf16x4":
+            # [cols, rows]: a window's transpose [span, Mg] is a view with
+            # contiguous columns, B7's weight layout
+            t_hi, t_lo = (t.to(device) for t in split_weight(torch.from_numpy(a2_np.T)))
+        else:
+            a2 = torch.from_numpy(a2_np).to(device)
 
         def contract(buffer, start: int, pos_num: int, avail: int):
             d_min, r = divmod(pos_num, M)
             i0 = (r * l_inv) % M
             c0 = (i0 * L) // M
-            a = a2[i0 : i0 + Mg, c0 : c0 + span].contiguous()
-            out = dma_banded_contract(
-                buffer, start + d_min, a, L=Lg, M=Mg, span=span, K=K
-            )  # [K, Mg, R]
+            base = start + d_min
+            if precision == "bf16x4":
+                check_window(base, (K - 1) * Lg + span, buffer.shape[0], "contraction window")
+                # the overlapping window [K, R, span] and the time-major
+                # output [K, Mg, R] written as [K, R, Mg]: views, no copies
+                x = buffer[base:].as_strided((K, R, span), (Lg * R, 1, R))
+                out = buffer.new_empty((K, Mg, R))
+                matmul3(x, t_hi[c0 : c0 + span, i0 : i0 + Mg], t_lo[c0 : c0 + span, i0 : i0 + Mg],
+                        passes=4, out=out.permute(0, 2, 1))
+            else:
+                a = a2[i0 : i0 + Mg, c0 : c0 + span].contiguous()
+                out = dma_banded_contract(
+                    buffer, base, a, L=Lg, M=Mg, span=span, K=K
+                )  # [K, Mg, R]
             return out.reshape(K * Mg, R)[:out_cap]
 
     else:
@@ -408,10 +428,10 @@ def make_fir_fleet_step_async_tm(
     relayout; no device-to-host sync.
 
     ``kernel``: ``"auto"`` and ``"pallas_highest"`` launch B6 on the card
-    (its plain version on the CPU); ``"xla"`` runs the plain version on any
-    device (the differential).  ``"pallas"`` (the TPU's bf16x4
-    degree-banded contraction) is not ported; ``"pallas_interpret"`` is a
-    TPU-only mode.
+    (its plain version on the CPU); ``"pallas"`` launches B6b, the TPU
+    default's bf16x4 degree-banded split contraction (its plain version on
+    the CPU); ``"xla"`` runs B6's plain version on any device (the
+    differential).  ``"pallas_interpret"`` is a TPU-only mode.
 
     ``max_out`` bounds the output lanes per step below
     ``config.out_capacity``; production beyond it is deferred, never
@@ -431,14 +451,9 @@ def make_fir_fleet_step_async_tm(
         )
     if skew_periods < 1:
         raise ValueError("skew_periods must be >= 1")
-    if kernel == "pallas":
-        raise NotImplementedError(
-            "kernel='pallas' (B6's bf16x4 degree-banded contraction) is not "
-            "ported yet (ROADMAP B6b); 'auto' runs the f32 kernel"
-        )
-    if kernel not in ("auto", "xla", "pallas_highest"):
+    if kernel not in ("auto", "xla", "pallas", "pallas_highest"):
         raise ValueError(
-            f"kernel must be 'auto', 'xla' or 'pallas_highest' "
+            f"kernel must be 'auto', 'xla', 'pallas' or 'pallas_highest' "
             f"('pallas_interpret' is a TPU mode), not {kernel!r}"
         )
     combine = async_combine_reference if kernel == "xla" else async_combine
@@ -457,6 +472,7 @@ def make_fir_fleet_step_async_tm(
     plan = async_combine_plan(
         A=A, L=L, M=M, out_cap=out_cap, skew_periods=skew_periods,
         clamp_j=cap + 2 if wide else None,
+        precision="bf16x4" if kernel == "pallas" else "highest",
     )
     assert plan.reach <= slack, (plan.reach, slack)
 

@@ -31,18 +31,21 @@ LAUNCHES = {
     "magsplit_projector": 0,
     "magsplit_projector_pool": 0,
     "async_combine": 0,
+    "async_combine_bf16x4": 0,
+    "matmul3": 0,
     "fir_fleet_step_sync": 0,
     "fir_fleet_step": 0,
 }
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-#: one shared library per source; the header is included by the B1 and B2 sources
+#: one shared library per source; the headers are included by the B1 and B2
+#: sources (tiled_contract) and by the B4, B6 and B7 sources (bf16_split)
 _SOURCES = (
     "fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu", "fir_async_combine.cu",
-    "fir_fleet_step.cu",
+    "fir_fleet_step.cu", "matmul3.cu",
 )
-_HEADERS = ("tiled_contract.cuh",)
+_HEADERS = ("tiled_contract.cuh", "bf16_split.cuh")
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -61,6 +64,12 @@ _SIGNATURES = {
     "fft_magsplit_projector": [_P, _P, _P, _P] + [_I] * 12 + [_P],
     # buffer, a_t, j, s, lanes, out, R, base0, n_out, out_cap, taps, M, skew, stream
     "fir_async_combine": [_P] * 6 + [_I, _I64, _I, _I, _I, _I64, _I, _P],
+    # buffer, a_hi_t, a_lo_t, j, s, lanes, out, R, base0, n_out, out_cap, taps,
+    # M, skew, degrees corrected, stream
+    "fir_async_combine_bf16x4": [_P] * 7 + [_I, _I64, _I, _I, _I, _I64, _I, _I, _P],
+    # x, t_hi, t_lo, out, batch, M, N, K, x strides (b, m, k), t row stride,
+    # out strides (b, m, n), passes, col_frags, stream
+    "matmul3": [_P] * 4 + [_I] * 4 + [_I64] * 7 + [_I, _I, _P],
     # old, chunks, sched, sched stride, w_t, next, out, B, C, alloc, valid_end,
     # chunk strides (b, f, c), out_cap, taps, L, M, stream
     "fir_fleet_step": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_I64] * 3 + [_I] * 4 + [_P],

@@ -1,8 +1,8 @@
-"""The bf16 hi/lo split of ``resampler_tpu/ops/matmul3.py``.
+"""Kernel B7 and the bf16 hi/lo split of ``resampler_tpu/ops/matmul3.py``.
 
 ``split_hi_lo`` (``matmul3.py:39``) is the operand split of the FFT
-engine's magsplit kernels (B4, B5) and, later, of B7's bf16x3 GEMM.  Both
-forms here round with integer operations on the float32 bit pattern,
+engine's magsplit kernels (B4, B5), of B7 and of B6b.  Both forms here
+round with integer operations on the float32 bit pattern,
 round to nearest even, exactly as a float32 -> bfloat16 conversion does
 (``ml_dtypes`` and XLA): ``(u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000``,
 with a NaN becoming ``sign | 0x7FC00000``.  PyTorch's own CPU conversion
@@ -11,15 +11,35 @@ gives NaNs another bit pattern, so neither form uses it.
 - ``bf16_round_np``: NumPy, for the host-side weight design;
 - ``split_hi_lo``: PyTorch, bit for bit JAX's split, as float32 tensors
   whose values are exact bfloat16 (the CUDA kernels split in registers
-  by the same rule).
+  by the same rule, ``csrc/bf16_split.cuh``);
+- ``split_weight``: a weight's two halves as bfloat16 tensors, B7's ``t``.
+
+B7, ``matmul3`` (``matmul3.py:78``), is the split-precision product
+``x [.., M, K] f32 @ (t_hi + t_lo) [K, N] bf16 -> [.., M, N] f32``: the
+products ``hi(x) t_hi + lo(x) t_hi + hi(x) t_lo`` (``passes=3``, JAX's
+``Precision.HIGH`` on a device with bf16 passes: the FFT engine's matmul
+and conv backends) and ``+ lo(x) t_lo`` (``passes=4``, the FIR fleet's
+``precision="bf16x4"``), every product exact, summed in f32.  The wrapper
+launches the hand-written CUDA kernel (``csrc/matmul3.cu``) for CUDA
+tensors, counted in ``LAUNCHES["matmul3"]``, and runs
+``matmul3_reference`` for CPU tensors; there is no fallback between the
+two.  ``x`` and ``out`` may be any strided views (an overlapping ring
+window, a time-major output), and M, N and K need not be tile multiples
+(the TPU kernel's Mosaic rule).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-__all__ = ["bf16_round_np", "bf16_bits_np", "split_hi_lo"]
+from ._build import LAUNCHES, device_kind, launch
+
+__all__ = [
+    "bf16_round_np", "bf16_bits_np", "split_hi_lo", "split_weight", "matmul3", "matmul3_reference",
+]
 
 _MASK32 = 0xFFFFFFFF
 #: the smallest normal float32
@@ -77,3 +97,105 @@ def split_hi_lo(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hi = _round_tensor(a)
     lo = _round_tensor(_flush(_flush(a) - _flush(hi)))
     return hi, lo
+
+
+def split_weight(t) -> tuple[torch.Tensor, torch.Tensor]:
+    """``split_hi_lo`` of a weight as two bfloat16 tensors (exact: both
+    halves are bfloat16 values), B7's ``t_hi`` and ``t_lo``."""
+    hi, lo = split_hi_lo(torch.as_tensor(t))
+    return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_I32_MAX = (1 << 31) - 1
+
+
+def _no_overlap(t: torch.Tensor) -> bool:
+    """No two elements of ``t`` share memory (strides sorted ascending each
+    step past the extent of the ones before)."""
+    need = 1
+    for stride, size in sorted((s, n) for s, n in zip(t.stride(), t.shape) if n > 1):
+        if stride < need:
+            return False
+        need = stride * size
+    return True
+
+
+def _check(x, t_hi, t_lo, passes: int, out):
+    """``(x3, out3)``: ``x`` and ``out`` as 3-D views ``[batch, M, K]``,
+    ``[batch, M, N]`` (``out3`` None when not given)."""
+    if passes not in (3, 4):
+        raise ValueError(f"passes must be 3 or 4, got {passes}")
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or x.ndim not in (2, 3):
+        raise TypeError("x must be a 2-D or 3-D float32 tensor")
+    for what, t in (("t_hi", t_hi), ("t_lo", t_lo)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.bfloat16 or t.ndim != 2:
+            raise TypeError(f"{what} must be a 2-D bfloat16 tensor")
+        if t.device != x.device:
+            raise ValueError(f"{what} is on {t.device}, x on {x.device}")
+    K, N = t_hi.shape
+    if tuple(t_lo.shape) != (K, N) or t_lo.stride() != t_hi.stride():
+        raise ValueError("t_hi and t_lo must have one shape and one layout")
+    if N > 1 and t_hi.stride(1) != 1:
+        raise ValueError("the weight's columns must be contiguous")
+    x3 = x if x.ndim == 3 else x.unsqueeze(0)
+    batch, M, Kx = x3.shape
+    if Kx != K:
+        raise ValueError(f"x has K = {Kx}, the weight {K}")
+    if min(batch, M, N, K) < 1 or max(M, N, K) > _I32_MAX or batch > 65535 or -(-M // 64) > 65535:
+        raise ValueError(f"shape {tuple(x3.shape)} @ {(K, N)} outside the kernel's grid")
+    if out is None:
+        return x3, None
+    if not isinstance(out, torch.Tensor) or out.dtype != torch.float32 or out.device != x.device:
+        raise TypeError(f"out must be a float32 tensor on {x.device}")
+    if out.ndim != x.ndim or tuple(out.shape) != tuple(x.shape[:-1]) + (N,):
+        raise ValueError(f"out must be {list(x.shape[:-1]) + [N]}, got {list(out.shape)}")
+    if not _no_overlap(out):
+        raise ValueError("out's elements must not overlap")
+    return x3, out if out.ndim == 3 else out.unsqueeze(0)
+
+
+def matmul3_reference(x, t_hi, t_lo, *, passes: int = 3, out=None) -> torch.Tensor:
+    """Plain PyTorch version of B7: the exact bf16 products, summed in
+    float64 and rounded once to float32 (an f32 sum of the same products
+    is no 1e-5 yardstick at K >= 1176).  ``out`` (optional) receives the
+    result, which is returned."""
+    x3, out3 = _check(x, t_hi, t_lo, passes, out)
+    hi, lo = (h.double() for h in split_hi_lo(x3))
+    th, tl = t_hi.double(), t_lo.double()
+    acc = hi @ th + lo @ th + hi @ tl
+    if passes == 4:
+        acc += lo @ tl
+    res = acc.to(torch.float32)
+    if out3 is None:
+        return res if x.ndim == 3 else res[0]
+    out3.copy_(res)
+    return out
+
+
+def matmul3(x, t_hi, t_lo, *, passes: int = 3, out=None) -> torch.Tensor:
+    """B7: ``x [batch, M, K]`` (or ``[M, K]``) float32, any strides, times
+    the pre-split weight ``t_hi + t_lo [K, N]`` (bfloat16, contiguous
+    columns) in ``passes`` (3 or 4) bf16 passes with f32 sums.  Writes
+    ``out`` (any non-overlapping strided view of the result's shape) when
+    given, else a new contiguous tensor; returns it.  CUDA tensors launch
+    the kernel on the current stream; CPU tensors run the plain version.
+    Anything else raises."""
+    x3, out3 = _check(x, t_hi, t_lo, passes, out)
+    if device_kind(x) == "cpu":
+        return matmul3_reference(x, t_hi, t_lo, passes=passes, out=out)
+    batch, M, K = x3.shape
+    N = t_hi.shape[1]
+    if out3 is None:
+        out = torch.empty(tuple(x.shape[:-1]) + (N,), dtype=torch.float32, device=x.device)
+        out3 = out if out.ndim == 3 else out.unsqueeze(0)
+    # the 128-column tile where it pads no more than the 64-column one
+    col_frags = 2 if -(-N // 128) * 128 <= -(-N // 64) * 64 or N > 512 else 1
+    launch(
+        "matmul3", x.device,
+        _P(x3.data_ptr()), _P(t_hi.data_ptr()), _P(t_lo.data_ptr()), _P(out3.data_ptr()),
+        _I(batch), _I(M), _I(N), _I(K), *(_I64(s) for s in x3.stride()), _I64(t_hi.stride(0)),
+        *(_I64(s) for s in out3.stride()), _I(passes), _I(col_frags),
+    )
+    LAUNCHES["matmul3"] += 1
+    return out

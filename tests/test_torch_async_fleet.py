@@ -149,8 +149,6 @@ def test_init_validation_and_options():
                                     skew_periods=2, device="cpu")
     coeffs = np.zeros((tfir.PHASES, 16), np.float32)
     make = tfleets.make_fir_fleet_step_async_tm
-    with pytest.raises(NotImplementedError, match="B6b"):
-        make(tc, coeffs, 2, max_chunk=256, kernel="pallas", device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         make(tc, coeffs, 2, max_chunk=256, mesh=object(), device="cpu")
     for bad in (dict(kernel="pallas_interpret"), dict(out_layout="bt"), dict(skew_periods=0)):

@@ -1,9 +1,12 @@
-"""Kernel B6's plain version (``ops/fir_async_kernel.py``) against the JAX
-package: against the TPU kernel ``build_async_combine`` run in Pallas
-interpret mode as ``tests/test_async_kernel.py`` runs it (within that
-suite's 8e-5, set by the TPU kernel's bf16x4 contraction), and against the
-JAX XLA async step's formula on crafted states (within 2e-5), starved ones
-with a frame skew past ``skew_periods`` among them."""
+"""Kernels B6 and B6b's plain version (``ops/fir_async_kernel.py``) against
+the JAX package: against the TPU kernel ``build_async_combine`` run in
+Pallas interpret mode as ``tests/test_async_kernel.py`` runs it (B6 within
+that suite's 8e-5, set by the TPU kernel's bf16x4 contraction; B6b, the
+same bf16x4 products, within 2e-5), and B6 against the JAX XLA async
+step's formula on crafted states (within 2e-5), starved ones with a frame
+skew past ``skew_periods`` among them.  JAX's interpret-mode step runs once
+per case (a module-scoped cache) for all three fleets that are held
+against it."""
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from resampler_tpu_torch.engine import fir_fleets as tfleets
 from resampler_tpu_torch.ops import _build
 from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.types import Attenuation
+from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
 
 # several test workers share the machine's cores: one thread each for
 # torch and for numpy's BLAS (eight each oversubscribe the machine)
@@ -27,7 +31,14 @@ threadpool_limits(1, user_api="blas")
 
 INTERPRET_ATOL = 8e-5  # tests/test_async_kernel.py (bf16x4 degree-banded contraction)
 XLA_ATOL = 2e-5  # tests/test_async_fleet.py
+# B6b against the TPU kernel: the same exact bf16 products; the sums' order,
+# the TPU kernel's wrap blend z0 + w (z1 - z0) (B6b selects) and its
+# rem * (1/M) (B6b divides) differ.  Measured at most 1.2e-6 over the four
+# cases.
+BF16X4_ATOL = 2e-5
 CHUNK = 512
+FEEDS = [512, 0, 300, 512, 17, 512, 512, 400]
+RESTORE_AT = 3  # the step whose JAX state the restored port fleet starts from
 
 
 def _setup(in_hz, out_hz, taps, C=2):
@@ -39,40 +50,121 @@ def _setup(in_hz, out_hz, taps, C=2):
     return jfir.FirConfig(**kw), tfir.FirConfig(**kw), coeffs
 
 
-@pytest.mark.parametrize(
-    "in_hz,out_hz,taps,phases,skew,max_out",
-    [
-        (44100, 44101, 64, [0, 14700, 44100], 1, None),
-        (48000, 44101, 32, [0, 999, 44000], 1, None),
-        (22050, 96000, 16, [0, 100, 300], 2, None),
-        (4_000_000_000, 4_000_000_001, 64, [0, 7, 1_000_000], 1, 512 + 64),
-    ],
-    ids=["shift", "dual", "shift_skew2", "wide_planes"],
-)
-def test_plain_matches_pallas_interpret(in_hz, out_hz, taps, phases, skew, max_out):
+INTERPRET_CASES = {
+    "shift": (44100, 44101, 64, [0, 14700, 44100], 1, None),
+    "dual": (48000, 44101, 32, [0, 999, 44000], 1, None),
+    "shift_skew2": (22050, 96000, 16, [0, 100, 300], 2, None),
+    "wide_planes": (4_000_000_000, 4_000_000_001, 64, [0, 7, 1_000_000], 1, 512 + 64),
+}
+
+
+@pytest.fixture(scope="module")
+def interpret_runs():
+    """The JAX step with the TPU kernel in interpret mode (bf16x4) over
+    ``FEEDS``, once per case: per step the state before it (numpy), the
+    feed, the output and the schedule ints."""
+    runs = {}
+
+    def get(case_id):
+        if case_id not in runs:
+            in_hz, out_hz, taps, phases, skew, max_out = INTERPRET_CASES[case_id]
+            jc, _, coeffs = _setup(in_hz, out_hz, taps)
+            B = len(phases)
+            kw = dict(max_chunk=CHUNK, horizon=2, skew_periods=skew)
+            jstep = jax.jit(jfir.make_fir_fleet_step_async_tm(
+                jc, coeffs, B, kernel="pallas_interpret", max_out=max_out, **kw))
+            js = jfir.fir_fleet_init_async_tm(jc, B, pos_num=np.asarray(phases, object), **kw)
+            rng = np.random.default_rng(5)
+            steps = []
+            for nv in FEEDS:
+                d = rng.standard_normal((CHUNK, B * 2)).astype(np.float32)
+                d[nv:] = 0.0
+                before = jax.tree.map(np.asarray, js)
+                js, oj, cj, pj = jstep(js, jnp.asarray(d), jnp.int32(nv))
+                steps.append(dict(state=before, d=d, nv=nv, out=np.asarray(oj), c=int(cj), p=int(pj)))
+            runs[case_id] = dict(steps=steps, final=jax.tree.map(np.asarray, js))
+        return runs[case_id]
+
+    return get
+
+
+def _port_run(case_id, run, kernel, atol, *, start=0, check_states=False):
+    """Step the port's fleet (on the CPU: the kernel's plain version) over
+    the cached JAX run from step ``start`` (from JAX's state there when
+    ``start > 0``); returns the largest output difference."""
+    in_hz, out_hz, taps, phases, skew, max_out = INTERPRET_CASES[case_id]
+    _, tc, coeffs = _setup(in_hz, out_hz, taps)
+    B = len(phases)
+    kw = dict(max_chunk=CHUNK, horizon=2, skew_periods=skew)
+    tstep = tfleets.make_fir_fleet_step_async_tm(
+        tc, coeffs, B, max_out=max_out, kernel=kernel, device="cpu", **kw)
+    if start:
+        ts = state_from_numpy(run["steps"][start]["state"], device="cpu")
+    else:
+        ts = tfleets.fir_fleet_init_async_tm(tc, B, pos_num=np.asarray(phases, object), device="cpu", **kw)
+    steps = run["steps"][start:]
+    worst, total = 0.0, 0
+    for i, st in enumerate(steps):
+        ts, ot, ct, pt = tstep(ts, torch.from_numpy(st["d"]), st["nv"])
+        assert (pt, ct) == (st["p"], st["c"])
+        np.testing.assert_allclose(ot[:, :pt].numpy(), st["out"][:, :pt], atol=atol, rtol=0)
+        worst = max(worst, float(np.abs(ot[:, :pt].numpy() - st["out"][:, :pt]).max(initial=0.0)))
+        if check_states:
+            want = steps[i + 1]["state"] if i + 1 < len(steps) else run["final"]
+            got = state_to_numpy(ts)
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].dtype == want[k].dtype, k
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        total += pt
+    assert total > (1000 if not start else 500)
+    return worst
+
+
+@pytest.mark.parametrize("case_id", list(INTERPRET_CASES))
+def test_plain_matches_pallas_interpret(case_id, interpret_runs):
     """The cases and feeds of ``test_async_kernel_interpret_matches_xla``:
     the JAX step with the TPU kernel in interpret mode against the port's
     step, whose combine on the CPU is B6's plain version."""
-    jc, tc, coeffs = _setup(in_hz, out_hz, taps)
-    B = len(phases)
-    kw = dict(max_chunk=CHUNK, horizon=2, skew_periods=skew)
-    jstep = jax.jit(jfir.make_fir_fleet_step_async_tm(
-        jc, coeffs, B, kernel="pallas_interpret", max_out=max_out, **kw))
-    tstep = tfleets.make_fir_fleet_step_async_tm(tc, coeffs, B, max_out=max_out, device="cpu", **kw)
-    pos = np.asarray(phases, object)
-    js = jfir.fir_fleet_init_async_tm(jc, B, pos_num=pos, **kw)
-    ts = tfleets.fir_fleet_init_async_tm(tc, B, pos_num=pos, device="cpu", **kw)
-    rng = np.random.default_rng(5)
-    total = 0
-    for nv in [512, 0, 300, 512, 17, 512, 512, 400]:
-        d = rng.standard_normal((CHUNK, B * 2)).astype(np.float32)
-        d[nv:] = 0.0
-        js, oj, cj, pj = jstep(js, jnp.asarray(d), jnp.int32(nv))
-        ts, ot, ct, pt = tstep(ts, torch.from_numpy(d), nv)
-        assert (pt, ct) == (int(pj), int(cj))
-        np.testing.assert_allclose(ot[:, :pt].numpy(), np.asarray(oj)[:, :pt], atol=INTERPRET_ATOL, rtol=0)
-        total += pt
-    assert total > 1000
+    _port_run(case_id, interpret_runs(case_id), "auto", INTERPRET_ATOL)
+
+
+@pytest.mark.parametrize("case_id", list(INTERPRET_CASES))
+def test_bf16x4_plain_matches_pallas_interpret(case_id, interpret_runs):
+    """``kernel="pallas"``: B6b's plain version against the TPU kernel's
+    bf16x4 form, the schedule ints and the ring exactly equal."""
+    before = dict(_build.LAUNCHES)
+    _port_run(case_id, interpret_runs(case_id), "pallas", BF16X4_ATOL, check_states=True)
+    assert _build.LAUNCHES == before  # a CPU tensor runs the plain version
+
+
+@pytest.mark.parametrize("case_id", list(INTERPRET_CASES))
+def test_bf16x4_restores_jax_state(case_id, interpret_runs):
+    """A JAX ``kernel="pallas_interpret"`` fleet's state, part-way, loaded
+    into the port's ``kernel="pallas"`` fleet carries on to JAX's ints,
+    ring and outputs."""
+    _port_run(case_id, interpret_runs(case_id), "pallas", BF16X4_ATOL, start=RESTORE_AT,
+              check_states=True)
+
+
+def test_degree_cut_and_weight_split():
+    """B6b's degree cut and weight split at the async fleet's basis (Db90,
+    44100 -> 44101): the first 5 of 8 degrees take the correction products
+    at 16-128 taps, and a_hi, a_lo equal the JAX build's ``astype``
+    (``fir_async_kernel.py:400-411``), a_lo zero past the cut."""
+    for taps in (16, 32, 64, 128):
+        _, tc, coeffs = _setup(44100, 44101, taps)
+        A = tfir.farrow_matrix(coeffs)[0]
+        plan = b6.async_combine_plan(A=A, L=tc.ratio_num, M=tc.ratio_den, out_cap=64,
+                                     skew_periods=1, precision="bf16x4")
+        assert plan.dc == 4
+        hi = jnp.asarray(A, jnp.float32).astype(jnp.bfloat16)
+        lo = (jnp.asarray(A, jnp.float32) - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+        np.testing.assert_array_equal(plan.a_hi, np.asarray(hi, np.float32))
+        np.testing.assert_array_equal(plan.a_lo[: plan.dc + 1], np.asarray(lo, np.float32)[: plan.dc + 1])
+        assert not plan.a_lo[plan.dc + 1 :].any()
+    with pytest.raises(ValueError):
+        b6.async_combine_plan(A=A, L=1, M=2, out_cap=4, skew_periods=1, precision="bf16x3")
 
 
 def _jax_state(jc, B, pos, start, fill, buf, skew):

@@ -1,6 +1,6 @@
-"""Tests that need an NVIDIA card: kernels B1-B6, B8 and B9, the FIR fleets
-(periodic, coprime, async, vmapped, slide), the serving runtime and the FFT
-engine on the card against
+"""Tests that need an NVIDIA card: kernels B1-B9 and B6b, the FIR fleets
+(periodic in f32 and bf16x4, coprime, async in f32 and bf16x4, vmapped,
+slide), the serving runtime and the FFT engine on the card against
 the port's plain PyTorch versions and the CPU on the same inputs.  They skip
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 also runs on a GPU host without JAX (``--noconftest`` skips
@@ -16,18 +16,24 @@ import pytest
 import torch
 
 import resampler_tpu_torch as rt
+from resampler_tpu_torch.engine import fft as tfft
 from resampler_tpu_torch.engine import fir as tfir
+from resampler_tpu_torch.engine import fir_fleets
 from resampler_tpu_torch.engine.fir_fleets import _farrow_tm_plan, _sync_atlas
 from resampler_tpu_torch.ops import fft_magsplit_kernel as mag
 from resampler_tpu_torch.ops import fir_async_kernel as b6
 from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.ops import fir_kernel as b9
 from resampler_tpu_torch.ops import fir_sync_kernel as b8
+from resampler_tpu_torch.ops import matmul3 as m3
 
 torch.set_num_threads(1)  # several test workers share the machine's cores
 
 KERNEL_ATOL = 1e-5  # f32 sums in another order
 DEVICE_ATOL = 5e-5  # bench.py's device-vs-CPU gate
+#: the bf16x4 fleet against the f32 one: four passes keep ~16 bits of each
+#: operand (measured 3.3e-5 on the CPU at outputs up to 4.3)
+BF16X4_VS_F32_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -226,21 +232,59 @@ def test_fft_fleet_on_card_matches_cpu(cuda):
     assert sum(kern.LAUNCHES.values()) == 7
 
 
+def b7_fft_plain(backend, chunks, n_in, n_out):
+    """The card's ``matmul`` or ``conv`` FFT step (B7, three passes) on
+    per-stream chunks ``[T, C, N]``, through B7's plain version on the CPU:
+    ``[T, C, M]``."""
+    if backend == "matmul":
+        t_hi, t_lo = m3.split_weight(torch.from_numpy(tfft.get_projection_matrix(n_in, n_out)))
+    else:
+        w = tfft.input_domain_conv_operator(n_in, n_out)
+        g, lp, mp = w.shape[0] - 1, w.shape[1], w.shape[2]
+        t_hi, t_lo = m3.split_weight(torch.from_numpy(w.reshape((g + 1) * lp, mp)))
+    prev, overlap, outs = torch.zeros_like(chunks[0]), 0.0, []
+    for x in chunks:
+        if backend == "matmul":
+            full = m3.matmul3_reference(x, t_hi, t_lo, passes=3)
+            outs.append(full[:, :n_out] + overlap)
+            overlap = full[:, n_out:]
+        else:
+            x2 = torch.cat([prev, x], dim=1)
+            win = x2.as_strided((x.shape[0], g, (g + 1) * lp), (2 * n_in, lp, 1))
+            outs.append(m3.matmul3_reference(win, t_hi, t_lo, passes=3).reshape(x.shape[0], n_out))
+            prev = x
+    return torch.stack(outs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["magsplit", "matmul", "conv", "fft", "rfft"])
 def test_fft_backends_on_card_match_cpu(cuda, backend):
     """Every FFT backend on the card against the same backend on the CPU
-    (conv is a strided view and a matmul, not cuDNN, so no TF32)."""
+    (conv is a strided view and a product, not cuDNN, so no TF32).  The
+    card's matmul and conv run B7 in three bf16 passes (JAX's
+    ``Precision.HIGH`` on such a device) where the CPU runs f32, so they
+    are held against B7's plain version on the same chunks instead, with
+    one B7 launch per chunk."""
     dev = rt.ResamplerFft(2, 22050, 48000, backend=backend, device=cuda)
     cpu = rt.ResamplerFft(2, 22050, 48000, backend=backend, device="cpu")
     rng = np.random.default_rng(7)
     od = np.zeros(dev.chunk_size_output(), np.float32)
     oc = np.zeros_like(od)
+    xs, outs = [], []
+    before = kern.LAUNCHES["matmul3"]
     for _ in range(4):
         x = rng.standard_normal(dev.chunk_size_input()).astype(np.float32)
         dev.resample(x, od)
-        cpu.resample(x, oc)
-        assert np.abs(od - oc).max() <= DEVICE_ATOL
+        if backend in ("matmul", "conv"):
+            xs.append(torch.from_numpy(x.reshape(-1, 2).T.copy()))
+            outs.append(od.reshape(-1, 2).T.copy())
+        else:
+            cpu.resample(x, oc)
+            assert np.abs(od - oc).max() <= DEVICE_ATOL
+    if backend in ("matmul", "conv"):
+        ref = b7_fft_plain(backend, torch.stack(xs), dev.fft_size_input, dev.fft_size_output)
+        assert np.abs(np.stack(outs) - ref.numpy()).max() <= KERNEL_ATOL
+    assert kern.LAUNCHES["matmul3"] - before == (4 if backend in ("matmul", "conv") else 0)
 
 
 @pytest.mark.cuda
@@ -447,3 +491,134 @@ def test_vmapped_streaming_fleet_on_card_matches_cpu(cuda):
         for yd, yc in zip(dev.step(), cpu.step()):
             assert yd.shape == yc.shape and np.isfinite(yd).all()
             assert np.abs(yd - yc).max(initial=0.0) <= DEVICE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["projector", "tm-window", "ragged"])
+def test_matmul3_matches_plain_on_card(cuda, case):
+    """B7 against its plain version: the FFT projector (three passes), the
+    tm fleet's overlapping ring window with a time-major output view (four
+    passes) and a ragged strided shape with NaN and Inf rows."""
+    rng = np.random.default_rng(9)
+    if case == "projector":
+        T = tfft.get_projection_matrix(1176, 1280)
+        x = torch.from_numpy(rng.standard_normal((2, 333, 1176), dtype=np.float32)).to(cuda)
+        passes, out = 3, None
+    elif case == "tm-window":
+        L, span, K, R = 147, 276, 28, 256
+        ring = torch.from_numpy(rng.standard_normal((K * L + span + 5, R), dtype=np.float32)).to(cuda)
+        x = ring[3:].as_strided((K, R, span), (L * R, 1, R))
+        T = 0.1 * rng.standard_normal((span, 160)).astype(np.float32)
+        passes = 4
+        out = torch.empty((K, 160, R), device=cuda).permute(0, 2, 1)
+    else:
+        big = torch.from_numpy(rng.standard_normal((3, 77, 301), dtype=np.float32)).to(cuda)
+        x = big[:, 5:, 7:300]  # [3, 72, 293], rows and columns off any tile size
+        x[1, 9, 4] = float("nan")
+        x[2, 70, 0] = float("inf")
+        T = rng.standard_normal((293, 97)).astype(np.float32) / 17
+        passes, out = 3, None
+    t_hi, t_lo = (h.to(cuda) for h in m3.split_weight(torch.from_numpy(T)))
+    before = kern.LAUNCHES["matmul3"]
+    got = m3.matmul3(x, t_hi, t_lo, passes=passes, out=out)
+    ref = m3.matmul3_reference(x, t_hi, t_lo, passes=passes)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["matmul3"] == before + 1
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    fin = torch.isfinite(ref)
+    assert (got[fin] - ref[fin]).abs().max().item() <= KERNEL_ATOL
+    if case == "ragged":
+        assert not fin[1, 9].any() and not fin[2, 70].any() and fin.sum() == fin.numel() - 2 * 97
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_hz,out_hz,R", [(44100, 44101, 256), (4_000_000_000, 4_000_000_001, 128),
+                                            (48000, 44101, 6)])
+def test_async_bf16x4_kernel_matches_plain_on_card(cuda, in_hz, out_hz, R):
+    """B6b against its plain version at every ``n_out`` bound."""
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=1, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    out_cap = min(cfg.out_capacity, 512 * M // L + 64)
+    plan = b6.async_combine_plan(
+        A=tfir.farrow_matrix(coeffs)[0], L=L, M=M, out_cap=out_cap, skew_periods=1,
+        clamp_j=cfg.input_capacity + 2 if cfg.wide else None, precision="bf16x4",
+    )
+    rng = np.random.default_rng(10)
+    buf = torch.from_numpy(rng.standard_normal((plan.reach + 9, R), dtype=np.float32)).to(cuda)
+    lanes = torch.from_numpy(np.stack([rng.integers(0, M, R), rng.integers(0, 2, R)])).to(cuda)
+    before = dict(kern.LAUNCHES)
+    for base0, n_out in ((0, out_cap), (9, out_cap // 2), (3, 1), (5, 0)):
+        got = b6.async_combine(buf, base0, n_out, lanes, plan)
+        ref = b6.async_combine_reference(buf, base0, n_out, lanes, plan)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= KERNEL_ATOL
+        assert torch.all(got[n_out:] == 0)
+    assert kern.LAUNCHES == dict(before, async_combine_bf16x4=before["async_combine_bf16x4"] + 4)
+
+
+@pytest.mark.cuda
+def test_bf16x4_tm_fleet_on_card(cuda):
+    """The bf16x4 tm fleet on the card: one B7 launch per emitting step and
+    no B1, ints and ring equal to the CPU's bf16x4 fleet (B7's plain
+    version) and the outputs within the kernel tolerance of it, and within
+    ``BF16X4_VS_F32_ATOL`` of the card's f32 fleet on the same feed."""
+    L, M = rt.types.reduce_ratio(44100, 48000)
+    cfg = tfir.FirConfig(channels=2, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, 44100 / 48000)
+    )
+    kw = dict(max_chunk=512, horizon=2, out_layout="tm")
+    B = 8
+    fleets = {
+        name: (
+            fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, precision=p, device=d, **kw),
+            fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=512, horizon=2, device=d),
+        )
+        for name, p, d in (("bf16x4", "bf16x4", cuda), ("cpu", "bf16x4", "cpu"), ("f32", "highest", cuda))
+    }
+    rng = np.random.default_rng(11)
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    err_cpu = err_f32 = 0.0
+    emitting = 0
+    for i in range(24):
+        nv = 512 if i % 3 else int(rng.integers(0, 513))
+        chunk = rng.standard_normal((512, B * 2), dtype=np.float32)
+        chunk[nv:] = np.nan
+        outs = {}
+        for name, (step, state) in fleets.items():
+            dev = torch.device("cpu") if name == "cpu" else cuda
+            state, out, c, p = step(state, torch.from_numpy(chunk).to(dev), nv)
+            fleets[name] = (step, state)
+            outs[name] = (out.cpu(), c, p)
+        assert outs["bf16x4"][1:] == outs["cpu"][1:] == outs["f32"][1:]
+        emitting += outs["bf16x4"][2] > 0
+        err_cpu = max(err_cpu, (outs["bf16x4"][0] - outs["cpu"][0]).abs().max().item())
+        err_f32 = max(err_f32, (outs["bf16x4"][0] - outs["f32"][0]).abs().max().item())
+        sd, sc = fleets["bf16x4"][1], fleets["cpu"][1]
+        assert torch.equal(sd["buffer"].cpu(), sc["buffer"])
+        assert all(sd[k] == sc[k] for k in sc if k != "buffer")
+    assert err_cpu <= KERNEL_ATOL and 0 < err_f32 <= BF16X4_VS_F32_ATOL
+    assert kern.LAUNCHES == dict(kern.LAUNCHES, matmul3=emitting, dma_banded_contract=emitting)
+
+
+@pytest.mark.cuda
+def test_fft_matmul_fleet_on_card_through_b7(cuda):
+    """``BatchedResamplerFft(backend="matmul")`` on the card: one B7 launch
+    per ``resample`` and per chunk of ``resample_many``, outputs within the
+    kernel tolerance of B7's plain version on the same chunks."""
+    B, C = 3, 2
+    dev = rt.BatchedResamplerFft(B, C, 44100, 48000, backend="matmul", device=cuda)
+    n_in, n_out = dev.config.fft_size_input, dev.config.fft_size_output
+    rng = np.random.default_rng(12)
+    xs = rng.standard_normal((7, B, C, n_in), dtype=np.float32)
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    got = [dev.resample(xs[t]).cpu() for t in range(3)]
+    got = torch.cat([torch.stack(got), dev.resample_many(torch.from_numpy(xs[3:]).to(cuda)).cpu()])
+    assert kern.LAUNCHES == dict({k: 0 for k in kern.LAUNCHES}, matmul3=7)
+    ref = b7_fft_plain("matmul", torch.from_numpy(xs).reshape(7, B * C, n_in), n_in, n_out)
+    assert (got.reshape(7, B * C, n_out) - ref).abs().max().item() <= KERNEL_ATOL

@@ -218,12 +218,6 @@ def test_unported_variants_raise():
     for kwargs, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             trt.BatchedResamplerFir(*args, device="cpu", **kwargs)
-    cfg = tfir.FirConfig(channels=2, taps=64, ratio_num=147, ratio_den=160)
-    coeffs = np.zeros((tfir.PHASES, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="B7"):
-        tfleets.make_fir_fleet_step_sync_tm(
-            cfg, coeffs, 2, max_chunk=512, precision="bf16x4", device="cpu"
-        )
     with pytest.raises(ValueError):
         trt.BatchedResamplerFir(*args, synchronized=True, path="periodc", device="cpu")
     with pytest.raises(ValueError):  # the fleet has no gather path
