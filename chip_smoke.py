@@ -106,10 +106,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the pool's drain timed beside the step;
 23. kernel B7 (csrc/matmul3.cu) against its plain version: the FFT
    projector [16384, 1176] @ [1176, 2560] in three passes, the main path's
-   tm window (K 28, R 2048, Mg 160, span 276; the overlapping ring view,
-   a time-major output view) in four, a ragged strided shape with NaN and
-   Inf rows; the floor against f64; times against the bound and one f32
-   ``torch.matmul`` of the same product;
+   tm window (K 28, R 2048, Mg 160, span 276; the overlapping ring view
+   over the fleet's padded split atlas at columns 0, 77 and M-1, a
+   time-major output view) in four, the conv backend's windows, a ragged
+   strided shape with NaN and Inf rows; the floor against f64; times
+   against the bound and one f32 ``torch.matmul`` of the same product; the
+   split pass (bit for bit its plain version) and the GEMM timed apart,
+   the GEMM in both accumulation forms; ptxas's
+   registers and spills, and wgmma (HGMMA) and TMA (UTMALDG) in the SASS;
 24. kernel B6b (the bf16x4 form of csrc/fir_async_combine.cu) against its
    plain version at B6's cases (a)-(g), timed against its bound;
 25. the bf16x4 tm fleet at full width (``make_fir_fleet_step_sync_tm(...,
@@ -138,7 +142,10 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import time
 
@@ -1739,6 +1746,38 @@ def phase_vmapped_streaming(device, smi, B=64, C=8, chunk=2048, n_steps=6):
 # --------------------------------------------------------------------------
 
 
+def b7_build_report() -> None:
+    """B7's kernels as built: ptxas's registers, shared memory and spills,
+    and the Hopper instructions in the library's SASS (``HGMMA``, the wgmma;
+    ``UTMALDG``, the TMA load), or, where no disassembler exists, in the
+    source that the build compiled."""
+    log = _build.build_log()
+    section = log[log.find("== matmul3.cu"):].split("\n== ")[0]
+    for line in section.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line or "wgmma" in line:
+            print(f"[23] ptxas: {line.strip()}")
+    libs = _build.build()
+    print(f"[23] B7's GEMM: {libs['matmul3_gemm_smem'].matmul3_gemm_smem()} bytes of dynamic shared memory per "
+          f"block; ptxas's count is the 384-thread launch bound's, setmaxnreg then gives the consumer "
+          f"warpgroups 232 registers and the producer 40")
+    lib = libs["matmul3_gemm"]._name
+    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        tools.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin", "cuobjdump"))
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is not None:
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True, timeout=300).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        where = f"the SASS of {os.path.basename(lib)} ({tool})"
+    else:
+        src = open(SOURCES["matmul3"][0]).read()
+        counts = {op: src.count(op) for op in ("wgmma.mma_async", "cp.async.bulk.tensor")}
+        where = f"the source {SOURCES['matmul3'][0]} (no cuobjdump found)"
+    check(all(counts.values()), f"B7's wgmma and TMA instructions in {where}: {counts}")
+    print(f"[23] B7 in {where}: {counts}")
+
+
 def phase_matmul3_kernel(device):
     """B7 against its plain version at its paths' shapes, NaN and Inf rows
     confined to their rows, the floor against f64; times (plain, kernel,
@@ -1748,6 +1787,7 @@ def phase_matmul3_kernel(device):
     entry, worst = None, 0.0
     gen = torch.Generator(device=device)
     gen.manual_seed(41)
+    b7_build_report()
 
     # (a) the FFT projector at 8192 stereo streams, three passes; the calls
     # rotate over 8 inputs (616 MB) so that each finds its rows outside L2
@@ -1768,6 +1808,23 @@ def phase_matmul3_kernel(device):
 
     fl_kernel, fl_plain = floor(got), floor(ref)
     check(fl_kernel >= 99.0, f"B7 floor at the projector {fl_kernel:.2f} dB >= 99")
+    # the two launches apart on one call: the split pass against its plain
+    # version, then the GEMM in both accumulation forms and both column tiles
+    call = m3._prepare(pool[0], t_hi, t_lo, 3, None)
+    m3._split(call)
+    want = m3.split_pass_reference(call.x3, call.plan.Kp)
+    check(torch.equal(call.x_hi, want[0]) and torch.equal(call.x_lo, want[1]),
+          "B7 split pass == split_pass_reference bit for bit")
+    del want
+    forms = {}
+    for promote in (0, 1):
+        m3._gemm(call, 3, promote)
+        torch.cuda.synchronize()
+        forms[promote] = (float((call.out - ref).abs().max()),
+                          elapsed_ms(lambda i: m3._gemm(call, 3, promote), 20))
+    check(forms[m3._PROMOTE][0] <= KERNEL_ATOL, f"B7's kept form at the projector: {forms[m3._PROMOTE][0]:.3e}")
+    split_ms = elapsed_ms(lambda i: m3._split(call), 20)
+    del call
     ms, plain_ms, t = timed_pair(
         lambda i: m3.matmul3(pool[i % 8], t_hi, t_lo, passes=3),
         lambda i: m3.matmul3_reference(pool[i % 8], t_hi, t_lo, passes=3),
@@ -1788,6 +1845,9 @@ def phase_matmul3_kernel(device):
           f"{flop / ms / 1e9:.1f} TFLOP/s ({100 * b_ms / ms:.1f}% of the bound {b_ms:.4f} ms, {b_by}: "
           f"{flop / 1e9:.1f} GFLOP at {BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16, {nbytes / 1e6:.1f} MB); library "
           f"f32 torch.matmul(x, T), TF32 off: {lib_ms:.4f} ms, max |library - plain| {lib_err:.3e}")
+    print(f"    split pass {split_ms:.4f} ms (== its plain version bit for bit); GEMM: chained accumulator "
+          f"{forms[0][1]:.4f} ms, max |kernel - plain| {forms[0][0]:.3e}; per-K-tile promotion {forms[1][1]:.4f} "
+          f"ms, {forms[1][0]:.3e}; kept: {('chained', 'promoted')[m3._PROMOTE]}")
     entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     del pool, t32
 
@@ -1799,15 +1859,15 @@ def phase_matmul3_kernel(device):
     ring = fir_fleets._ring_rows(cfg, 4096, 16)
     buf = torch.randn((ring, R), generator=gen, device=device)
     a2 = fir_fleets._sync_atlas(cfg, coeffs_for(44100, 48000, taps))
-    a_hi, a_lo = (h.to(device) for h in m3.split_weight(torch.from_numpy(np.ascontiguousarray(a2.T))))
+    a_hi, a_lo = fir_fleets._split_atlas_t(a2, device)  # the fleet's padded, transposed split atlas
     windows = [((i0 * L) // M, i0) for i0 in (0, 77, M - 1)]
     top = ring - ((K - 1) * L + span)
     out = torch.empty((K, M, R), device=device)
 
     def tm_call(fn, base, c0, i0):
         x = buf[base:].as_strided((K, R, span), (L * R, 1, R))
-        return fn(x, a_hi[c0 : c0 + span, i0 : i0 + M], a_lo[c0 : c0 + span, i0 : i0 + M], passes=4,
-                  out=out.permute(0, 2, 1))
+        return fn(x, fir_fleets._atlas_window(a_hi, c0, i0, span, M), fir_fleets._atlas_window(a_lo, c0, i0, span, M),
+                  passes=4, out=out.permute(0, 2, 1))
 
     err = 0.0
     for c0, i0 in windows:
@@ -1822,6 +1882,14 @@ def phase_matmul3_kernel(device):
     c0, i0 = windows[1]
     ms_w, plain_w, t = timed_pair(lambda i: tm_call(m3.matmul3, rot[i % 8], c0, i0),
                                   lambda i: tm_call(m3.matmul3_reference, rot[i % 8], c0, i0))
+    calls = [m3._prepare(buf[base:].as_strided((K, R, span), (L * R, 1, R)),
+                         fir_fleets._atlas_window(a_hi, c0, i0, span, M), fir_fleets._atlas_window(a_lo, c0, i0, span, M),
+                         4, out.permute(0, 2, 1)) for base in rot]
+    for c in calls:
+        m3._split(c)
+    split_w = elapsed_ms(lambda i: m3._split(calls[i % 8]), 20)
+    gemm_w = elapsed_ms(lambda i: m3._gemm(calls[i % 8], 4), 20)
+    del calls
     a32 = torch.from_numpy(np.ascontiguousarray(a2[i0 : i0 + M, c0 : c0 + span])).to(device)
     lib_w = elapsed_ms(lambda i: torch.matmul(
         a32, buf[rot[i % 8]:].as_strided((K, span, R), (L * R, R, 1))), 20)
@@ -1834,10 +1902,31 @@ def phase_matmul3_kernel(device):
           f"{flop / ms_w / 1e9:.1f} TFLOP/s; bound {bw_ms:.4f} ms ({bw_by}: {flop / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB; {100 * bw_ms / ms_w:.1f}% of it reached); library f32 "
           f"torch.matmul(atlas window, window view): {lib_w:.4f} ms")
+    print(f"    split pass {split_w:.4f} ms ({2 * 2 * K * R * (-(-span // 8) * 8) / 1e6:.1f} MB of bf16 written), "
+          f"GEMM {gemm_w:.4f} ms")
     entry["tm_window"] = dict(ms=ms_w, plain_ms=plain_w, bound_ms=bw_ms, bound_by=bw_by, library_ms=lib_w)
     del buf, out
 
-    # (c) ragged strided, NaN and Inf rows
+    # (c) the FFT conv backend's windows at 1024 stereo streams: [g, R,
+    # (g+1) L'] at a 147-float offset, the output [R, g, M'] as [g, R, M']
+    g, lp, mp, R = 8, 147, 160, 2048
+    x2 = torch.randn((R, 2 * 1176), generator=gen, device=device)
+    w = torch.from_numpy(np.ascontiguousarray(fft_engine.input_domain_conv_operator(1176, 1280).reshape(-1, mp)))
+    w_hi, w_lo = (h.to(device) for h in m3.split_weight(w))
+    x = x2.as_strided((g, R, (g + 1) * lp), (lp, 2 * 1176, 1))
+    out = torch.empty((R, g, mp), device=device)
+    got = m3.matmul3(x, w_hi, w_lo, passes=3, out=out.permute(1, 0, 2)).clone()
+    ref = m3.matmul3_reference(x, w_hi, w_lo, passes=3)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(err <= KERNEL_ATOL, f"B7 vs plain at the conv windows: {err:.3e} > {KERNEL_ATOL}")
+    worst = max(worst, err)
+    ms_c = elapsed_ms(lambda i: m3.matmul3(x, w_hi, w_lo, passes=3, out=out.permute(1, 0, 2)), 20)
+    print(f"[23] B7 conv windows [{g}, {R}, {(g + 1) * lp}] @ [{(g + 1) * lp}, {mp}], 3 passes: max |kernel - "
+          f"plain| = {err:.3e}; kernel {ms_c:.4f} ms")
+    del x2, out, got, ref
+
+    # (d) ragged strided, NaN and Inf rows
     big = torch.randn((3, 77, 301), generator=gen, device=device)
     x = big[:, 5:, 7:300]
     x[1, 9, 4] = float("nan")

@@ -204,6 +204,34 @@ def _ring_rows(config: FirConfig, max_chunk: int, horizon: int) -> int:
     ) * 256
 
 
+def _split_atlas_t(a2_np: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16x4 tm fleet's weight: the atlas ``[rows, cols]`` split once
+    (``split_weight``) and stored transposed, ``[cols, rows]``, so that a
+    window's transpose ``[span, Mg]`` is a view with contiguous columns
+    (B7's weight layout).  B7's tensor maps need a 16-byte aligned base and
+    row stride, so each half is kept as 8 copies ``[8, cols, rows8]``
+    shifted by 0-7 columns (``t[r][:, j] = atlas_t[:, j + r]``, zero past
+    the end) with the row stride ``rows8`` padded to a multiple of 8: the
+    window at column ``i0`` starts on 16 bytes in copy ``i0 % 8``
+    (``_atlas_window``).  ~4 MB at 44.1 -> 48 kHz."""
+    rows, cols = a2_np.shape
+    rows8 = -(-rows // 8) * 8
+    out = []
+    for t in split_weight(torch.from_numpy(a2_np.T)):
+        shifted = torch.zeros((8, cols, rows8), dtype=t.dtype)
+        for r in range(8):
+            shifted[r, :, : rows - r] = t[:, r:]
+        out.append(shifted.to(device))
+    return tuple(out)
+
+
+def _atlas_window(t: torch.Tensor, c0: int, i0: int, span: int, Mg: int) -> torch.Tensor:
+    """The transposed atlas window ``[c0 : c0 + span, i0 : i0 + Mg]`` of a
+    ``_split_atlas_t`` half, from the copy in which it starts on 16 bytes."""
+    r = i0 % 8
+    return t[r, c0 : c0 + span, i0 - r : i0 - r + Mg]
+
+
 def make_fir_fleet_step_sync_tm(
     config: FirConfig,
     coeffs: np.ndarray,
@@ -279,9 +307,7 @@ def make_fir_fleet_step_sync_tm(
         a2_np = _sync_atlas(atlas_cfg, coeffs)
         l_inv = pow(L, -1, M) if M > 1 else 0
         if precision == "bf16x4":
-            # [cols, rows]: a window's transpose [span, Mg] is a view with
-            # contiguous columns, B7's weight layout
-            t_hi, t_lo = (t.to(device) for t in split_weight(torch.from_numpy(a2_np.T)))
+            t_hi, t_lo = _split_atlas_t(a2_np, device)
         else:
             a2 = torch.from_numpy(a2_np).to(device)
 
@@ -296,7 +322,7 @@ def make_fir_fleet_step_sync_tm(
                 # output [K, Mg, R] written as [K, R, Mg]: views, no copies
                 x = buffer[base:].as_strided((K, R, span), (Lg * R, 1, R))
                 out = buffer.new_empty((K, Mg, R))
-                matmul3(x, t_hi[c0 : c0 + span, i0 : i0 + Mg], t_lo[c0 : c0 + span, i0 : i0 + Mg],
+                matmul3(x, _atlas_window(t_hi, c0, i0, span, Mg), _atlas_window(t_lo, c0, i0, span, Mg),
                         passes=4, out=out.permute(0, 2, 1))
             else:
                 a = a2[i0 : i0 + Mg, c0 : c0 + span].contiguous()

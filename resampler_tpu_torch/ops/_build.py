@@ -67,9 +67,13 @@ _SIGNATURES = {
     # buffer, a_hi_t, a_lo_t, j, s, lanes, out, R, base0, n_out, out_cap, taps,
     # M, skew, degrees corrected, stream
     "fir_async_combine_bf16x4": [_P] * 7 + [_I, _I64, _I, _I, _I, _I64, _I, _I, _P],
-    # x, t_hi, t_lo, out, batch, M, N, K, x strides (b, m, k), t row stride,
-    # out strides (b, m, n), passes, col_frags, stream
-    "matmul3": [_P] * 4 + [_I] * 4 + [_I64] * 7 + [_I, _I, _P],
+    # x, x_hi, x_lo, batch, M, K, Kp, x strides (b, m, k), stream
+    "matmul3_split": [_P] * 3 + [_I] * 4 + [_I64] * 3 + [_P],
+    # x_hi, x_lo, t_hi, t_lo, out, batch, M, N, K, Kp, t row stride, out
+    # strides (b, m, n), passes, promote, stream
+    "matmul3_gemm": [_P] * 5 + [_I] * 5 + [_I64] * 4 + [_I] * 2 + [_P],
+    # (none): the GEMM's dynamic shared memory per block
+    "matmul3_gemm_smem": [],
     # old, chunks, sched, sched stride, w_t, next, out, B, C, alloc, valid_end,
     # chunk strides (b, f, c), out_cap, taps, L, M, stream
     "fir_fleet_step": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_I64] * 3 + [_I] * 4 + [_P],

@@ -494,23 +494,45 @@ def test_vmapped_streaming_fleet_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["projector", "tm-window", "ragged"])
+@pytest.mark.parametrize("case", ["projector", "tm-window", "tm-atlas-77", "tm-atlas-159", "conv", "ragged"])
 def test_matmul3_matches_plain_on_card(cuda, case):
     """B7 against its plain version: the FFT projector (three passes), the
     tm fleet's overlapping ring window with a time-major output view (four
-    passes) and a ragged strided shape with NaN and Inf rows."""
+    passes; a contiguous weight, and windows of the fleet's padded split
+    atlas at columns 77 and M-1, whose bases are not 16-byte aligned), the
+    conv backend's windows at a 147-float offset with the ``[R, g, M']``
+    output as ``[g, R, M']``, and a ragged strided shape with NaN and Inf
+    rows (a weight of 194-byte rows, which the wrapper copies)."""
     rng = np.random.default_rng(9)
+    t_hi = t_lo = None
     if case == "projector":
         T = tfft.get_projection_matrix(1176, 1280)
         x = torch.from_numpy(rng.standard_normal((2, 333, 1176), dtype=np.float32)).to(cuda)
         passes, out = 3, None
-    elif case == "tm-window":
-        L, span, K, R = 147, 276, 28, 256
+    elif case.startswith("tm-"):
+        L, M, taps, R = 147, 160, 128, 256
+        span, K = L + taps + 1, 28
         ring = torch.from_numpy(rng.standard_normal((K * L + span + 5, R), dtype=np.float32)).to(cuda)
         x = ring[3:].as_strided((K, R, span), (L * R, 1, R))
-        T = 0.1 * rng.standard_normal((span, 160)).astype(np.float32)
         passes = 4
-        out = torch.empty((K, 160, R), device=cuda).permute(0, 2, 1)
+        out = torch.empty((K, M, R), device=cuda).permute(0, 2, 1)
+        if case == "tm-window":
+            T = 0.1 * rng.standard_normal((span, M)).astype(np.float32)
+        else:
+            cfg = tfir.FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
+            coeffs = tfir.fir_coefficients(
+                taps, rt.Attenuation.Db90, tfir.fir_cutoff(taps, rt.Attenuation.Db90, L / M))
+            a_hi, a_lo = fir_fleets._split_atlas_t(_sync_atlas(cfg, coeffs), cuda)
+            i0 = int(case.rsplit("-", 1)[1])
+            c0 = (i0 * L) // M
+            t_hi, t_lo = (fir_fleets._atlas_window(a, c0, i0, span, M) for a in (a_hi, a_lo))
+    elif case == "conv":
+        g, lp, mp, R = 8, 147, 160, 300
+        x2 = torch.from_numpy(rng.standard_normal((R, 2 * 1176), dtype=np.float32)).to(cuda)
+        x = x2.as_strided((g, R, (g + 1) * lp), (lp, 2 * 1176, 1))
+        T = np.ascontiguousarray(tfft.input_domain_conv_operator(1176, 1280).reshape((g + 1) * lp, mp))
+        passes = 3
+        out = torch.empty((R, g, mp), device=cuda).permute(1, 0, 2)
     else:
         big = torch.from_numpy(rng.standard_normal((3, 77, 301), dtype=np.float32)).to(cuda)
         x = big[:, 5:, 7:300]  # [3, 72, 293], rows and columns off any tile size
@@ -518,17 +540,21 @@ def test_matmul3_matches_plain_on_card(cuda, case):
         x[2, 70, 0] = float("inf")
         T = rng.standard_normal((293, 97)).astype(np.float32) / 17
         passes, out = 3, None
-    t_hi, t_lo = (h.to(cuda) for h in m3.split_weight(torch.from_numpy(T)))
+    if t_hi is None:
+        t_hi, t_lo = (h.to(cuda) for h in m3.split_weight(torch.from_numpy(T)))
     before = kern.LAUNCHES["matmul3"]
     got = m3.matmul3(x, t_hi, t_lo, passes=passes, out=out)
     ref = m3.matmul3_reference(x, t_hi, t_lo, passes=passes)
     torch.cuda.synchronize()
     assert kern.LAUNCHES["matmul3"] == before + 1
+    assert out is None or got is out
     assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
     fin = torch.isfinite(ref)
     assert (got[fin] - ref[fin]).abs().max().item() <= KERNEL_ATOL
     if case == "ragged":
         assert not fin[1, 9].any() and not fin[2, 70].any() and fin.sum() == fin.numel() - 2 * 97
+    else:
+        assert bool(fin.all())
 
 
 @pytest.mark.cuda
