@@ -81,9 +81,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    128, 1024 stereo streams, chunk 4096; (b) the same with ragged
    per-stream valid counts (0, 1, full), NaN junk past them and diverged
    positions; (c) 48 -> 44.1 kHz; (d) 48000 -> 96000 (M 2) at 128 x 2;
-   (e) a ragged R of 6; timed with CUDA events against their bounds, and
-   one ``torch.matmul`` over the overlapping window view for the
-   contraction alone as the library yardstick;
+   (e) a ragged R of 6; (f) 47952 -> 48000 (L/M 999/1000) at 1024 x 2;
+   each case in the band form (its tile and ptxas's registers, shared
+   memory and spills printed), timed with CUDA events against their
+   bounds, and one ``torch.matmul`` over the overlapping window view for
+   the contraction alone as the library yardstick; at (a) also the
+   per-output form, checked and timed in turns with the band form;
 17. the vmapped fleet at full width, ``BatchedResamplerFir(1024, 2, 44100,
    48000, Latency.Sample64, Attenuation.Db90)``, chunk 4096, 40
    ``resample`` calls (every fifth with ragged per-stream valid counts)
@@ -1333,6 +1336,10 @@ def phase_async_streaming(device, smi, B=1024, C=2, chunk=1024, n_steps=6):
 # --------------------------------------------------------------------------
 
 
+#: the CUDA kernels of B9 and B8: the band form's two, the per-output form's one
+STEP_KERNELS = ("band_step_kernel", "copy_in_kernel", "fleet_step_kernel")
+
+
 def step_bound(cfg, n_out, B):
     """B8/B9's least time for one step: each emitted output's taps-wide dot
     (2 x taps operations per channel) at the f32 peak, against the bytes
@@ -1371,17 +1378,42 @@ def step_case(device, in_hz, out_hz, taps, B, C, n, ragged, seed):
     return cfg, plan, t, avail, pos, nv, np.full(B, cfg.out_capacity)
 
 
+def band_build_report() -> dict:
+    """ptxas's registers, shared memory and spills of each instantiation
+    of the band form's contraction (``band_step_kernel<R>``), by ``R``."""
+    log = _build.build_log()
+    section = log[log.find("== fir_fleet_step.cu"):].split("\n== ")[0]
+    report, R = {}, None
+    for line in section.splitlines():
+        if "Compiling entry" in line or "Function properties" in line:
+            R = None
+            if "band_step_kernel" in line:
+                R = int(line.split("band_step_kernelILi")[1].split("E")[0])
+        elif R is not None and ("registers" in line or "spill" in line):
+            report[R] = f"{report[R]}; {line.strip()}" if R in report else line.strip()
+    return report
+
+
 def phase_step_kernels(device, cases):
-    """B9 and B8 against their plain version at each case; times (plain,
-    kernel, kernel, plain) against the bound.  The main case (the first)
-    gives the kernels' line, with one ``torch.matmul`` of its shared atlas
-    window over the ``as_strided`` window view of the new buffer (the
-    contraction alone) as the library yardstick."""
+    """B9 and B8 against their plain version at each case, in the form
+    each case's plan takes (every case here: the band form); times
+    (plain, kernel, kernel, plain) against the bound.  The main case (the
+    first) also checks and times the per-output form (old, band, band,
+    old) and gives the kernels' line, with one ``torch.matmul`` of its
+    shared atlas window over the ``as_strided`` window view of the new
+    buffer (the contraction alone) as the library yardstick."""
     entries = {}
+    ptxas = band_build_report()
     for n_case, (name, in_hz, out_hz, taps, B, C, n, ragged) in enumerate(cases):
         cfg, plan, t, avail, pos, nv, budget = step_case(device, in_hz, out_hz, taps, B, C, n,
                                                          ragged, 30 + n_case)
         buf, chunks, shared = t["buf"], t["chunks"], t["shared"]
+        tile = plan.tile
+        check(plan.form == "band", f"B9/B8 {name}: the band form ({plan.form})")
+        print(f"[16] B9/B8 {name}: form {plan.form}, R {tile.R}, {tile.warps} warps x 32 rows, band "
+              f"{tile.band_w} x {tile.Rp}, window {tile.win} (pitch {tile.pitch}), "
+              f"{tile.smem_bytes} B shared, q tiles {tile.q_tiles(False)} / {tile.q_tiles(True)}; "
+              f"ptxas band_step_kernel<{tile.R}>: {ptxas.get(tile.R, 'not in the build log (cached build)')}")
         spare = torch.zeros_like(buf)
         got = b9.fir_fleet_step(plan, buf, chunks, avail, pos, nv, budget, out_buffers=spare)
         ref = b9.fir_fleet_step_reference(plan, buf, chunks, avail, pos, nv, budget)
@@ -1417,6 +1449,7 @@ def phase_step_kernels(device, cases):
         times = {}
         for kname, feed, sc in (("fir_fleet_step", chunks, s9), ("fir_fleet_step_sync", shared, s8)):
             rows_k = dev_rows[kname]
+            kn = "B9" if kname == "fir_fleet_step" else "B8"
             ms, plain_ms, tt = timed_pair(
                 lambda i: b9.launch_step(plan, buf, feed, rows_k, spare, kname),
                 lambda i: b9.step_reference(plan, buf, feed, sc, None),
@@ -1424,10 +1457,28 @@ def phase_step_kernels(device, cases):
             )
             b_ms, b_by, flop, nbytes = step_bound(cfg, sc["n_out"], B)
             times[kname] = (ms, plain_ms, b_ms, b_by)
-            print(f"    {'B9' if kname == 'fir_fleet_step' else 'B8'}: kernel {tt[1]:.4f} / "
+            print(f"    {kn}: kernel {tt[1]:.4f} / "
                   f"{tt[2]:.4f} ms, plain {tt[0]:.4f} / {tt[3]:.4f} ms per call; bound {b_ms:.4f} ms "
                   f"({b_by}: {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% "
                   "of it reached)")
+            if n_case == 0:
+                # the per-output form on the same step: right, then timed in
+                # turns with the band form (old, band, band, old)
+                old = b9.launch_step(plan, buf, feed, rows_k, torch.zeros_like(buf), kname,
+                                     _form="thread")
+                ref_k = b9.step_reference(plan, buf, feed, sc, None)
+                torch.cuda.synchronize()
+                err_old = float((old[1] - ref_k[1]).abs().max())
+                check(torch.equal(old[0], ref_k[0]) and err_old <= KERNEL_ATOL,
+                      f"{kn} per-output form {name}: {err_old:.3e}")
+                del old, ref_k
+                band_ms, old_ms, to = timed_pair(
+                    lambda i: b9.launch_step(plan, buf, feed, rows_k, spare, kname),
+                    lambda i: b9.launch_step(plan, buf, feed, rows_k, spare, kname, _form="thread"),
+                )
+                print(f"    {kn} forms in turns: per-output {to[0]:.4f} / {to[3]:.4f} ms, band "
+                      f"{to[1]:.4f} / {to[2]:.4f} ms per call ({old_ms / band_ms:.2f}x); per-output "
+                      f"form vs plain {err_old:.3e}")
         if not entries:
             L, M, span, K = cfg.ratio_num, cfg.ratio_den, plan.span, plan.K
             new, R = ref[0], B * C
@@ -1553,7 +1604,8 @@ def phase_vmapped_fleet(device, smi, B=1024, C=2, n=4096, n_steps=40, T=8, nbuf=
           f"Msamples/s [output frames x streams per second, phase 4's count; card: {smi}]")
     print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     per_kernel = profile_steps(fleet, chunks)
-    b9_us = sum(us for key, us in per_kernel.items() if "fleet_step" in key)
+    b9_us = sum(us for key, us in per_kernel.items() if any(k in key for k in STEP_KERNELS))
+    check(b9_us > 0, "the profile saw B9's kernels")
     b_ms, b_by, _, _ = step_bound(cfg, steps[n_steps - 2][1], B)
     print(f"    B9 in the profile: {b9_us / 1e3:.4f} ms/step against its bound {b_ms:.4f} ms ({b_by}) "
           f"at a full-feed step ({100 * b_ms * 1e3 / b9_us if b9_us else 0:.1f}% of it reached)")
@@ -1645,7 +1697,8 @@ def phase_slide_fleet(device, smi, B=1024, C=2, n=4096, n_steps=40, T=8, nbuf=8,
           f"({dt * 1e3 / timed:.3f} ms/step) [output frames x streams per second; card: {smi}]")
     print(f"    peak device memory (with the tm fleet) {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     per_kernel = profile_steps(slide, chunks)
-    b8_us = sum(us for key, us in per_kernel.items() if "fleet_step" in key)
+    b8_us = sum(us for key, us in per_kernel.items() if any(k in key for k in STEP_KERNELS))
+    check(b8_us > 0, "the profile saw B8's kernels")
     b_ms, b_by, _, _ = step_bound(slide.config, steps[n_steps - 1], B)
     print(f"    B8 in the profile: {b8_us / 1e3:.4f} ms/step against its bound {b_ms:.4f} ms ({b_by}) "
           f"({100 * b_ms * 1e3 / b8_us if b8_us else 0:.1f}% of it reached)")
@@ -2283,6 +2336,7 @@ def main() -> None:
         ("(c) 48->44.1k taps 128, 1024x2", 48000, 44100, 128, 1024, 2, 4096, False),
         ("(d) 48000->96000 (M 2) taps 128, 128x2", 48000, 96000, 128, 128, 2, 4096, False),
         ("(e) ragged R 6 (3x2)", 44100, 48000, 128, 3, 2, 4096, True),
+        ("(f) 47952->48000 (L/M 999/1000) taps 128, 1024x2", 47952, 48000, 128, 1024, 2, 4096, False),
     ]))
     launches["fir_fleet_step"] = phase_vmapped_fleet(device, smi)
     phase_vmapped_farrow(device, smi)

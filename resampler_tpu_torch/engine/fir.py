@@ -841,11 +841,12 @@ def make_fir_step_batched(
 
     The schedule is whole-fleet numpy on the host, so a step never waits
     on the device.  On the periodic path the step is kernel B9
-    (``ops/fir_kernel.py``: copy-in and contraction in one launch on the
-    card, its plain version on the CPU); it writes the next buffer into
-    a second ``[B, C, alloc]`` tensor and recycles the previous state's
-    buffer as the one after (the JAX wrapper donates its state for the
-    same reason), so a state's buffer is overwritten two steps later.
+    (``ops/fir_kernel.py``: the copy-in and the banded contraction, one
+    step on the card, its plain version on the CPU); it writes the next
+    buffer into a second ``[B, C, alloc]`` tensor and recycles the
+    previous state's buffer as the one after (the JAX wrapper donates its
+    state for the same reason), so a state's buffer is overwritten two
+    steps later.
     Farrow, lerp and the wide schedule run the copy-in (``slide_in``) and
     a batched ``_convolve_basis`` in torch ops, as the JAX package leaves
     them to XLA."""

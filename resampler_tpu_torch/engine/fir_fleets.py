@@ -95,8 +95,8 @@ def make_fir_fleet_step_sync(
     ints.  Periodic ratios only (``ValueError`` otherwise, as in JAX).
 
     The step is kernel B8 (``ops/fir_sync_kernel.py``: the masked copy-in
-    and the contraction in one launch on the card, its plain version on
-    the CPU).  It writes the next buffer into a second tensor and
+    and the banded contraction, one step on the card, its plain version
+    on the CPU).  It writes the next buffer into a second tensor and
     recycles the previous state's buffer as the one after, as
     ``make_fir_step_batched`` does."""
     if resolve_convolve_path(config) != "periodic":

@@ -77,6 +77,11 @@ _SIGNATURES = {
     # old, chunks, sched, sched stride, w_t, next, out, B, C, alloc, valid_end,
     # chunk strides (b, f, c), out_cap, taps, L, M, stream
     "fir_fleet_step": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_I64] * 3 + [_I] * 4 + [_P],
+    # old, chunks, sched, sched stride, bands, d_tab, next, out, B, C, alloc,
+    # valid_end, chunk strides (b, f, c), out_cap, L, M, l_inv, R, warps,
+    # groups, band_w, win, pitch, q tiles, stream
+    "fir_fleet_step_band": [_P, _P, _P, _I] + [_P] * 4 + [_I] * 4 + [_I64] * 3 + [_I] * 11
+    + [_P],
 }
 _libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()

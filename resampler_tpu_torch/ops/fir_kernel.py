@@ -19,17 +19,32 @@ the blended phase rows; then the exact consume.  It equals the JAX
 step's banded-atlas contraction ``A(r)[j, s] = W[..][s - d_j]``: the
 atlas adds only structural zeros.
 
-- ``FleetStepPlan`` holds the static tables (``W`` transposed for the
-  kernel, the doubled atlas for the plain version).
+- ``FleetStepPlan`` holds the static tables (``W`` and ``W`` transposed
+  for the kernel, the doubled atlas for the plain version) and the band
+  tile (``BandTile``).
 - The schedule (``to_copy``, ``n_out``, ``base``, ``r`` and the consume)
   is whole-fleet numpy on the host (``engine.fir.stream_schedule``), so
   a step never waits on the device.
 - ``fir_fleet_step`` launches the CUDA kernel
-  (``csrc/fir_fleet_step.cu``) for CUDA tensors, counted in ``LAUNCHES``;
-  ``fir_fleet_step_reference``, the plain PyTorch version (the JAX XLA
-  step's form: the slide, then each stream's atlas window against the
-  stride-``L`` windows of its region), runs for CPU tensors.  There is no
-  fallback between the two.
+  (``csrc/fir_fleet_step.cu``) for CUDA tensors, counted once per step in
+  ``LAUNCHES``; ``fir_fleet_step_reference``, the plain PyTorch version
+  (the JAX XLA step's form: the slide, then each stream's atlas window
+  against the stride-``L`` windows of its region), runs for CPU tensors.
+  There is no fallback between the two.
+
+The kernel has two forms, picked by a shape rule alone (``plan.form``):
+
+- ``"band"``: two launches, the copy-in, then the atlas cut into narrow
+  bands.  Output ``i`` of stream ``b`` is the atlas's canonical ``q = i0 +
+  i`` (``i0 = r L^-1 mod M``); a thread keeps ``R = min(8, M)``
+  consecutive ``q`` of one row ``(b, c)`` in registers against a band of
+  the phase rows ``taps + delta`` wide, the 32 lanes of a warp take 32
+  rows at one ``q`` (so they share the band), and a block of 8 warps
+  stages its bands and its rows' windows of the new buffer in shared
+  memory (``BandTile`` holds the index map);
+- ``"thread"``: one launch, one output per thread, each output's
+  taps-wide dot with its phase row read from global memory; only where
+  the band tile's shared memory would pass 227 KB (heavy downsampling).
 
 The kernel writes the next buffer into ``out_buffers``, a second
 ``[B, C, alloc]`` tensor: written in place, one block's slide would land
@@ -38,7 +53,7 @@ on columns another block still reads.  Both buffers' columns past
 What does not carry over from the TPU kernel: its six Mosaic workarounds
 (rolls at power-of-two widths, the 8-row aligned atlas load, the static
 im2col rolls), the ``+8`` rows and power-of-two width of its atlas, and
-the atlas itself: the kernel takes each output's taps-wide dot directly.
+the atlas's zero band, which the bands skip.
 """
 
 from __future__ import annotations
@@ -70,11 +85,101 @@ __all__ = [
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
+#: shared memory one block may hold on an H100 (227 KB)
+SMEM_MAX = 232448
+#: the band tile: outputs per thread (``min(8, M)``), warps per block,
+#: rows ``(b, c)`` per group (one per lane) and the row groups one block
+#: contracts in turn (its bands are staged once for both)
+TILE_R, TILE_WARPS, TILE_ROWS, TILE_GROUPS = 8, 8, 32, 2
+
+
+class BandTile:
+    """The band form's tile for one configuration: a thread computes ``R``
+    consecutive canonical outputs ``q0 .. q0 + R - 1`` of one row ``(b,
+    c)``, the 32 lanes of a warp take 32 rows at the same ``q0``, and the
+    ``warps`` warps of a block take consecutive runs of ``R``, so a block
+    covers ``q_tile = warps * R`` canonical outputs of a group of 32 rows,
+    for ``groups`` groups in turn.
+
+    With ``d(q) = floor(q L / M)`` (``d(q + M) = d(q) + L``), everything of
+    a tile but its rows' read starts depends on its first ``q`` mod ``M``
+    alone.  Tables, per start phase ``ph`` in ``[0, M)``:
+
+    - ``d_tab [M]``: ``d(ph)``, so ``d(q) = (q // M) * L + d_tab[q % M]``;
+    - ``band_ph``, ``band_off [M, R]``: output ``q0 + r``'s phase row
+      ``((ph + r) L) mod M`` and its band offset ``d(ph + r) - d(ph)``;
+      ``delta [M]`` is the last offset;
+    - ``bands [M, band_w, Rp]``: the band ``G[s, r] = W[band_ph[r], s -
+      band_off[r]]``, zero outside the phase row's taps and past ``R``;
+    - ``warp_start [M, warps]``: each warp's read start in the block's
+      window, ``d(ph + g R) - d(ph)``.
+
+    A band is ``band_w = taps + max(delta)`` wide, and ``out[q0 + r] =
+    sum_s G[s, r] * x[start + warp_start + s]``.  Each
+    row's window of the new buffer is ``win`` columns, staged at an odd
+    ``pitch`` (the 32 lanes' reads at one offset fall in 32 banks); bands
+    are padded to ``Rp`` (a multiple of 4) for 16-byte loads.
+    ``smem_bytes`` is the block's dynamic shared memory: a table of 24
+    bytes per row, the warps' bands and the rows' windows."""
+
+    def __init__(self, config: FirConfig, w: np.ndarray):
+        L, M, taps = config.ratio_num, config.ratio_den, config.taps
+        self.config = config
+        R, warps = min(TILE_R, M), TILE_WARPS
+        self.R, self.warps, self.groups = R, warps, TILE_GROUPS
+        self.Rp = -(-R // 4) * 4
+        self.q_tile = warps * R
+        ph = np.arange(M, dtype=np.int64)
+        self.d_tab = ph * L // M
+        q = ph[:, None] + np.arange(R)
+        self.band_ph = q * L % M
+        self.band_off = self.d(q) - self.d_tab[:, None]
+        self.delta = self.band_off[:, -1]
+        self.band_w = taps + int(self.delta.max())
+        t = np.arange(self.band_w)[None, :, None] - self.band_off[:, None, :]  # [M, band_w, R]
+        inside = (t >= 0) & (t < taps)
+        bands = np.zeros((M, self.band_w, self.Rp), np.float32)
+        bands[:, :, :R] = np.where(inside, w[self.band_ph[:, None, :], np.clip(t, 0, taps - 1)], 0.0)
+        self.bands = bands
+        self.warp_start = self.d(ph[:, None] + R * np.arange(warps)) - self.d_tab[:, None]
+        self.win = int(self.warp_start[:, -1].max()) + self.band_w
+        self.pitch = self.win | 1
+        self.smem_bytes = 24 * TILE_ROWS + 4 * (
+            warps * self.Rp * self.band_w + TILE_ROWS * self.pitch)
+        self._dev: dict = {}
+
+    def d(self, q):
+        """``floor(q L / M)`` through the table (``q >= 0``, ints or arrays)."""
+        M = self.config.ratio_den
+        return (q // M) * self.config.ratio_num + self.d_tab[q % M]
+
+    def q_tiles(self, shared: bool) -> int:
+        """Blocks along ``q``: from the shared ``i0`` over ``out_cap``
+        (one shared schedule), else from 0 over every stream's ``[i0, i0 +
+        out_cap)`` with ``i0 < M``."""
+        cfg = self.config
+        extent = cfg.out_capacity if shared else cfg.ratio_den - 1 + cfg.out_capacity
+        return -(-extent // self.q_tile)
+
+    def tables(self, device: torch.device) -> dict:
+        """``bands`` and ``d_tab`` (int32) on ``device``, uploaded once."""
+        tabs = self._dev.get(device)
+        if tabs is None:
+            tabs = self._dev[device] = dict(
+                bands=torch.from_numpy(self.bands).to(device),
+                d_tab=torch.from_numpy(self.d_tab.astype(np.int32)).to(device),
+            )
+        return tabs
+
+
 class FleetStepPlan:
     """Static tables of B8 and B9 for one configuration: the blended
-    phase rows ``W [M, taps]`` (transposed, the kernel's), the doubled
-    atlas ``[2M, 2L + taps + 1]`` (the plain version's), and the atlas
-    window geometry ``span``, ``K``, ``l_inv``."""
+    phase rows ``W [M, taps]`` (the band form's) and transposed (the
+    per-output form's), the doubled atlas ``[2M, 2L + taps + 1]`` (the
+    plain version's), the atlas window geometry ``span``, ``K``,
+    ``l_inv``, the band tile (``R = min(8, M)``, 8 warps) and the form
+    the kernel takes: ``"band"``, or ``"thread"`` (one output per thread)
+    where the band tile's shared memory would pass ``SMEM_MAX``."""
 
     def __init__(self, config: FirConfig, coeffs):
         L, M, taps = config.ratio_num, config.ratio_den, config.taps
@@ -84,8 +189,11 @@ class FleetStepPlan:
         self.span = L + taps + 1
         self.K = -(-config.out_capacity // M)
         self.l_inv = pow(L, -1, M) if M > 1 else 0
-        self._w_t = np.ascontiguousarray(phase_rows(config, coeffs).T)
+        w = phase_rows(config, coeffs)
+        self._w_t = np.ascontiguousarray(w.T)
         self._a2 = _sync_atlas(config, coeffs)
+        self.tile = BandTile(config, w)
+        self.form = "band" if self.tile.smem_bytes <= SMEM_MAX else "thread"
         self._dev: dict = {}
 
     def tables(self, device: torch.device) -> dict:
@@ -231,12 +339,16 @@ def step_kernel(plan: FleetStepPlan, buffers, view, sched: dict, out_buffers, co
     return launch_step(plan, buffers, view, sched_dev, out_buffers, counter)
 
 
-def launch_step(plan: FleetStepPlan, buffers, view, sched_dev, out_buffers, counter: str):
+def launch_step(plan: FleetStepPlan, buffers, view, sched_dev, out_buffers, counter: str, *,
+                _form: str | None = None):
     """Launch ``csrc/fir_fleet_step.cu`` on a checked step of CUDA tensors
     and count it in ``LAUNCHES[counter]``.  ``sched_dev`` is int32 ``[S,
     4]`` on the device, rows ``(to_copy, n_out, base, r)``: one row (the
     slide fleet's shared schedule, read by every stream) or one per
-    stream.  ``(buffers', out [B, out_cap, C])``."""
+    stream.  The plan's form picks the entry: ``"band"`` is the copy-in
+    and the band contraction, two launches counted as one step;
+    ``"thread"`` is one launch.  ``_form`` forces a form (to time both on
+    one step).  ``(buffers', out [B, out_cap, C])``."""
     cfg = plan.config
     B, C, alloc = buffers.shape
     dev = buffers.device
@@ -244,14 +356,26 @@ def launch_step(plan: FleetStepPlan, buffers, view, sched_dev, out_buffers, coun
         out_buffers = torch.zeros_like(buffers)
     out = torch.empty((B, cfg.out_capacity, C), dtype=torch.float32, device=dev)
     sb, sf, sc = view.stride()
-    launch(
-        "fir_fleet_step", dev,
-        _P(buffers.data_ptr()), _P(view.data_ptr()), _P(sched_dev.data_ptr()),
-        _I(4 if sched_dev.shape[0] == B and B > 1 else 0),
-        _P(plan.tables(dev)["w_t"].data_ptr()), _P(out_buffers.data_ptr()), _P(out.data_ptr()),
-        _I(B), _I(C), _I(alloc), _I(cfg.input_capacity), _I64(sb), _I64(sf), _I64(sc),
-        _I(cfg.out_capacity), _I(cfg.taps), _I(cfg.ratio_num), _I(cfg.ratio_den),
-    )
+    stride = 4 if sched_dev.shape[0] == B and B > 1 else 0
+    head = (_P(buffers.data_ptr()), _P(view.data_ptr()), _P(sched_dev.data_ptr()), _I(stride))
+    steps = (_I(B), _I(C), _I(alloc), _I(cfg.input_capacity), _I64(sb), _I64(sf), _I64(sc),
+             _I(cfg.out_capacity))
+    L, M = _I(cfg.ratio_num), _I(cfg.ratio_den)
+    form = _form or plan.form
+    if form == "band":
+        tile = plan.tile
+        tt = tile.tables(dev)
+        launch(
+            "fir_fleet_step_band", dev, *head, _P(tt["bands"].data_ptr()),
+            _P(tt["d_tab"].data_ptr()), _P(out_buffers.data_ptr()), _P(out.data_ptr()), *steps,
+            L, M, _I(plan.l_inv), _I(tile.R), _I(tile.warps), _I(tile.groups),
+            _I(tile.band_w), _I(tile.win), _I(tile.pitch), _I(tile.q_tiles(stride == 0)),
+        )
+    elif form == "thread":
+        launch("fir_fleet_step", dev, *head, _P(plan.tables(dev)["w_t"].data_ptr()),
+               _P(out_buffers.data_ptr()), _P(out.data_ptr()), *steps, _I(cfg.taps), L, M)
+    else:
+        raise ValueError(f"unknown form {form!r}")
     LAUNCHES[counter] += 1
     return out_buffers, out
 

@@ -10,8 +10,9 @@ every stream on ONE shared schedule::
 
 with the schedule as Python ints.  It is B9's function (``ops/fir_kernel.py``)
 with one schedule row read by every stream, so it shares B9's CUDA kernel
-(``csrc/fir_fleet_step.cu``, schedule stride 0), plan and plain version,
-and counts its own launches in ``LAUNCHES["fir_fleet_step_sync"]``.  The
+(``csrc/fir_fleet_step.cu``, schedule stride 0: the band form's q tiles
+start at the shared canonical start), plan and plain version, and counts
+its own launches in ``LAUNCHES["fir_fleet_step_sync"]``, once per step.  The
 chunk layout is read through its strides, so channel-major and
 frames-major feeds take no relayout.  The TPU kernel's row tiles, its
 power-of-two roll widths and its 8-row aligned atlas load do not carry

@@ -385,17 +385,23 @@ def _step_case(in_hz, out_hz, taps, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "in_hz,out_hz,taps,B,C",
-    [(44100, 48000, 128, 64, 2), (48000, 44100, 64, 5, 2), (48000, 96000, 64, 8, 2),
-     (44100, 48000, 32, 3, 3), (44100, 48000, 32, 2, 8)],
-    ids=["44k1-48k", "48k-44k1", "M2", "C3", "C8"],
+    "in_hz,out_hz,taps,B,C,form",
+    [(44100, 48000, 128, 64, 2, None), (48000, 44100, 64, 5, 2, None),
+     (48000, 96000, 64, 8, 2, None), (44100, 48000, 32, 3, 3, None),
+     (44100, 48000, 32, 2, 8, None), (47952, 48000, 128, 40, 2, None),
+     (44100, 48000, 128, 64, 2, "thread")],
+    ids=["44k1-48k", "48k-44k1", "M2", "C3", "C8", "47952-48k", "44k1-48k-thread-form"],
 )
-def test_fleet_step_kernels_match_plain_on_card(cuda, in_hz, out_hz, taps, B, C):
+def test_fleet_step_kernels_match_plain_on_card(cuda, in_hz, out_hz, taps, B, C, form):
     """B9 (per-stream schedules: ragged valid counts, 0 among them, NaN
     junk past them, diverged positions) and B8 (one shared schedule,
     channel-major and frames-major) against their plain version: counts
-    exact, buffers bit-equal, outputs within 1e-5; one launch each."""
+    exact, buffers bit-equal, outputs within 1e-5; one launch each.  Every
+    case takes the band form; the last forces the per-output form."""
     cfg, plan = _step_case(in_hz, out_hz, taps, C)
+    assert plan.form == "band"
+    if form is not None:
+        plan.form = form
     rng = np.random.default_rng(9)
     n = 1024
     buf = torch.from_numpy(rng.standard_normal((B, C, cfg.buffer_alloc), dtype=np.float32))

@@ -133,3 +133,170 @@ def test_fleet_step_wrappers_check_their_inputs():
     first = spare.swap(buf)
     assert first is not buf and not first.any()
     assert spare.swap(first) is buf
+
+
+# --------------------------------------------------------------------------
+# the band form's tile plan (ops/fir_kernel.py BandTile), emulated in torch
+# ops: the kernel's index map, held against the plain version on the CPU
+# --------------------------------------------------------------------------
+
+
+def _new_columns(buffers, view, rows, x, valid_end):
+    """``new(row, x)`` read through the copy-in select, as the band kernel
+    stages it: ``old[row, x + to_copy]`` for ``x < valid_end - to_copy``,
+    then chunk frame ``x - (valid_end - to_copy)``, 0 outside ``[0,
+    valid_end)``.  ``x [P, ...]`` int64 for the ``P`` padded rows; junk
+    frames are selected out, never multiplied."""
+    B, C, alloc = buffers.shape
+    n = view.shape[1]
+    P = x.shape[0]
+    flat = x.reshape(P, -1)
+    lim = (valid_end - rows["to_copy"])[:, None]
+    old = torch.zeros((P, alloc), dtype=buffers.dtype)
+    old[: B * C] = buffers.reshape(B * C, alloc)
+    chunk = torch.zeros((P, max(n, 1)), dtype=view.dtype)
+    chunk[: B * C, :n] = view.transpose(1, 2).reshape(B * C, n)
+    from_old = old.gather(1, (flat + rows["to_copy"][:, None]).clamp(0, alloc - 1))
+    from_chunk = chunk.gather(1, (flat - lim).clamp(0, max(n, 1) - 1))
+    v = torch.where(flat < lim, from_old, from_chunk)
+    return torch.where((flat >= 0) & (flat < valid_end), v, 0.0).reshape(x.shape)
+
+
+def emulate_band_step(plan, buffers, view, sched):
+    """One step of the band form through ``plan.tile``, every block of
+    the kernel at once, in torch ops with f64 sums: the copy-in, then for
+    every q tile and row group each row's staged window, each warp's band
+    from the start-phase table, the contraction and the masked epilogue.
+    ``sched`` holds ``[S]`` arrays (``S`` 1: one shared schedule).
+    Returns ``(next buffers, out [B, out_cap, C], writes [B, out_cap,
+    C])``, ``writes`` counting the stores to each output."""
+    cfg, tile = plan.config, plan.tile
+    L, M, out_cap = cfg.ratio_num, cfg.ratio_den, cfg.out_capacity
+    valid_end = cfg.input_capacity
+    B, C, _ = buffers.shape
+    n_rows = B * C
+    P = -(-n_rows // b9.TILE_ROWS) * b9.TILE_ROWS
+    shared = len(sched["r"]) == 1
+    live = np.arange(P) < n_rows
+    stream = np.minimum(np.arange(P) // C, B - 1)
+    s = {k: np.where(live, np.broadcast_to(np.asarray(v, np.int64), (B,))[stream], 0)
+         for k, v in sched.items() if k in ("to_copy", "n_out", "base", "r")}
+    i0 = s["r"] * plan.l_inv % M
+    rows = dict(to_copy=torch.from_numpy(s["to_copy"]), x_q0=s["base"] - (i0 * L - s["r"]) // M)
+
+    # the copy-in launch
+    nxt = torch.zeros_like(buffers)
+    cols = torch.arange(valid_end).expand(P, valid_end)
+    nxt[:, :, :valid_end] = _new_columns(buffers, view, rows, cols, valid_end)[:n_rows].reshape(
+        B, C, valid_end)
+
+    # the band launch: q tiles x row groups (every group at once)
+    R, G, T = tile.R, tile.warps, tile.q_tile
+    q_first = (i0[0] if shared else 0) + T * np.arange(tile.q_tiles(shared))
+    d_first = tile.d(q_first)
+    win_cols = rows["x_q0"][:, None, None] + d_first[None, :, None] + np.arange(tile.win)
+    xs = _new_columns(buffers, view, rows, torch.from_numpy(win_cols), valid_end).double()
+    q0 = q_first[:, None] + R * np.arange(G)  # [tiles, warps]
+    wst = tile.d(q0) - d_first[:, None]
+    band = tile.bands[q0 % M][..., :R].astype(np.float64)  # [tiles, warps, band_w, R]
+    idx = torch.from_numpy(wst[:, :, None] + np.arange(tile.band_w))  # [tiles, warps, band_w]
+    xw = xs.gather(2, idx.reshape(1, len(q_first), -1).expand(P, -1, -1))
+    acc = torch.einsum("ptgs,tgsr->ptgr", xw.reshape(P, len(q_first), G, tile.band_w),
+                       torch.from_numpy(band))
+    i = torch.from_numpy(q0[None, :, :, None] + np.arange(R) - i0[:, None, None, None])
+    n_out = torch.from_numpy(s["n_out"])[:, None, None, None]
+    stored = (i >= 0) & (i < out_cap) & torch.from_numpy(live)[:, None, None, None]
+    vals = torch.where(i < n_out, acc, 0.0).float()
+    p_idx = torch.arange(P)[:, None, None, None].expand_as(i)
+    out = torch.zeros((P, out_cap))
+    writes = torch.zeros((P, out_cap), dtype=torch.int64)
+    out.index_put_((p_idx[stored], i[stored]), vals[stored])
+    writes.index_put_((p_idx[stored], i[stored]), torch.ones_like(i[stored]), accumulate=True)
+    out, writes = (t[:n_rows].reshape(B, C, out_cap).transpose(1, 2) for t in (out, writes))
+    return nxt, out, writes
+
+
+def _band_case(in_hz, out_hz, taps, B, C, n, ragged, seed):
+    """A state and feeds as chip_smoke.py's phase 16 makes them: steady
+    (taps - 1 frames left, one position) or ragged (frames, positions and
+    valid counts 0, 1 or n per stream, stream 0 empty), NaN junk past the
+    valid counts; the second feed has junk past the last stream's count
+    (B8's shared one)."""
+    _, tc, coeffs = _configs(in_hz, out_hz, taps, C)
+    M = tc.ratio_den
+    rng = np.random.default_rng(seed)
+    buf = rng.standard_normal((B, C, tc.buffer_alloc), dtype=np.float32)
+    buf[:, :, tc.input_capacity:] = 0.0
+    if ragged:
+        avail, pos, nv = rng.integers(0, 600, B), rng.integers(0, 3 * M, B), rng.choice([0, 1, n], B)
+        avail[0], nv[0] = 0, 0
+    else:
+        avail, pos, nv = np.full(B, taps - 1), np.full(B, M // 3), np.full(B, n)
+    chunks = rng.standard_normal((B, n, C), dtype=np.float32)
+    shared = chunks.copy()
+    shared[:, int(nv[-1]):] = np.nan
+    chunks[np.arange(n)[None, :] >= nv[:, None]] = np.nan
+    feeds = torch.from_numpy(chunks), torch.from_numpy(shared)
+    return b9.FleetStepPlan(tc, coeffs), torch.from_numpy(buf), feeds, avail, pos, nv
+
+
+BAND_CASES = {
+    "44k1-48k": (44100, 48000, 128, 20, 2, 4096, False),
+    "ragged": (44100, 48000, 128, 20, 2, 4096, True),
+    "48k-44k1": (48000, 44100, 128, 20, 2, 4096, False),
+    "M2": (48000, 96000, 128, 20, 2, 4096, False),
+    "47952-48k": (47952, 48000, 32, 20, 2, 4096, False),
+    "47952-48k-ragged-C3": (47952, 48000, 32, 13, 3, 2048, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BAND_CASES))
+def test_band_tile_emulation_matches_plain(case):
+    """B9 (a schedule per stream) and B8 (the last stream's schedule,
+    shared) through the tile plan: outputs within 1e-6 of
+    ``step_reference`` (both sum in f64, so this checks the index map),
+    the next buffer bit-equal, every output in ``[0, out_cap)`` stored
+    once, and the outputs finite with NaN junk in the feed."""
+    in_hz, out_hz, taps, B, C, n, ragged = BAND_CASES[case]
+    plan, buf, (chunks, shared), avail, pos, nv = _band_case(in_hz, out_hz, taps, B, C, n,
+                                                             ragged, 3)
+    assert plan.form == "band"
+    budget = np.full(B, plan.config.out_capacity)
+    s9 = b9.schedule(plan, avail, pos, nv, budget, n)
+    s8 = b9.schedule(plan, avail[-1:], pos[-1:], nv[-1:], budget[-1:], n)
+    for sched, feed in ((s9, chunks), (s8, shared)):
+        new_ref, out_ref = b9.step_reference(plan, buf, feed, sched, None)
+        new, out, writes = emulate_band_step(plan, buf, feed, sched)
+        assert torch.equal(new, new_ref)
+        assert bool((writes == 1).all())
+        assert bool(torch.isfinite(out).all())
+        assert (out - out_ref).abs().max().item() <= ATOL
+    if ragged:  # the streams' canonical starts diverge
+        assert len(np.unique(s9["r"] * plan.l_inv % plan.config.ratio_den)) > 1
+        assert (s9["n_out"] == 0).any() and (s9["n_out"] > 0).any()
+
+
+@pytest.mark.parametrize(
+    "in_hz,out_hz,taps,C,form",
+    [(44100, 48000, 128, 2, "band"), (48000, 44100, 128, 2, "band"), (48000, 96000, 128, 2, "band"),
+     (44100, 48000, 32, 3, "band"), (44100, 48000, 32, 8, "band"), (48000, 44100, 64, 2, "band"),
+     (48000, 96000, 64, 2, "band"), (47952, 48000, 128, 2, "band"), (48000, 8000, 128, 2, "band"),
+     (44100, 1000, 128, 2, "thread"), (44100, 2000, 64, 2, "thread")],
+)
+def test_band_form_shape_rule(in_hz, out_hz, taps, C, form):
+    """The band form unless its tile's shared memory would pass 227 KB:
+    phase 16's shapes, the card test's and 47952 -> 48000 take it; heavy
+    downsampling (a window of q_tile L / M columns) takes the per-output
+    form."""
+    _, tc, coeffs = _configs(in_hz, out_hz, taps, C)
+    plan = b9.FleetStepPlan(tc, coeffs)
+    tile = plan.tile
+    assert plan.form == form
+    assert (tile.smem_bytes > b9.SMEM_MAX) == (form == "thread")
+    M = tc.ratio_den
+    assert tile.R == min(8, M) and tile.warps == 8 and tile.pitch % 2 == 1
+    assert tile.smem_bytes == 24 * 32 + 4 * (tile.warps * tile.Rp * tile.band_w + 32 * tile.pitch)
+    q = np.arange(3 * M + tile.q_tile, dtype=np.int64)
+    np.testing.assert_array_equal(tile.d(q), q * tc.ratio_num // M)
+    if (in_hz, out_hz, taps) == (44100, 48000, 128):  # bands 135 x 8 x 8, windows 187 x 32
+        assert (tile.band_w, tile.win, tile.smem_bytes) == (135, 187, 59264)
