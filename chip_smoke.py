@@ -19,8 +19,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    started together;
 3. each kernel against its plain version on the card at the main paths'
    shapes (plus a grouped small-M shape and ragged fleets), odd bases and
-   the top bound, timed with CUDA events against its bound; B1 also
-   against one PyTorch ``matmul`` over the overlapping window view.  B4
+   the top bound, timed with CUDA events against its bound.  B1 as the
+   fleet calls it (its band plan, the transposed atlas's window read in
+   place) at three start phases per case, 44.1 -> 48 kHz at 128 and 64
+   taps, grouped 48 -> 96 kHz, a ragged R of 6 and 48 -> 44.1 kHz, and its
+   full span (``band=None``) on the same inputs, timed in turns; ptxas's
+   registers and spills (none) and ``cp.async`` (LDGSTS) in its SASS; one
+   fleet call runs the band kernel alone; the bound is the taps-wide work;
+   one PyTorch ``matmul`` over the overlapping window view beside it.  B4
    and B5 at 8192 stereo streams (R 16384) of 1176 -> 1280 and 588 ->
    1280, the ragged 1280 -> 1176 at R 2 and 37, B5 over a P = 8 pool;
    a NaN row confined to its row, the noise floor against the f64
@@ -313,8 +319,10 @@ def timed_pair(kernel, plain, reps=20, plain_reps=None):
 
 
 def banded_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
-    """The ring, atlas windows and geometry ``make_fir_fleet_step_sync_tm``
-    hands B1 for one fleet configuration."""
+    """The ring, band plan, atlas windows and geometry
+    ``make_fir_fleet_step_sync_tm`` hands B1 for one fleet configuration:
+    each window a view of the transposed atlas at its start phase, read in
+    place."""
     L, M = reduce_ratio(in_hz, out_hz)
     cfg = FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
     g = _periodic_group_factor(L, M)
@@ -326,57 +334,134 @@ def banded_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
         dataclasses.replace(cfg, ratio_num=Lg, ratio_den=Mg) if g > 1 else cfg,
         coeffs_for(in_hz, out_hz, taps),
     )
+    a2_t = torch.from_numpy(np.ascontiguousarray(a2.T)).to(device)
     rng = np.random.default_rng(seed)
     buf = torch.from_numpy(rng.standard_normal((ring, lanes), dtype=np.float32)).to(device)
-    atlases = []
+    windows = []
     for i0 in (0, int(rng.integers(1, M)) if M > 1 else 0, M - 1):
         c0 = (i0 * L) // M
-        atlases.append(torch.from_numpy(np.ascontiguousarray(a2[i0 : i0 + Mg, c0 : c0 + span])).to(device))
+        windows.append((i0, a2_t[c0 : c0 + span, i0 : i0 + Mg].T))
     top = ring - ((K - 1) * Lg + span)
     # odd bases, one in the ring's middle, and the top bound
     bases = [1, 3, 4097, 2 * (ring // 4) + 1, top]
-    return buf, atlases, bases, dict(L=Lg, M=Mg, span=span, K=K)
+    return buf, kern.BandPlan(Lg, Mg, taps), windows, bases, dict(L=Lg, M=Mg, span=span, K=K)
+
+
+def sass_counts(lib_path: str, ops, source: str, source_ops):
+    """Counts of ``ops`` in the SASS of ``lib_path`` (cuobjdump), or, where
+    no disassembler exists, of ``source_ops`` in ``source``; and where they
+    were counted."""
+    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        tools.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin", "cuobjdump"))
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is not None:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        return {op: sass.count(op) for op in ops}, f"the SASS of {os.path.basename(lib_path)} ({tool})"
+    src = open(source).read()
+    return {op: src.count(op) for op in source_ops}, f"the source {source} (no cuobjdump found)"
+
+
+def b1_build_report() -> None:
+    """B1's kernels as built: ptxas's registers, shared memory and spills
+    of each instantiation (``band_contract_kernel<TY>``: 8 TY rows per
+    tile), none spilling, and ``cp.async`` (``LDGSTS``) in the SASS."""
+    log = _build.build_log()
+    section = log[log.find("== fir_banded_contract.cu"):].split("\n== ")[0]
+    ty = None
+    for line in section.splitlines():
+        if "Compiling entry" in line:
+            ty = int(line.split("band_contract_kernelILi")[1].split("E")[0]) if "band_contract" in line else None
+        elif ty is not None and ("registers" in line or "spill" in line):
+            print(f"[3] B1 ptxas band_contract_kernel<{ty}> ({8 * ty} rows): {line.strip()}")
+            check("spill" not in line or " 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"B1 band_contract_kernel<{ty}> spills: {line.strip()}")
+    if "band_contract" not in section:
+        print("[3] B1 ptxas: not in the build log (cached build)")
+    counts, where = sass_counts(_build.build()["fir_banded_contract"]._name, ("LDGSTS",),
+                                SOURCES["dma_banded_contract"][0], ("cp.async.cg",))
+    check(all(counts.values()), f"B1's cp.async in {where}: {counts}")
+    print(f"[3] B1 in {where}: {counts}")
+
+
+def device_kernels(fn) -> list[str]:
+    """The device kernels one call of ``fn`` runs (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
 
 
 def phase_banded_kernel(device, cases):
-    """B1: max |kernel - plain| over every case, atlas window and base;
-    each case's times; for the main case also the bound and one
-    ``torch.matmul`` over the overlapping window view (the library
-    yardstick, never called by the port)."""
+    """B1: the band form (the fleet's call) and the full span
+    (``band=None``) against the plain version over every case, start
+    phase and base; each case's band form timed against the plain version
+    and, in turns, against the full span; for the main case also the
+    bound (taps-wide work, the span-wide beside it), the kernels one
+    fleet call runs, and one ``torch.matmul`` over the overlapping window
+    view (the library yardstick, never called by the port)."""
+    b1_build_report()
     worst, entry = 0.0, None
     for n, (name, args) in enumerate(cases):
-        buf, atlases, bases, geo = banded_case(*args, device=device, seed=n)
-        err = 0.0
-        for a in atlases:
+        buf, plan, windows, bases, geo = banded_case(*args, device=device, seed=n)
+        err = err_full = 0.0
+        for i0, a in windows:
             for base in bases:
-                got = kern.dma_banded_contract(buf, base, a, **geo)
                 ref = kern.dma_banded_contract_reference(buf, base, a, **geo)
+                got = kern.dma_banded_contract(buf, base, a, band=(plan, i0), **geo)
+                full = kern.dma_banded_contract(buf, base, a, **geo)
+                check(bool(torch.isfinite(got).all()), f"B1 {name}: finite outputs")
                 err = max(err, float((got - ref).abs().max()))
+                err_full = max(err_full, float((full - ref).abs().max()))
         torch.cuda.synchronize()
-        check(err <= KERNEL_ATOL, f"B1 vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
+        check(max(err, err_full) <= KERNEL_ATOL,
+              f"B1 vs plain {name}: band {err:.3e}, full span {err_full:.3e} > {KERNEL_ATOL}")
         worst = max(worst, err)
         ring, R = buf.shape
-        print(f"[3] B1 {name}: ring [{ring}, {R}] {geo}: max |kernel - plain| = {err:.3e} "
-              f"over {len(atlases) * len(bases)} calls")
-        a = atlases[1]
         L, M, span, K = geo["L"], geo["M"], geo["span"], geo["K"]
+        print(f"[3] B1 {name}: ring [{ring}, {R}] {geo}, {plan.rows}-row tiles ({plan.n_tiles}), "
+              f"{plan.smem_bytes} B shared: max |kernel - plain| band {err:.3e}, full span "
+              f"{err_full:.3e} over {len(windows) * len(bases)} calls each (start phases "
+              f"{[i0 for i0, _ in windows]})")
+        i0, a = windows[1]
         rot = np.linspace(0, bases[-1], 8).astype(int).tolist()
+
+        def band(i):
+            return kern.dma_banded_contract(buf, rot[i % 8], a, band=(plan, i0), **geo)
+
         ms, plain_ms, t = timed_pair(
-            lambda i: kern.dma_banded_contract(buf, rot[i % 8], a, **geo),
-            lambda i: kern.dma_banded_contract_reference(buf, rot[i % 8], a, **geo),
-        )
-        flop = 2 * K * M * span * R
-        nbytes = 4 * (((K - 1) * L + span) * R + M * span + K * M * R)
+            band, lambda i: kern.dma_banded_contract_reference(buf, rot[i % 8], a, **geo))
+        _, full_ms, tf = timed_pair(band, lambda i: kern.dma_banded_contract(buf, rot[i % 8], a, **geo))
+        taps = span - L - 1
+        flop = 2 * K * M * taps * R  # the work the band needs
+        issued = 2 * K * plan.issued(i0) * R
+        nbytes = 4 * (((K - 1) * L + span) * R + M * taps + K * M * R)
         b_ms, b_by = bound_ms(flop, nbytes)
-        print(f"    kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per call; "
-              f"kernel {flop / ms / 1e9:.2f} TFLOP/s ({100 * flop / ms / 1e9 / F32_PEAK_TFLOPS:.1f}% "
-              f"of the f32 peak); bound {b_ms:.4f} ms ({b_by}: {flop / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
+        span_ms = bound_ms(2 * K * M * span * R, nbytes)[0]
+        print(f"    band {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per call; in turns "
+              f"full span {tf[0]:.4f} / {tf[3]:.4f}, band {tf[1]:.4f} / {tf[2]:.4f} ms "
+              f"({full_ms / ms:.2f}x); band {issued / ms / 1e9:.2f} TFLOP/s issued "
+              f"({issued / 1e9:.3f} GFLOP, {100 * issued / ms / 1e9 / F32_PEAK_TFLOPS:.1f}% of the "
+              f"f32 peak); bound {b_ms:.4f} ms ({b_by}: {flop / 1e9:.3f} GFLOP taps-wide, "
+              f"{nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% of it reached), span-wide "
+              f"{span_ms:.4f} ms")
         if entry is None:
+            names = device_kernels(lambda: band(3))
+            check(len(names) == 1 and "band_contract" in names[0],
+                  f"B1 {name}: the fleet's call runs the band kernel alone: {names}")
+            print(f"    one fleet call runs {names} (the window is read in place, no copy)")
+            ac = a.contiguous()
+
             def library(i):
                 base = rot[i % 8]
                 view = buf[base:].as_strided((K, span, R), (L * R, R, 1))
-                return torch.matmul(a, view)
+                return torch.matmul(ac, view)
 
             ref = kern.dma_banded_contract_reference(buf, rot[3], a, **geo)
             library(0)
@@ -389,12 +474,13 @@ def phase_banded_kernel(device, cases):
             del got, ref
             lib_ms = elapsed_ms(library, 20)
             copied = extra >= K * span * R * 4
-            print(f"    library torch.matmul(a, as_strided window view): {lib_ms:.4f} ms, "
-                  f"max |library - plain| {lib_err:.3e}; {extra / 1e6:.1f} MB of scratch beyond the "
-                  f"outputs: PyTorch {'COPIED' if copied else 'did not copy'} the overlapping view "
+            print(f"    library torch.matmul(a, as_strided window view): {lib_ms:.4f} ms "
+                  f"(band {lib_ms / ms:.2f}x faster), max |library - plain| {lib_err:.3e}; "
+                  f"{extra / 1e6:.1f} MB of scratch beyond the outputs: PyTorch "
+                  f"{'COPIED' if copied else 'did not copy'} the overlapping view "
                   f"({K * span * R * 4 / 1e6:.1f} MB)")
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        del buf, atlases
+        del buf, windows
     entry["max_abs_err"] = worst
     return entry
 
@@ -1813,20 +1899,8 @@ def b7_build_report() -> None:
     print(f"[23] B7's GEMM: {libs['matmul3_gemm_smem'].matmul3_gemm_smem()} bytes of dynamic shared memory per "
           f"block; ptxas's count is the 384-thread launch bound's, setmaxnreg then gives the consumer "
           f"warpgroups 232 registers and the producer 40")
-    lib = libs["matmul3_gemm"]._name
-    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
-    spec = importlib.util.find_spec("triton")
-    if spec is not None and spec.origin:
-        tools.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin", "cuobjdump"))
-    tool = next((t for t in tools if t and os.path.exists(t)), None)
-    if tool is not None:
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True, timeout=300).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        where = f"the SASS of {os.path.basename(lib)} ({tool})"
-    else:
-        src = open(SOURCES["matmul3"][0]).read()
-        counts = {op: src.count(op) for op in ("wgmma.mma_async", "cp.async.bulk.tensor")}
-        where = f"the source {SOURCES['matmul3'][0]} (no cuobjdump found)"
+    counts, where = sass_counts(libs["matmul3_gemm"]._name, ("HGMMA", "UTMALDG"), SOURCES["matmul3"][0],
+                                ("wgmma.mma_async", "cp.async.bulk.tensor"))
     check(all(counts.values()), f"B7's wgmma and TMA instructions in {where}: {counts}")
     print(f"[23] B7 in {where}: {counts}")
 
@@ -2283,6 +2357,7 @@ def main() -> None:
         ("44.1->48k taps 64, 1024x2", (44100, 48000, 64, 2048, 4096, 16)),
         ("grouped 48->96k taps 64 (g 64), 128x2", (48000, 96000, 64, 256, 512, 3)),
         ("ragged 44.1->48k taps 128, R 6", (44100, 48000, 128, 6, 512, 3)),
+        ("48->44.1k taps 128, 1024x2", (48000, 44100, 128, 2048, 4096, 16)),
     ])}
     entries.update(phase_farrow_kernels(device, [
         ("44.1->44.101k taps 128, 1024x2", (44100, 44101, 128, 2048, 4096, 16)),

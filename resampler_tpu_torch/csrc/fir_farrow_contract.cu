@@ -13,9 +13,9 @@
 // FMA.  At 44.1 -> 44.101 kHz, 128 taps, 1024 stereo streams (K 63, q 64,
 // w 192, R 2048) a call is 2*K*q*w*R = 3.17 GFLOP, 47.3 us at 67 TFLOP/s,
 // against ~67 MB of compulsory traffic (the ~4,150 ring rows the blocks
-// cover, read once, plus the 33 MB output), ~20 us at 3.35 TB/s.  Design: it
-// IS B1's tiled kernel (tiled_contract.cuh) with a weight block and a row
-// base per block k; the 48 KB [64, 192] weight block is staged through
+// cover, read once, plus the 33 MB output), ~20 us at 3.35 TB/s.  Design: the
+// tiled kernel of tiled_contract.cuh with a weight block and a row base per
+// block k; the 48 KB [64, 192] weight block is staged through
 // shared memory 16 columns at a time.
 //
 // B3 replaces :170 dma_farrow_contract_packed (body _farrow_packed_kernel

@@ -1,13 +1,14 @@
-// Block-tiled f32 contraction shared by kernels B1 (fir_banded_contract.cu)
-// and B2 (fir_farrow_contract.cu):
+// Block-tiled f32 contraction of kernel B2 (fir_farrow_contract.cu):
 //
 //   out[k, j, r] = sum_{s < width} a_k[j, s] * buffer[row_k + s, r]
 //
 // for blocks k < K, where
-//   B1 (periodic):  a_k = a (one [M, width] atlas window for every block),
-//                   row_k = base + k*L;
 //   B2 (Farrow):    a_k = a + k*M*width (each block's own [q, width] weights),
-//                   row_k = base + block_base[k].
+//                   row_k = base + block_base[k];
+//   periodic:       a_k = a (one [M, width] window for every block),
+//                   row_k = base + k*L (block_base == nullptr).  Kernel B1
+//                   launched this form before it got its own band kernel
+//                   (fir_banded_contract.cu); no caller launches it now.
 // buffer [ring, R] f32 row-major (frames x stream-channel lanes), out [K, M, R].
 // f32 inputs, f32 FMA, f32 accumulation: no TF32, no bf16 (a 3-pass bf16
 // contraction already fails the 100 dB alias gate).
@@ -42,8 +43,8 @@ constexpr int kWR = kTR / kTX;     // 8 lanes per thread
 constexpr int kThreads = kTX * kTY;
 constexpr int kAPad = kTJ + 4;     // a_s row stride: 16-byte rows, fewer bank conflicts
 
-// block_base == nullptr: row_k = base + k*L and a_k = a (B1); otherwise
-// row_k = base + block_base[k] and a_k = a + k*M*width (B2).
+// block_base == nullptr: row_k = base + k*L and a_k = a (the periodic
+// form); otherwise row_k = base + block_base[k] and a_k = a + k*M*width (B2).
 __global__ void __launch_bounds__(kThreads)
 tiled_contract_kernel(const float* __restrict__ buffer,
                       const float* __restrict__ a,

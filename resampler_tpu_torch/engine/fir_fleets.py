@@ -38,6 +38,7 @@ from ..ops.fir_async_kernel import (
     async_combine_reference,
 )
 from ..ops.fir_dma_kernel import (
+    BandPlan,
     dma_banded_contract,
     dma_farrow_contract,
     dma_farrow_contract_packed,
@@ -258,7 +259,10 @@ def make_fir_fleet_step_sync_tm(
       against a grouped ``(gL, gM)`` atlas whose rows are bit-identical
       to the reduced one (``_periodic_group_factor``), while the atlas
       window is still indexed with the reduced ``L, M``.  The contraction
-      is B1 (f32) for ``precision="highest"``; for ``"bf16x4"`` the atlas
+      is B1 (f32) for ``precision="highest"``: the atlas is stored
+      transposed, B1 reads each step's window in place (a strided view,
+      no copy) and only the columns its ``BandPlan`` gives each tile of
+      rows; for ``"bf16x4"`` the atlas
       is split once at build (``split_hi_lo``, stored transposed) and B7
       contracts each step's window of both halves with the ring window
       view in four bf16 passes (the JAX form's four products,
@@ -309,7 +313,10 @@ def make_fir_fleet_step_sync_tm(
         if precision == "bf16x4":
             t_hi, t_lo = _split_atlas_t(a2_np, device)
         else:
-            a2 = torch.from_numpy(a2_np).to(device)
+            # [cols, rows]: a window's transpose is a view whose rows (the
+            # band columns) are contiguous, read coalesced by B1
+            a2_t = torch.from_numpy(np.ascontiguousarray(a2_np.T)).to(device)
+            band_plan = BandPlan(Lg, Mg, taps)
 
         def contract(buffer, start: int, pos_num: int, avail: int):
             d_min, r = divmod(pos_num, M)
@@ -325,9 +332,9 @@ def make_fir_fleet_step_sync_tm(
                 matmul3(x, _atlas_window(t_hi, c0, i0, span, Mg), _atlas_window(t_lo, c0, i0, span, Mg),
                         passes=4, out=out.permute(0, 2, 1))
             else:
-                a = a2[i0 : i0 + Mg, c0 : c0 + span].contiguous()
+                a = a2_t[c0 : c0 + span, i0 : i0 + Mg].T  # [Mg, span] view
                 out = dma_banded_contract(
-                    buffer, base, a, L=Lg, M=Mg, span=span, K=K
+                    buffer, base, a, L=Lg, M=Mg, span=span, K=K, band=(band_plan, i0)
                 )  # [K, Mg, R]
             return out.reshape(K * Mg, R)[:out_cap]
 

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "build_log", "launch"]
+__all__ = ["LAUNCHES", "SMEM_MAX", "build", "build_log", "launch"]
 
 #: Kernel launches made by each wrapper in this process (a wrapper adds
 #: one where it launches its kernel, and nowhere else).
@@ -37,10 +37,13 @@ LAUNCHES = {
     "fir_fleet_step": 0,
 }
 
+#: shared memory one block may hold on an H100 (227 KB)
+SMEM_MAX = 232448
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-#: one shared library per source; the headers are included by the B1 and B2
-#: sources (tiled_contract) and by the B4, B6 and B7 sources (bf16_split)
+#: one shared library per source; the headers are included by the B2 source
+#: (tiled_contract) and by the B4, B6 and B7 sources (bf16_split)
 _SOURCES = (
     "fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu", "fir_async_combine.cu",
     "fir_fleet_step.cu", "matmul3.cu",
@@ -53,8 +56,9 @@ _NVCC_FLAGS = [
 ]
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # buffer, a, out, R, base, L, M, span, K, stream
-    "fir_banded_contract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # buffer, a, a strides (j, s), tiles, out, R, base, L, M, span, K, rows,
+    # vec, stream
+    "fir_banded_contract": [_P, _P, _I64, _I64, _P, _P, _I, _I64] + [_I] * 6 + [_P],
     # buffer, a_blk, block_base, out, R, base, K, q, w, stream
     "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
     # ... the same, then the lanes per thread (4 or 1), stream

@@ -73,7 +73,7 @@ from ..engine.fir import (
     stream_words,
     upload,
 )
-from ._build import LAUNCHES, device_kind, launch
+from ._build import LAUNCHES, SMEM_MAX, device_kind, launch
 
 __all__ = [
     "FleetStepPlan",
@@ -84,9 +84,6 @@ __all__ = [
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-
-#: shared memory one block may hold on an H100 (227 KB)
-SMEM_MAX = 232448
 #: the band tile: outputs per thread (``min(8, M)``), warps per block,
 #: rows ``(b, c)`` per group (one per lane) and the row groups one block
 #: contracts in turn (its bands are staged once for both)

@@ -80,6 +80,52 @@ def test_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "in_hz,out_hz,taps,R",
+    [(44100, 48000, 128, 256), (44100, 48000, 64, 256), (48000, 96000, 64, 128), (44100, 48000, 128, 6),
+     (48000, 8000, 128, 132)],
+    ids=["main", "taps64", "grouped", "ragged-R6", "rows16"],
+)
+def test_band_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R):
+    """B1 as the fleet calls it (band plan, the transposed atlas's window
+    read in place) at three start phases, against the plain version and
+    against the full span (``band=None``) on the same inputs; one launch
+    per call."""
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
+    g = tfir._periodic_group_factor(L, M)
+    Lg, Mg = L * g, M * g
+    span = Lg + taps + 1
+    K = -(-cfg.out_capacity // Mg)
+    coeffs = tfir.fir_coefficients(
+        taps, rt.Attenuation.Db90, tfir.fir_cutoff(taps, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    a2 = _sync_atlas(dataclasses.replace(cfg, ratio_num=Lg, ratio_den=Mg), coeffs)
+    a2_t = torch.from_numpy(np.ascontiguousarray(a2.T)).to(cuda)
+    plan = kern.BandPlan(Lg, Mg, taps)
+    rng = np.random.default_rng(3)
+    rows = (K - 1) * Lg + span
+    buf = torch.from_numpy(rng.standard_normal((rows + 37, R), dtype=np.float32)).to(cuda)
+    geo = dict(L=Lg, M=Mg, span=span, K=K)
+    n = 0
+    for i0 in sorted({0, int(rng.integers(0, M)), M - 1}):
+        c0 = (i0 * L) // M
+        a = a2_t[c0 : c0 + span, i0 : i0 + Mg].T
+        for base in (1, 5, 37):  # odd bases; 37 is the top bound
+            ref = kern.dma_banded_contract_reference(buf, base, a, **geo)
+            before = kern.LAUNCHES["dma_banded_contract"]
+            got = kern.dma_banded_contract(buf, base, a, band=(plan, i0), **geo)
+            assert kern.LAUNCHES["dma_banded_contract"] == before + 1
+            full = kern.dma_banded_contract(buf, base, a, **geo)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert (got - ref).abs().max().item() <= KERNEL_ATOL
+            assert (got - full).abs().max().item() <= KERNEL_ATOL
+            n += 1
+    assert n >= 3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("horizon", [3, 1])
 def test_fleet_on_card_matches_cpu(cuda, horizon):
     """Card vs CPU, ints and ring exact; horizon 1 with a crafted feed
