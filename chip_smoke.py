@@ -123,8 +123,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    split pass (bit for bit its plain version) and the GEMM timed apart,
    the GEMM in both accumulation forms; ptxas's
    registers and spills, and wgmma (HGMMA) and TMA (UTMALDG) in the SASS;
-24. kernel B6b (the bf16x4 form of csrc/fir_async_combine.cu) against its
-   plain version at B6's cases (a)-(g), timed against its bound;
+24. kernel B6b (the bf16x4 tensor-core kernel of csrc/fir_async_combine.cu,
+   ``mma.sync``) against its plain version at B6's cases (a)-(g), timed
+   against its bound and the bound on the work it issues; ptxas's
+   registers and spills (none) and ``HMMA`` in its SASS, each case's tiles
+   and shared memory;
 25. the bf16x4 tm fleet at full width (``make_fir_fleet_step_sync_tm(...,
    precision="bf16x4")``, 1024 stereo streams, 44.1 -> 48 kHz, taps 128,
    max_chunk 4096, horizon 16, 40 steps): one B7 launch per emitting step
@@ -1168,16 +1171,61 @@ def async_bound(plan, L, n_out, res, R, C):
     return bound_ms(flop, nbytes, BF16_PEAK_TFLOPS if split else F32_PEAK_TFLOPS) + (flop, nbytes)
 
 
+def b6b_issued(plan, n_out, R):
+    """The work B6b's tensor-core kernel issues for one call: four bf16
+    passes of 8 degrees x taps products per output and lane of every
+    32-lane tile (padded lanes included) plus the combine; the rows each
+    emitting tile stages, read once per lane tile, the output and the
+    lane words.  Returns ``(bound ms, by, flop, bytes)`` at the bf16
+    peak."""
+    tp = plan.tiles
+    lanes = -(-R // 32) * 32
+    flop = 2 * 4 * plan.d1 * plan.taps * n_out * lanes + 2 * plan.d1 * n_out * R
+    staged = 0
+    for t in range(tp.n_tiles):
+        n_emit = min(tp.outputs, n_out - t * tp.outputs)
+        if n_emit > 0:
+            staged += 2 * ((int(tp.win[t * tp.outputs + n_emit - 1]) + tp.window + 1) // 2) + 1
+    nbytes = 4 * (staged * R + plan.out_cap * R) + 16 * R
+    return bound_ms(flop, nbytes, BF16_PEAK_TFLOPS) + (flop, nbytes)
+
+
+def b6b_build_report() -> None:
+    """B6b's tensor-core kernel as built: ptxas's registers and spills of
+    each instantiation (``tc_combine_kernel<KS>``: 16 KS taps), none
+    spilling, and the tensor-core ``HMMA`` instructions in its SASS."""
+    log = _build.build_log()
+    section = log[log.find("== fir_async_combine.cu"):].split("\n== ")[0]
+    ks = None
+    for line in section.splitlines():
+        if "Compiling entry" in line:
+            ks = int(line.split("tc_combine_kernelILi")[1].split("E")[0]) if "tc_combine_kernel" in line else None
+        elif ks is not None and ("registers" in line or "spill" in line):
+            print(f"[24] B6b ptxas tc_combine_kernel<{ks}> ({16 * ks} taps): {line.strip()}")
+            check("spill" not in line or " 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"B6b tc_combine_kernel<{ks}> spills: {line.strip()}")
+    if "tc_combine_kernel" not in section:
+        print("[24] B6b ptxas: not in the build log (cached build)")
+    counts, where = sass_counts(_build.build()["fir_async_combine_bf16x4"]._name, ("HMMA",),
+                                SOURCES["async_combine_bf16x4"][0], ("mma.sync",))
+    check(all(counts.values()), f"B6b's tensor-core instructions in {where}: {counts}")
+    print(f"[24] B6b in {where}: {counts}")
+
+
 def phase_async_kernel(device, cases, precision="highest"):
     """B6 (or B6b, ``precision="bf16x4"``) against its plain version at
     each case's bases and ``n_out`` bounds; each case's times (plain,
     kernel, kernel, plain) against its bound.  The main case (the first)
     gives the kernel's line.  No single PyTorch call computes B6 (per-lane
     row offsets and per-stream skews are no uniform stride), so it has no
-    library time."""
+    library time.  For B6b also its build report, each case's tiles and
+    shared memory, and the bound on the work it issues beside the row's
+    bound."""
     entry = None
     worst = 0.0
     kname, phase = ("B6b", 24) if precision == "bf16x4" else ("B6", 11)
+    if precision == "bf16x4":
+        b6b_build_report()
     for n, (name, in_hz, out_hz, taps, R, skew, starved) in enumerate(cases):
         L, M = reduce_ratio(in_hz, out_hz)
         cfg, plan = async_plan(in_hz, out_hz, taps, skew, precision=precision)
@@ -1214,6 +1262,12 @@ def phase_async_kernel(device, cases, precision="highest"):
         print(f"    n_out {n_main}: kernel {t[1]:.4f} / {t[2]:.4f} ms, plain {t[0]:.4f} / {t[3]:.4f} ms per "
               f"call; kernel {flop / ms / 1e9:.2f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}: "
               f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% of it reached)")
+        if precision == "bf16x4":
+            tp = plan.tiles
+            i_ms, i_by, i_flop, i_bytes = b6b_issued(plan, n_main, R)
+            print(f"    tiles: {tp.outputs} outputs x 32 lanes, <= {tp.rows} staged rows, {tp.smem_bytes} B "
+                  f"shared; issued {i_flop / 1e9:.3f} GFLOP, {i_bytes / 1e6:.1f} MB, bound {i_ms:.4f} ms "
+                  f"({i_by}; {100 * i_ms / ms:.1f}% of it reached)")
         if entry is None:
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del buf

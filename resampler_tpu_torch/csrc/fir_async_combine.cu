@@ -38,28 +38,77 @@
 // shared memory as [taps][8] and is read as two broadcast 16-byte loads per
 // tap, shared by the thread's 8 outputs.  f32 FMA, no tensor cores.
 //
-// B6b, the TPU kernel's default precision="bf16x4" (its _contract :139-161,
-// weight split :396-413), is the same kernel with kSplit: each ring sample is
-// split in registers, x = hi + lo (split_hi_lo, csrc/bf16_split.cuh), the
-// basis comes as a_hi = bf16(A) and a_lo = bf16(A - a_hi) (round to nearest
-// even on the host, as XLA's astype), and
+// Kernel B6b, the TPU kernel's default precision="bf16x4" (its _contract
+// :139-161, weight split :396-413), computes the same out[n, r] with the
+// degree-banded split contraction: each ring sample split once, x = hi + lo
+// (split_hi_lo, csrc/bf16_split.cuh), the basis as a_hi = bf16(A) and a_lo =
+// bf16(A - a_hi) (round to nearest even on the host, as XLA's astype), and
 //
 //   y[d] = sum_t a_hi[d, t] hi_t + (d <= dc) * (a_hi[d, t] lo_t + a_lo[d, t] hi_t
 //                                               + a_lo[d, t] lo_t)
 //
-// with the degree cut dc of the TPU kernel (:400-405: the correction
-// products of degrees whose rows sit <= 1e-3 of the basis maximum are
-// dropped).  Every product of two bf16 values is exact in f32, so CUDA-core
-// FMAs compute the TPU kernel's products; only the order of the f32 sums
-// differs.  B6b keeps B6's conventions (wrap row by select, IEEE division,
-// the starved fall-through), not the TPU kernel's blend z0 + w (z1 - z0) and
-// rem * (1/M).  Route: CUDA-core FMA, not tensor cores, because each output
-// evaluates only its own row's 8 x taps responses (no shared atlas to feed a
-// matrix unit) and B6 already runs on this layout; a tensor-core layout
-// (lanes x rows tiles of the per-block atlas) is later perf work.  Work per
-// output: (8 + 3 (dc + 1)) x taps products against B6's 8 x taps, each on
-// bf16 operands (the bound counts them at the bf16 tensor-core peak, the
-// least the card could take for them).
+// with the TPU kernel's degree cut dc (:400-405: the correction products of
+// degrees whose rows sit <= 1e-3 of the basis maximum are dropped).  Every
+// product of two bf16 values is exact; the sums are f32.  B6b keeps B6's
+// conventions (wrap row by select, IEEE division, the starved
+// fall-through), not the TPU kernel's blend z0 + w (z1 - z0) and rem * (1/M).
+//
+// B6b runs on the bf16 tensor cores: mma.sync m16n8k16 (f32 sums), one MMA
+// row per lane of one output, 16 taps of that output's window per k-step,
+// the 8 basis degrees as N.  Four passes per k-step, each into its own f32
+// accumulator: hi * a_hi, lo * a_hi_c (a_hi zeroed past dc), hi * a_lo,
+// lo * a_lo (a_lo is zero past dc), so every pass gives all 8 degrees and
+// the degrees past dc take zero weights.  The B operand (the three bases,
+// 2 x 3 registers per k-step: 48 at 128 taps) stays in registers for the
+// whole block, packed on the host in fragment order
+// (ops/fir_async_kernel.py b_fragments).  wgmma's 64-row asynchronous form
+// buys nothing at N = 8; mma.sync is the simple route.
+//
+// Bound on an H100: the bound counts the exact bf16 products the function
+// needs, (8 + 3 (dc + 1)) x taps per output and lane at the 989 TFLOP/s
+// dense bf16 peak: at 44100 -> 44101, 128 taps, R 2048, n_out 2048 that is
+// 24.76 GFLOP, 0.0250 ms, against 35.7 MB of compulsory traffic (0.0107
+// ms).  The kernel issues 4 x 8 x taps products per output and lane (34.4
+// GFLOP there, 1.39x): a pass per k-step carries all 8 degrees.
+//
+// Design.  A block is 32 lanes (two 16-row MMA groups) by one tile of
+// outputs; 8 warps, each one lane group and every fourth output of the
+// tile.  Each output reads only its own window, so the host tabulates per
+// tile the ring rows the tile's windows cover, in order, and where each
+// output's window starts among them (AsyncTilePlan): 128 outputs stage 257
+// rows at 44100 -> 44101 (106,048 B of shared memory, 2 blocks per SM),
+// while at 367500 -> 1601, whose windows are disjoint, a tile is two
+// outputs.  That is why an MMA row is a lane and not an output: 16 lanes
+// of one output fill the 16 rows whatever the tile.  No device scan, no
+// host sync: the kernel reads its tile's row map by address.  The block
+// copies the rows its
+// emitted outputs need with cp.async (16-byte along the lanes, coalesced;
+// 4-byte where R is no multiple of 4, lanes past R zero-filled) into an f32
+// [row][lane] stage, then splits each sample once into lane-major bf16 hi
+// and lo arrays.  A fragment register holds two consecutive taps of a row,
+// and a 32-bit load needs them to start on an even element, so each array
+// is kept twice: copy 0 holds pairs (2w, 2w + 1), copy 1 pairs (2w + 1,
+// 2w + 2); a lane's window start picks its copy by parity.  The wrap row
+// and the frame skew are folded into that start (win[n] + off + c).  The
+// stage pitch (36 floats) and the word pitch (4 mod 8) keep the split's
+// and the fragment loads conflict-free.  Epilogue: a thread holds degrees
+// 2 tig, 2 tig + 1 of its two lanes (rows g and g + 8), evaluates the
+// Chebyshev recurrence there, and two __shfl_xor_sync steps sum the four
+// threads of the group; the results go through shared memory so that the
+// stores to out [out_cap, R] are whole 128-byte rows.  Outputs past n_out
+// are selected to zero, never multiplied by a mask; a lane whose window
+// holds a non-finite sample gives a non-finite output, as the plain
+// version does (0 x NaN on the zero weights).
+//
+// On an H100 (chip_smoke.py phase 24) it takes ~0.17 ms at the case above,
+// ~20% of the bound on the work it issues: 110 registers, no spill, 2
+// blocks of 8 warps per SM.  It is bound by latency, not by the tensor
+// cores: a block's copy, split and barriers run before its products, and
+// one block per SM ran slower.  Tried on the card and slower or no
+// faster: the B operand from shared memory (3 blocks per SM; more shared
+// loads), two outputs per warp iteration, tiles of 16, 32 or 64 outputs.
+// Overlapping the next tile's staging with this one's products is the
+// next lever.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,26 +122,19 @@ constexpr int kLanes = 32;   // lanes per block (threadIdx.x)
 constexpr int kWarps = 4;    // threadIdx.y
 constexpr int kNPT = 8;      // consecutive outputs per thread
 
-// kSplit: B6b (a_lo_t and dc are read); else B6 (a_t is A in f32).
-template <bool kSplit>
 __global__ void __launch_bounds__(kLanes * kWarps)
 async_combine_kernel(const float* __restrict__ buffer,
                      const float* __restrict__ a_t,
-                     const float* __restrict__ a_lo_t,
                      const int64_t* __restrict__ j_tab,
                      const int64_t* __restrict__ s_tab,
                      const int64_t* __restrict__ lanes,
                      float* __restrict__ out, int R, int64_t base0, int n_out,
-                     int out_cap, int taps, uint32_t M, int skew, int dc) {
-  // [taps][2]: degrees 0-3, 4-7 of A (B6) or a_hi (B6b); B6b then a_lo
+                     int out_cap, int taps, uint32_t M, int skew) {
+  // [taps][2]: degrees 0-3, 4-7 of A
   extern __shared__ float4 a_s[];
   const int tid = threadIdx.y * kLanes + threadIdx.x;
   const float4* a_v = reinterpret_cast<const float4*>(a_t);
   for (int i = tid; i < 2 * taps; i += kLanes * kWarps) a_s[i] = a_v[i];
-  if (kSplit) {
-    const float4* lo_v = reinterpret_cast<const float4*>(a_lo_t);
-    for (int i = tid; i < 2 * taps; i += kLanes * kWarps) a_s[2 * taps + i] = lo_v[i];
-  }
   __syncthreads();
 
   const int r = blockIdx.x * kLanes + threadIdx.x;
@@ -136,33 +178,11 @@ async_combine_kernel(const float* __restrict__ buffer,
     const float4 v0 = a_s[2 * t];
     const float4 v1 = a_s[2 * t + 1];
     const float a[kD1] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-    float al[kD1];
-    if (kSplit) {
-      const float4 w0 = a_s[2 * taps + 2 * t];
-      const float4 w1 = a_s[2 * taps + 2 * t + 1];
-      const float l[kD1] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int d = 0; d < kD1; ++d) al[d] = l[d];
-    }
 #pragma unroll
     for (int i = 0; i < kNPT; ++i) {
       const float x = __ldg(col + (row[i] + t) * static_cast<int64_t>(R));
-      if (kSplit) {
-        const float xh = bf16_split_hi(x);
-        const float xl = __bfloat162float(bf16_split_lo(x, xh));
 #pragma unroll
-        for (int d = 0; d < kD1; ++d) {
-          y[i][d] = fmaf(a[d], xh, y[i][d]);
-          if (d <= dc) {
-            y[i][d] = fmaf(a[d], xl, y[i][d]);
-            y[i][d] = fmaf(al[d], xh, y[i][d]);
-            y[i][d] = fmaf(al[d], xl, y[i][d]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int d = 0; d < kD1; ++d) y[i][d] = fmaf(a[d], x, y[i][d]);
-      }
+      for (int d = 0; d < kD1; ++d) y[i][d] = fmaf(a[d], x, y[i][d]);
     }
   }
 
@@ -188,22 +208,288 @@ async_combine_kernel(const float* __restrict__ buffer,
   }
 }
 
-template <bool kSplit>
-int launch(const float* buffer, const float* a_t, const float* a_lo_t, const int64_t* j_tab,
-           const int64_t* s_tab, const int64_t* lanes, float* out, int R, int64_t base0,
-           int n_out, int out_cap, int taps, int64_t M, int skew, int dc, void* stream) {
+int launch(const float* buffer, const float* a_t, const int64_t* j_tab, const int64_t* s_tab,
+           const int64_t* lanes, float* out, int R, int64_t base0, int n_out, int out_cap, int taps,
+           int64_t M, int skew, void* stream) {
   const int per_block = kWarps * kNPT;
   const dim3 grid((R + kLanes - 1) / kLanes, (out_cap + per_block - 1) / per_block);
-  const size_t smem = static_cast<size_t>(taps) * kD1 * sizeof(float) * (kSplit ? 2 : 1);
-  if (grid.y > 65535u || smem > 48 * 1024 || M < 1 || M > 0xFFFFFFFFLL || dc < 0 || dc >= kD1) {
+  const size_t smem = static_cast<size_t>(taps) * kD1 * sizeof(float);
+  if (grid.y > 65535u || smem > 48 * 1024 || M < 1 || M > 0xFFFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  async_combine_kernel<kSplit><<<grid, dim3(kLanes, kWarps), smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      buffer, a_t, a_lo_t, j_tab, s_tab, lanes, out, R, base0, n_out, out_cap, taps,
-      static_cast<uint32_t>(M), skew, dc);
+  async_combine_kernel<<<grid, dim3(kLanes, kWarps), smem, static_cast<cudaStream_t>(stream)>>>(
+      buffer, a_t, j_tab, s_tab, lanes, out, R, base0, n_out, out_cap, taps, static_cast<uint32_t>(M),
+      skew);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// B6b: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kLanes = 32;              // lanes per block: two 16-row MMA groups
+constexpr int kWarps = 8;               // 2 lane groups x 4 output slots
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSlots = kWarps / 2;
+constexpr int kStagePitch = 36;         // floats per staged f32 row
+
+// An asynchronous copy of `bytes` (0 or the size) from global to shared
+// memory; 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d += a * b: one m16n8k16 bf16 product with f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_elem, float hi_elem) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo_elem))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi_elem))) << 16);
+}
+
+// The lane's residue at output split sn (the JAX XLA step's arithmetic):
+// the wrap bit, and u = 2 rem / M - 1 rounded as written.
+__device__ __forceinline__ int residue(uint32_t res, uint32_t sn, uint32_t M, float m_f, float& u) {
+  const uint32_t t = res + sn;
+  const bool wrap = (t < res) || (t >= M);
+  const uint32_t rem = wrap ? t - M : t;
+  const float frac = __fdiv_rn(__uint2float_rn(rem), m_f);
+  u = __fsub_rn(__fmul_rn(2.0f, frac), 1.0f);
+  return wrap ? 1 : 0;
+}
+
+// T_{2 tig}(u) y0 + T_{2 tig + 1}(u) y1, the recurrence rounded as B6 does.
+__device__ __forceinline__ float cheb_pair(float u, int tig, float y0, float y1) {
+  const float u2 = __fmul_rn(2.0f, u);
+  float t_prev = 1.0f, t_cur = u, t_lo = 1.0f, t_hi = u;
+#pragma unroll
+  for (int d = 2; d < kD1; ++d) {
+    const float t_next = __fsub_rn(__fmul_rn(u2, t_cur), t_prev);
+    t_prev = t_cur;
+    t_cur = t_next;
+    if (d == 2 * tig) t_lo = t_cur;
+    if (d == 2 * tig + 1) t_hi = t_cur;
+  }
+  return fmaf(t_hi, y1, __fmul_rn(t_lo, y0));
+}
+
+// One output's A rows for a thread's two lanes: the staged window starts
+// (wrap row and frame skew folded in) and the Chebyshev arguments.
+struct Rows {
+  int a, b;
+  float u_a, u_b;
+};
+
+// frags [3][kKS][32] uint2: a_hi, a_hi_c, a_lo as B fragments; rowmap
+// [n_tiles][rows_pad], win [out_cap]: the tile plan; shared memory: the
+// bf16 arrays [4: hi0, hi1, lo0, lo1][kLanes][pitch_w] words, the f32
+// stage [rows_pad][kStagePitch] (reused for the tile's results
+// [nt][kLanes]), then the tile's win and s [nt] each.
+template <int kKS>
+__global__ void __launch_bounds__(kThreads, 2)
+tc_combine_kernel(const float* __restrict__ buffer, const uint2* __restrict__ frags,
+                  const int64_t* __restrict__ s_tab, const int64_t* __restrict__ lanes,
+                  const int* __restrict__ rowmap, const int* __restrict__ win,
+                  float* __restrict__ out, int R, int64_t base0, int n_out, int out_cap,
+                  uint32_t M, int skew, int nt, int rows_pad, int pitch_w, int vec) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* arr = smem;
+  float* stage = reinterpret_cast<float*>(smem + 4 * kLanes * pitch_w);
+  float* res_s = stage;  // [nt][kLanes], after the split
+  const int stage_words = rows_pad * kStagePitch > nt * kLanes ? rows_pad * kStagePitch : nt * kLanes;
+  int* win_s = reinterpret_cast<int*>(stage) + stage_words;
+  uint32_t* s_s = reinterpret_cast<uint32_t*>(win_s + nt);
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kLanes;
+  const int n0 = blockIdx.y * nt;
+  const int n_tile = min(nt, out_cap - n0);
+  const int n_emit = min(n_tile, n_out - n0);  // outputs this tile computes (<= 0: none)
+
+  if (n_emit > 0) {
+    // ---- stage the rows the emitted outputs read: the prefix [0, need)
+    // of the tile's row map, plus the row copy 1's last pair reads ----
+    const int* rows = rowmap + static_cast<int64_t>(blockIdx.y) * rows_pad;
+    const int need = win[n0 + n_emit - 1] + 16 * kKS + skew + 1;
+    const int words = (need + 1) >> 1;
+    const int n_rows = 2 * words + 1;
+    if (vec) {
+      for (int e = tid; e < n_rows * (kLanes / 4); e += kThreads) {
+        const int i = e >> 3, q = (e & 7) * 4;
+        const bool in = r0 + q < R;  // R % 4 == 0: four lanes in or out together
+        const float* src = in ? buffer + (base0 + rows[i]) * static_cast<int64_t>(R) + r0 + q : buffer;
+        cp_async16(stage + i * kStagePitch + q, src, in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < n_rows * kLanes; e += kThreads) {
+        const int i = e >> 5, q = e & 31;
+        const bool in = r0 + q < R;
+        const float* src = in ? buffer + (base0 + rows[i]) * static_cast<int64_t>(R) + r0 + q : buffer;
+        cp_async4(stage + i * kStagePitch + q, src, in ? 4 : 0);
+      }
+    }
+    for (int i = tid; i < n_emit; i += kThreads) {
+      win_s[i] = win[n0 + i];
+      s_s[i] = static_cast<uint32_t>(s_tab[n0 + i]);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // ---- split each sample once into the lane-major bf16 arrays: a warp
+    // takes 8 lanes x 4 words (conflict-free reads and writes) ----
+    const int chunks = (words + 3) >> 2;
+    for (int e = tid; e < chunks * 128; e += kThreads) {
+      const int lane = ((e >> 5) & 3) * 8 + ((e >> 2) & 7);
+      const int w = (e >> 7) * 4 + (e & 3);
+      if (w < words) {
+        const float* x = stage + 2 * w * kStagePitch + lane;
+        float h[3], l[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          h[k] = bf16_split_hi(x[k * kStagePitch]);
+          l[k] = __bfloat162float(bf16_split_lo(x[k * kStagePitch], h[k]));
+        }
+        uint32_t* a = arr + lane * pitch_w + w;
+        const int plane = kLanes * pitch_w;
+        a[0] = pack_bf16(h[0], h[1]);
+        a[plane] = pack_bf16(h[1], h[2]);
+        a[2 * plane] = pack_bf16(l[0], l[1]);
+        a[3 * plane] = pack_bf16(l[1], l[2]);
+      }
+    }
+    __syncthreads();
+
+    // ---- the four passes per k-step, then the combine ----
+    const int warp = tid >> 5, lane_id = tid & 31;
+    const int g = lane_id >> 2, tig = lane_id & 3;
+    const int la = 16 * (warp & 1) + g, lb = la + 8;  // the tile lanes of rows g, g + 8
+    uint32_t res_a = 0, res_b = 0;
+    int off_a = 0, off_b = 0;
+    if (r0 + la < R) {
+      res_a = static_cast<uint32_t>(lanes[r0 + la]);
+      const int64_t br = lanes[R + r0 + la];
+      off_a = (br >= 1 && br <= skew) ? static_cast<int>(br) : 0;
+    }
+    if (r0 + lb < R) {
+      res_b = static_cast<uint32_t>(lanes[r0 + lb]);
+      const int64_t br = lanes[R + r0 + lb];
+      off_b = (br >= 1 && br <= skew) ? static_cast<int>(br) : 0;
+    }
+    uint2 bh[kKS], bc[kKS], bl[kKS];
+#pragma unroll
+    for (int s = 0; s < kKS; ++s) {
+      bh[s] = frags[(0 * kKS + s) * 32 + lane_id];
+      bc[s] = frags[(1 * kKS + s) * 32 + lane_id];
+      bl[s] = frags[(2 * kKS + s) * 32 + lane_id];
+    }
+    const float m_f = __uint2float_rn(M);
+    const int plane = kLanes * pitch_w;
+    const auto rows_of = [&](int i) {
+      Rows q;
+      q.a = win_s[i] + off_a + residue(res_a, s_s[i], M, m_f, q.u_a);
+      q.b = win_s[i] + off_b + residue(res_b, s_s[i], M, m_f, q.u_b);
+      return q;
+    };
+    // the next output's rows are computed ahead, beside this one's products
+    Rows next = rows_of(min(warp >> 1, n_emit - 1));
+    for (int i = warp >> 1; i < n_emit; i += kSlots) {
+      const Rows cur = next;
+      if (i + kSlots < n_emit) next = rows_of(i + kSlots);
+      const int row_a = cur.a, row_b = cur.b;
+      const float u_a = cur.u_a, u_b = cur.u_b;
+      // copy (row & 1) holds the pair that starts at row; word row >> 1
+      const uint32_t* pa = arr + ((row_a & 1) * kLanes + la) * pitch_w + (row_a >> 1) + tig;
+      const uint32_t* pb = arr + ((row_b & 1) * kLanes + lb) * pitch_w + (row_b >> 1) + tig;
+      float acc[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kKS; ++s) {
+        const uint32_t ah[4] = {pa[8 * s], pb[8 * s], pa[8 * s + 4], pb[8 * s + 4]};
+        const uint32_t al[4] = {pa[2 * plane + 8 * s], pb[2 * plane + 8 * s],
+                                pa[2 * plane + 8 * s + 4], pb[2 * plane + 8 * s + 4]};
+        mma_bf16(acc[0], ah, bh[s]);
+        mma_bf16(acc[1], al, bc[s]);
+        mma_bf16(acc[2], ah, bl[s]);
+        mma_bf16(acc[3], al, bl[s]);
+      }
+      // c0, c1: row g (lane la), degrees 2 tig, 2 tig + 1; c2, c3: row g + 8
+      float y[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) y[q] = acc[0][q] + ((acc[1][q] + acc[2][q]) + acc[3][q]);
+      float oa = cheb_pair(u_a, tig, y[0], y[1]);
+      float ob = cheb_pair(u_b, tig, y[2], y[3]);
+      oa += __shfl_xor_sync(0xFFFFFFFFu, oa, 1);
+      ob += __shfl_xor_sync(0xFFFFFFFFu, ob, 1);
+      oa += __shfl_xor_sync(0xFFFFFFFFu, oa, 2);
+      ob += __shfl_xor_sync(0xFFFFFFFFu, ob, 2);
+      if (tig == 0) {
+        res_s[i * kLanes + la] = oa;
+        res_s[i * kLanes + lb] = ob;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- whole rows of out: emitted outputs from shared memory, the rest
+  // selected to zero ----
+  if (vec) {
+    for (int e = tid; e < n_tile * (kLanes / 4); e += kThreads) {
+      const int i = e >> 3, q = (e & 7) * 4;
+      if (r0 + q < R) {
+        const float4 v = i < n_emit ? *reinterpret_cast<const float4*>(res_s + i * kLanes + q)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<float4*>(out + static_cast<int64_t>(n0 + i) * R + r0 + q) = v;
+      }
+    }
+  } else {
+    for (int e = tid; e < n_tile * kLanes; e += kThreads) {
+      const int i = e >> 5, q = e & 31;
+      if (r0 + q < R) out[static_cast<int64_t>(n0 + i) * R + r0 + q] = i < n_emit ? res_s[i * kLanes + q] : 0.0f;
+    }
+  }
+}
+
+template <int kKS>
+int tc_launch(const float* buffer, const uint2* frags, const int64_t* s_tab, const int64_t* lanes,
+              const int* rowmap, const int* win, float* out, int R, int64_t base0, int n_out,
+              int out_cap, uint32_t M, int skew, int nt, int rows_pad, int pitch_w, int vec,
+              cudaStream_t stream) {
+  const size_t stage = static_cast<size_t>(rows_pad) * kStagePitch;
+  const size_t smem = 4 * (4 * static_cast<size_t>(kLanes) * pitch_w +
+                           (stage > static_cast<size_t>(nt) * kLanes ? stage : static_cast<size_t>(nt) * kLanes) +
+                           2 * static_cast<size_t>(nt));
+  const dim3 grid((R + kLanes - 1) / kLanes, (out_cap + nt - 1) / nt);
+  if (smem > 232448 || grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err = cudaFuncSetAttribute(tc_combine_kernel<kKS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc_combine_kernel<kKS><<<grid, kThreads, smem, stream>>>(buffer, frags, s_tab, lanes, rowmap, win, out,
+                                                           R, base0, n_out, out_cap, M, skew, nt, rows_pad,
+                                                           pitch_w, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -217,18 +503,39 @@ extern "C" int fir_async_combine(const float* buffer, const float* a_t,
                                  const int64_t* lanes, float* out, int R,
                                  int64_t base0, int n_out, int out_cap,
                                  int taps, int64_t M, int skew, void* stream) {
-  return launch<false>(buffer, a_t, nullptr, j_tab, s_tab, lanes, out, R, base0, n_out,
-                       out_cap, taps, M, skew, 0, stream);
+  return launch(buffer, a_t, j_tab, s_tab, lanes, out, R, base0, n_out, out_cap, taps, M, skew,
+                stream);
 }
 
-// B6b: a_hi_t, a_lo_t [taps, 8] f32 holding bf16 values (a_lo zero past
-// degree dc); dc the last degree that takes the correction products.
-extern "C" int fir_async_combine_bf16x4(const float* buffer, const float* a_hi_t,
-                                        const float* a_lo_t, const int64_t* j_tab,
+// B6b: frags [3][taps / 16][32][2] uint32, the B fragments of a_hi, a_hi_c
+// and a_lo (ops/fir_async_kernel.py b_fragments); s [out_cap] int64; rowmap
+// [n_tiles][rows_pad], win [out_cap] int32 (AsyncTilePlan: nt outputs per
+// tile, pitch_w words per lane of each bf16 array); vec: R % 4 == 0 and a
+// 16-byte aligned buffer.
+extern "C" int fir_async_combine_bf16x4(const float* buffer, const void* frags,
                                         const int64_t* s_tab, const int64_t* lanes,
-                                        float* out, int R, int64_t base0, int n_out,
-                                        int out_cap, int taps, int64_t M, int skew,
-                                        int dc, void* stream) {
-  return launch<true>(buffer, a_hi_t, a_lo_t, j_tab, s_tab, lanes, out, R, base0, n_out,
-                      out_cap, taps, M, skew, dc, stream);
+                                        const int* rowmap, const int* win, float* out, int R,
+                                        int64_t base0, int n_out, int out_cap, int taps,
+                                        int64_t M, int skew, int nt, int rows_pad, int pitch_w,
+                                        int vec, void* stream) {
+  if (M < 1 || M > 0xFFFFFFFFLL || nt < 1 || skew < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto* f = static_cast<const uint2*>(frags);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const uint32_t m = static_cast<uint32_t>(M);
+  switch (taps) {
+    case 16:
+      return tc::tc_launch<1>(buffer, f, s_tab, lanes, rowmap, win, out, R, base0, n_out, out_cap, m, skew,
+                              nt, rows_pad, pitch_w, vec, st);
+    case 32:
+      return tc::tc_launch<2>(buffer, f, s_tab, lanes, rowmap, win, out, R, base0, n_out, out_cap, m, skew,
+                              nt, rows_pad, pitch_w, vec, st);
+    case 64:
+      return tc::tc_launch<4>(buffer, f, s_tab, lanes, rowmap, win, out, R, base0, n_out, out_cap, m, skew,
+                              nt, rows_pad, pitch_w, vec, st);
+    case 128:
+      return tc::tc_launch<8>(buffer, f, s_tab, lanes, rowmap, win, out, R, base0, n_out, out_cap, m, skew,
+                              nt, rows_pad, pitch_w, vec, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
 }

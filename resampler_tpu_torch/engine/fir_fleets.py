@@ -40,12 +40,14 @@ from ..ops.fir_async_kernel import (
 from ..ops.fir_dma_kernel import (
     BandPlan,
     dma_banded_contract,
+    dma_banded_contract_reference,
     dma_farrow_contract,
     dma_farrow_contract_packed,
+    dma_farrow_contract_reference,
 )
 from ..ops.fir_kernel import FleetStepPlan, SpareBuffer
 from ..ops.fir_sync_kernel import fir_fleet_step_sync
-from ..ops.matmul3 import matmul3, split_weight
+from ..ops.matmul3 import matmul3, matmul3_reference, split_weight
 from .fir import (
     FARROW_DEGREE,
     FirConfig,
@@ -242,6 +244,8 @@ def make_fir_fleet_step_sync_tm(
     horizon: int = 16,
     precision: str = "highest",
     path: str = "auto",
+    contraction: str = "auto",
+    mesh=None,
     out_layout: str = "bm",
     device="cuda",
 ):
@@ -252,8 +256,22 @@ def make_fir_fleet_step_sync_tm(
     for ``out_layout="bm"`` or the raw time-major ``[out_cap, B*C]`` for
     ``"tm"``.  Per-stream semantics equal ``make_fir_step``.
 
-    On a CUDA device the contraction always launches a kernel (B1, B7, B2
-    or B3); on the CPU it runs that kernel's plain PyTorch version.
+    ``contraction`` (the JAX package's keyword, resolved as there):
+
+    - ``"auto"``: on a CUDA device the contraction launches a kernel (B1,
+      B7, B2 or B3); on the CPU it runs that kernel's plain PyTorch
+      version.
+    - ``"dma"``: the f32 contraction kernel whatever ``precision`` says
+      (B1 on the periodic path, B2/B3 on farrow and lerp), launched; it
+      raises off a CUDA device.
+    - ``"dma_interpret"``: the plain version of that f32 contraction, on
+      any device (the TPU's interpret mode runs a kernel's reference).
+    - ``"xla"``: the plain version of the contraction ``precision``
+      selects, on any device (B1's, or B7's in four passes for
+      ``"bf16x4"``; B2/B3's on farrow and lerp).
+
+    ``mesh`` (the JAX package's stream sharding) raises
+    ``NotImplementedError`` (ROADMAP A11).
 
     - ``path="periodic"``: small-M families (reduced M < 128) contract
       against a grouped ``(gL, gM)`` atlas whose rows are bit-identical
@@ -273,8 +291,14 @@ def make_fir_fleet_step_sync_tm(
       fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring.
       ``precision`` does not apply there (the JAX package's farrow
       contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3."""
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP A11)")
     if precision not in ("highest", "bf16x4"):
         raise ValueError(f"precision must be 'highest' or 'bf16x4', not {precision!r}")
+    if contraction not in ("auto", "xla", "dma", "dma_interpret"):
+        raise ValueError(
+            f"contraction must be 'auto', 'xla', 'dma' or 'dma_interpret', not {contraction!r}"
+        )
     if resolve_convolve_path(config, path) == "gather":
         raise ValueError(
             "synchronized tm fleet step supports the periodic, farrow and "
@@ -287,6 +311,17 @@ def make_fir_fleet_step_sync_tm(
             f"(time-major [out_cap, B*C]), not {out_layout!r}"
         )
     device = resolve_device(device)
+    if contraction == "dma" and device.type != "cuda":
+        raise ValueError(
+            f"contraction='dma' launches the CUDA kernels, and the device is {device}; "
+            "use 'dma_interpret' or 'xla' for their plain versions"
+        )
+    # "dma" and "dma_interpret" take the f32 contraction whatever precision
+    # says (the JAX package's dispatch); "xla" and the interpret mode run
+    # the plain versions on any device
+    if contraction in ("dma", "dma_interpret"):
+        precision = "highest"
+    plain = contraction in ("xla", "dma_interpret")
     L, M, taps = config.ratio_num, config.ratio_den, config.taps
     C = config.channels
     B = n_streams
@@ -329,20 +364,26 @@ def make_fir_fleet_step_sync_tm(
                 # output [K, Mg, R] written as [K, R, Mg]: views, no copies
                 x = buffer[base:].as_strided((K, R, span), (Lg * R, 1, R))
                 out = buffer.new_empty((K, Mg, R))
-                matmul3(x, _atlas_window(t_hi, c0, i0, span, Mg), _atlas_window(t_lo, c0, i0, span, Mg),
-                        passes=4, out=out.permute(0, 2, 1))
+                (matmul3_reference if plain else matmul3)(
+                    x, _atlas_window(t_hi, c0, i0, span, Mg), _atlas_window(t_lo, c0, i0, span, Mg),
+                    passes=4, out=out.permute(0, 2, 1))
             else:
                 a = a2_t[c0 : c0 + span, i0 : i0 + Mg].T  # [Mg, span] view
-                out = dma_banded_contract(
-                    buffer, base, a, L=Lg, M=Mg, span=span, K=K, band=(band_plan, i0)
-                )  # [K, Mg, R]
+                geo = dict(L=Lg, M=Mg, span=span, K=K)
+                if plain:
+                    out = dma_banded_contract_reference(buffer, base, a, **geo)
+                else:
+                    out = dma_banded_contract(buffer, base, a, band=(band_plan, i0), **geo)  # [K, Mg, R]
             return out.reshape(K * Mg, R)[:out_cap]
 
     else:
         fp = _farrow_tm_plan(config, coeffs, basis="lerp" if path == "lerp" else "cheb")
         region_rows = fp["region_rows"]
         ashift2 = torch.from_numpy(fp["ashift2"]).to(device)  # [d1*n_jl, w_blk]
-        kernel = dma_farrow_contract if fp["q"] >= 8 else dma_farrow_contract_packed
+        if plain:
+            kernel = dma_farrow_contract_reference
+        else:
+            kernel = dma_farrow_contract if fp["q"] >= 8 else dma_farrow_contract_packed
 
         def contract(buffer, start: int, pos, avail: int):
             # the wide base is clamped to the buffered frames, the narrow

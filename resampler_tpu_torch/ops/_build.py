@@ -68,9 +68,9 @@ _SIGNATURES = {
     "fft_magsplit_projector": [_P, _P, _P, _P] + [_I] * 12 + [_P],
     # buffer, a_t, j, s, lanes, out, R, base0, n_out, out_cap, taps, M, skew, stream
     "fir_async_combine": [_P] * 6 + [_I, _I64, _I, _I, _I, _I64, _I, _P],
-    # buffer, a_hi_t, a_lo_t, j, s, lanes, out, R, base0, n_out, out_cap, taps,
-    # M, skew, degrees corrected, stream
-    "fir_async_combine_bf16x4": [_P] * 7 + [_I, _I64, _I, _I, _I, _I64, _I, _I, _P],
+    # buffer, frags, s, lanes, rowmap, win, out, R, base0, n_out, out_cap,
+    # taps, M, skew, outputs per tile, rows_pad, pitch_w, vec, stream
+    "fir_async_combine_bf16x4": [_P] * 7 + [_I, _I64, _I, _I, _I, _I64] + [_I] * 5 + [_P],
     # x, x_hi, x_lo, batch, M, K, Kp, x strides (b, m, k), stream
     "matmul3_split": [_P] * 3 + [_I] * 4 + [_I64] * 3 + [_P],
     # x_hi, x_lo, t_hi, t_lo, out, batch, M, N, K, Kp, t row stride, out

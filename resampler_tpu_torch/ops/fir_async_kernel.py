@@ -41,6 +41,13 @@ the kernel and f64 in the plain version.
   ``async_combine_reference``, the plain PyTorch version (the XLA step's
   region select, banded einsum, wrap takes and Chebyshev combine), runs for
   CPU tensors.  There is no fallback between the two.
+- ``AsyncTilePlan`` (B6b's, ``plan.tiles``) cuts the outputs into tiles
+  and lists, per tile, the ring rows its block stages (the union of its
+  outputs' windows, in order) and where each output's window starts among
+  them; ``b_fragments`` packs the split basis as the tensor cores'
+  B operand.  B6b runs on the bf16 tensor cores (``mma.sync`` m16n8k16,
+  f32 sums): each MMA row is one lane of one output, its 16 columns 16
+  taps of that output's window, its 8 columns of B the basis degrees.
 
 What does not carry over from the TPU kernel: the per-block atlas and its
 shift/dual forms, the 8-row DMA remainder switch (Mosaic cannot gather;
@@ -57,11 +64,12 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import LAUNCHES, device_kind, launch
-from .matmul3 import bf16_round_np, split_hi_lo
+from ._build import LAUNCHES, SMEM_MAX, device_kind, launch
+from .matmul3 import bf16_bits_np, bf16_round_np, split_hi_lo
 
 __all__ = [
-    "AsyncCombinePlan", "async_combine", "async_combine_plan", "async_combine_reference", "degree_cut",
+    "AsyncCombinePlan", "AsyncTilePlan", "async_combine", "async_combine_plan", "async_combine_reference",
+    "b_fragments", "degree_cut",
 ]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -71,6 +79,17 @@ _LB = 64
 #: correction products are dropped for basis rows at or below this share
 #: of the basis maximum (the TPU kernel's degree cut)
 _DEGREE_CUT = 1e-3
+#: B6b's block: 32 lanes (two 16-row MMA groups) by one tile of outputs
+TC_LANES = 32
+#: ring rows one B6b block stages at most (2 blocks of 8 warps fit an SM)
+TC_ROWS_MAX = 320
+#: outputs per tile, the largest whose tiles stage at most TC_ROWS_MAX rows
+#: (on an H100 128 ran faster than 64, and 64 than 32: each block's
+#: staging is a fixed cost)
+TC_TILE_OUTPUTS = (128, 64, 32, 16, 8, 4, 2, 1)
+#: floats per staged f32 row in shared memory (the lanes, padded so the
+#: split pass reads without bank conflicts)
+TC_STAGE_PITCH = 36
 
 
 def degree_cut(A) -> int:
@@ -84,6 +103,82 @@ def degree_cut(A) -> int:
     while dc > 0 and rel[dc] <= _DEGREE_CUT:
         dc -= 1
     return dc
+
+
+class AsyncTilePlan:
+    """B6b's output tiles.  An output ``n`` of a lane with frame skew
+    ``off`` in ``[0, skew]`` and wrap bit ``c`` reads the ring rows
+    ``base0 + j[n] + off + c + t``, ``t < taps``: all within its window
+    ``[j[n], j[n] + window)``, ``window = taps + skew + 1``.  Tiles of
+    ``outputs`` consecutive outputs (the largest of ``TC_TILE_OUTPUTS``
+    whose every tile stages at most ``TC_ROWS_MAX`` rows: 128 where ``j``
+    steps by about one row, 2 at 367500 -> 1601 where the windows are
+    disjoint) stage the union of their outputs' windows, in order:
+
+    - ``rowmap [n_tiles, rows_pad]`` int32: the ring rows (relative to
+      ``base0``) of a tile's staged rows, padded with its last row;
+    - ``win [out_cap]`` int32: where output ``n``'s window starts among
+      its tile's staged rows, so it reads staged rows ``win[n] + off + c
+      + t``; the parity of that start picks the kernel's shifted copy.
+
+    The kernel stages only the prefix that the tile's outputs below
+    ``n_out`` read."""
+
+    def __init__(self, j, taps: int, skew: int):
+        j = np.asarray(j, np.int64)
+        if j.ndim != 1 or j.size < 1 or np.any(np.diff(j) < 0) or j[0] < 0:
+            raise ValueError("j must be a non-empty, non-decreasing table of rows >= 0")
+        if taps not in (16, 32, 64, 128):
+            raise ValueError(f"B6b's tensor-core tiles take 16, 32, 64 or 128 taps, got {taps}")
+        self.taps, self.skew = int(taps), int(skew)
+        self.window = self.taps + self.skew + 1
+        if self.skew < 1 or self.window > TC_ROWS_MAX:
+            raise ValueError(f"a window of {self.window} rows (skew {skew}) exceeds {TC_ROWS_MAX}")
+        for nt in TC_TILE_OUTPUTS:
+            tiles = [self._union(j[n0 : n0 + nt]) for n0 in range(0, j.size, nt)]
+            if max(rows.size for rows, _ in tiles) <= TC_ROWS_MAX:
+                break
+        self.outputs = nt
+        self.n_tiles = len(tiles)
+        self.rows = max(rows.size for rows, _ in tiles)
+        # even, plus the row the shifted copy's last pair reads
+        self.rows_pad = -(-self.rows // 2) * 2 + 2
+        self.rowmap = np.stack([np.pad(rows, (0, self.rows_pad - rows.size), mode="edge")
+                                for rows, _ in tiles]).astype(np.int32)
+        self.win = np.concatenate([w for _, w in tiles]).astype(np.int32)
+        # 32-bit words per lane of each bf16 array: pairs of rows, the pitch
+        # = 4 mod 8 words, so a warp's fragment loads (8 lanes x 4 words)
+        # meet 32 banks
+        half = self.rows_pad // 2
+        self.pitch_w = half + (4 - half) % 8
+        # the bf16 arrays, the f32 stage (later the tile's results), the
+        # tile's win and s
+        self.smem_bytes = 4 * (4 * TC_LANES * self.pitch_w
+                               + max(self.rows_pad * TC_STAGE_PITCH, self.outputs * TC_LANES) + 2 * self.outputs)
+        if self.smem_bytes > SMEM_MAX:
+            raise ValueError(f"B6b's tiles need {self.smem_bytes} B of shared memory")
+
+    def _union(self, jt: np.ndarray):
+        rows = np.unique((jt[:, None] + np.arange(self.window)).ravel())
+        return rows, np.searchsorted(rows, jt)
+
+
+def b_fragments(bases) -> np.ndarray:
+    """The tensor cores' B operand: bf16-valued bases ``[d1 = 8, taps]``
+    packed as ``mma.sync`` m16n8k16 fragments, ``[len(bases), taps/16,
+    32, 2]`` uint32.  Thread ``4g + t`` of k-step ``s`` holds degree
+    ``g`` at taps ``16s + 2t, +1`` (word 0) and ``16s + 2t + 8, +9``
+    (word 1), the lower tap in the low half."""
+    out = []
+    for a in bases:
+        bits = bf16_bits_np(np.asarray(a, np.float32)).astype(np.uint32)  # [8, taps]
+        d1, taps = bits.shape
+        t = np.arange(4)
+        cols = np.stack([np.stack([2 * t, 2 * t + 1], -1), np.stack([2 * t + 8, 2 * t + 9], -1)], 1)  # [4, 2, 2]
+        ks = bits.reshape(d1, taps // 16, 16)[:, :, cols]  # [8, ks, 4, 2, 2]
+        words = ks[..., 0] | (ks[..., 1] << 16)  # [8 (g), ks, 4 (t), 2]
+        out.append(words.transpose(1, 0, 2, 3).reshape(taps // 16, 32, 2))
+    return np.stack(out)
 
 
 class AsyncCombinePlan:
@@ -118,15 +213,30 @@ class AsyncCombinePlan:
         self.a_hi = bf16_round_np(self.A)
         self.a_lo = bf16_round_np(self.A - self.a_hi)
         self.a_lo[self.dc + 1 :] = 0.0
+        # a_hi on the degrees that take corrections, zero on the rest
+        self.a_hi_c = np.where(np.arange(self.d1)[:, None] <= self.dc, self.a_hi, 0.0).astype(np.float32)
         # the plain version's banded atlases: ab[p*d1 + d, p + t] = A[d, t]
         self._ab = {name: self._banded(a) for name, a in (
-            ("ab", self.A), ("ab_hi", self.a_hi), ("ab_lo", self.a_lo),
-            # a_hi on the degrees that take corrections, zero on the rest
-            ("ab_hi_c", np.where(np.arange(self.d1)[:, None] <= self.dc, self.a_hi, 0.0)),
+            ("ab", self.A), ("ab_hi", self.a_hi), ("ab_lo", self.a_lo), ("ab_hi_c", self.a_hi_c),
         )}
         p_pad = -(-(int(self.j[-1]) + 2) // _LB) * _LB
         self.reach = p_pad + self.taps - 1 + self.skew
+        self._tiles = None
         self._dev: dict = {}
+
+    @property
+    def tiles(self) -> AsyncTilePlan:
+        """B6b's tile plan (built on first use; it raises where the
+        tensor-core kernel does not take the fleet's taps or skew)."""
+        if self._tiles is None:
+            self._tiles = AsyncTilePlan(self.j, self.taps, self.skew)
+        return self._tiles
+
+    @property
+    def frags(self) -> np.ndarray:
+        """B6b's B operand: ``a_hi``, ``a_hi_c``, ``a_lo`` as
+        ``b_fragments``, in the order of the kernel's four passes' bases."""
+        return b_fragments((self.a_hi, self.a_hi_c, self.a_lo))
 
     def _banded(self, a: np.ndarray) -> np.ndarray:
         ab = np.zeros((_LB * self.d1, _LB + self.taps - 1), np.float32)
@@ -138,10 +248,9 @@ class AsyncCombinePlan:
         """The tables on ``device``, uploaded once."""
         tabs = self._dev.get(device)
         if tabs is None:
-            host = dict(
-                a_t=self.A.T, a_hi_t=self.a_hi.T, a_lo_t=self.a_lo.T, j=self.j, s=self.s,
-                **self._ab,
-            )
+            host = dict(a_t=self.A.T, j=self.j, s=self.s, **self._ab)
+            if self.precision == "bf16x4" and device.type == "cuda":
+                host.update(frags=self.frags.view(np.int32), rowmap=self.tiles.rowmap, win=self.tiles.win)
             tabs = self._dev[device] = {
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()
             }
@@ -190,9 +299,16 @@ def async_combine_reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCo
     basis-response einsum (f32; for B6b the split products, exact, summed
     in f64 and rounded once), the takes at ``j`` and ``j + 1``, the select
     on the wrap bit and the Chebyshev combine.  ``[out_cap, R]``."""
+    return _reference(buffer, base0, n_out, lanes, plan, torch.float32)
+
+
+def _reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan, dtype):
+    """``async_combine_reference`` with B6b's responses and the combine in
+    ``dtype`` (float64: the exact sums, the CPU tests' yardstick for the
+    tensor-core tiling)."""
     _check(buffer, base0, n_out, lanes, plan)
     R = buffer.shape[1]
-    out = buffer.new_zeros((plan.out_cap, R))
+    out = buffer.new_zeros((plan.out_cap, R), dtype=dtype)
     if n_out == 0:
         return out
     tabs = plan.tables(buffer.device)
@@ -204,7 +320,7 @@ def async_combine_reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCo
     wrap = (t < res[None, :]) | (t >= plan.M)
     rem = torch.where(wrap, (t - plan.M) & _U32, t)
     frac = rem.to(torch.float32) / torch.tensor(np.float32(plan.M), device=buffer.device)
-    u = 2.0 * frac - 1.0
+    u = (2.0 * frac - 1.0).to(dtype)
     ts = [torch.ones_like(u), u]
     for _ in range(plan.d1 - 2):
         ts.append(2.0 * u * ts[-1] - ts[-2])
@@ -226,9 +342,9 @@ def async_combine_reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCo
         y = (
             torch.einsum("qs,ksr->kqr", ab_hi, hi) + torch.einsum("qs,ksr->kqr", ab_hi_c, lo)
             + torch.einsum("qs,ksr->kqr", ab_lo, hi) + torch.einsum("qs,ksr->kqr", ab_lo, lo)
-        ).to(torch.float32)
+        ).to(dtype)
     else:
-        y = torch.einsum("qs,ksr->kqr", tabs["ab"], segs)
+        y = torch.einsum("qs,ksr->kqr", tabs["ab"], segs).to(dtype)
     y = y.reshape(p_pad, plan.d1, R)
 
     # ---- wrap select and Chebyshev combine ----
@@ -249,18 +365,24 @@ def async_combine(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan)
     R = buffer.shape[1]
     tabs = plan.tables(buffer.device)
     out = torch.empty((plan.out_cap, R), dtype=torch.float32, device=buffer.device)
-    common = (
-        _P(tabs["j"].data_ptr()), _P(tabs["s"].data_ptr()), _P(lanes.data_ptr()), _P(out.data_ptr()),
-        _I(R), _I64(base0), _I(n_out), _I(plan.out_cap), _I(plan.taps), _I64(plan.M), _I(plan.skew),
-    )
     if plan.precision == "bf16x4":
+        tp = plan.tiles
+        # 16-byte ring copies and output stores need a lane count and row
+        # pitch that keep them aligned
+        vec = int(R % 4 == 0 and buffer.data_ptr() % 16 == 0)
         launch(
-            "fir_async_combine_bf16x4", buffer.device, _P(buffer.data_ptr()),
-            _P(tabs["a_hi_t"].data_ptr()), _P(tabs["a_lo_t"].data_ptr()), *common, _I(plan.dc),
+            "fir_async_combine_bf16x4", buffer.device, _P(buffer.data_ptr()), _P(tabs["frags"].data_ptr()),
+            _P(tabs["s"].data_ptr()), _P(lanes.data_ptr()), _P(tabs["rowmap"].data_ptr()),
+            _P(tabs["win"].data_ptr()), _P(out.data_ptr()), _I(R), _I64(base0), _I(n_out),
+            _I(plan.out_cap), _I(plan.taps), _I64(plan.M), _I(plan.skew), _I(tp.outputs), _I(tp.rows_pad),
+            _I(tp.pitch_w), _I(vec),
         )
         LAUNCHES["async_combine_bf16x4"] += 1
     else:
-        launch("fir_async_combine", buffer.device, _P(buffer.data_ptr()), _P(tabs["a_t"].data_ptr()),
-               *common)
+        launch(
+            "fir_async_combine", buffer.device, _P(buffer.data_ptr()), _P(tabs["a_t"].data_ptr()),
+            _P(tabs["j"].data_ptr()), _P(tabs["s"].data_ptr()), _P(lanes.data_ptr()), _P(out.data_ptr()),
+            _I(R), _I64(base0), _I(n_out), _I(plan.out_cap), _I(plan.taps), _I64(plan.M), _I(plan.skew),
+        )
         LAUNCHES["async_combine"] += 1
     return out

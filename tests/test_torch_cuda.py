@@ -610,10 +610,15 @@ def test_matmul3_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_hz,out_hz,R", [(44100, 44101, 256), (4_000_000_000, 4_000_000_001, 128),
-                                            (48000, 44101, 6)])
-def test_async_bf16x4_kernel_matches_plain_on_card(cuda, in_hz, out_hz, R):
-    """B6b against its plain version at every ``n_out`` bound."""
+@pytest.mark.parametrize(
+    "in_hz,out_hz,R,skew,starved",
+    [(44100, 44101, 256, 1, False), (4_000_000_000, 4_000_000_001, 128, 1, False), (48000, 44101, 6, 1, False),
+     (367500, 1601, 128, 1, False), (22050, 96000, 128, 2, False), (44100, 44101, 128, 1, True)],
+    ids=["a", "d-wide", "c-ragged-R6", "e-disjoint-windows", "b-skew2", "g-starved"],
+)
+def test_async_bf16x4_kernel_matches_plain_on_card(cuda, in_hz, out_hz, R, skew, starved):
+    """B6b against its plain version at every ``n_out`` bound; a starved
+    state's frame skew past ``skew_periods`` reads offset 0."""
     L, M = rt.types.reduce_ratio(in_hz, out_hz)
     cfg = tfir.FirConfig(channels=1, taps=128, ratio_num=L, ratio_den=M)
     coeffs = tfir.fir_coefficients(
@@ -621,12 +626,14 @@ def test_async_bf16x4_kernel_matches_plain_on_card(cuda, in_hz, out_hz, R):
     )
     out_cap = min(cfg.out_capacity, 512 * M // L + 64)
     plan = b6.async_combine_plan(
-        A=tfir.farrow_matrix(coeffs)[0], L=L, M=M, out_cap=out_cap, skew_periods=1,
+        A=tfir.farrow_matrix(coeffs)[0], L=L, M=M, out_cap=out_cap, skew_periods=skew,
         clamp_j=cfg.input_capacity + 2 if cfg.wide else None, precision="bf16x4",
     )
     rng = np.random.default_rng(10)
     buf = torch.from_numpy(rng.standard_normal((plan.reach + 9, R), dtype=np.float32)).to(cuda)
-    lanes = torch.from_numpy(np.stack([rng.integers(0, M, R), rng.integers(0, 2, R)])).to(cuda)
+    base_rel = rng.integers(0, skew + 1 + (6 if starved else 0), R)
+    assert (base_rel.max() > skew) == starved
+    lanes = torch.from_numpy(np.stack([rng.integers(0, M, R), base_rel])).to(cuda)
     before = dict(kern.LAUNCHES)
     for base0, n_out in ((0, out_cap), (9, out_cap // 2), (3, 1), (5, 0)):
         got = b6.async_combine(buf, base0, n_out, lanes, plan)
@@ -700,3 +707,43 @@ def test_fft_matmul_fleet_on_card_through_b7(cuda):
     assert kern.LAUNCHES == dict({k: 0 for k in kern.LAUNCHES}, matmul3=7)
     ref = b7_fft_plain("matmul", torch.from_numpy(xs).reshape(7, B * C, n_in), n_in, n_out)
     assert (got.reshape(7, B * C, n_out) - ref).abs().max().item() <= KERNEL_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_hz,out_hz,kname", [(44100, 48000, "dma_banded_contract"),
+                                                (44100, 44101, "dma_farrow_contract")])
+def test_tm_contraction_keyword_on_card(cuda, in_hz, out_hz, kname):
+    """The tm step's ``contraction=`` on the card: ``"dma"`` launches the f32
+    kernel (B1, B2) whatever the precision, ``"xla"`` and ``"dma_interpret"``
+    run the plain versions on the card's tensors (no launch); the same ints,
+    and samples within the kernel tolerance of ``"dma"``."""
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=2, taps=64, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(64, rt.Attenuation.Db90, tfir.fir_cutoff(64, rt.Attenuation.Db90, in_hz / out_hz))
+    kw = dict(max_chunk=512, horizon=3, out_layout="tm", device=cuda)
+    B = 4
+    fleets = {
+        name: (fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, precision="bf16x4", contraction=name, **kw),
+               fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=512, horizon=3, device=cuda))
+        for name in ("dma", "xla", "dma_interpret")
+    }
+    rng = np.random.default_rng(13)
+    launched = 0
+    for _ in range(6):
+        chunk = torch.from_numpy(rng.standard_normal((512, B * 2), dtype=np.float32)).to(cuda)
+        outs = {}
+        for name, (step, state) in fleets.items():
+            before = dict(kern.LAUNCHES)
+            state, out, c, p = step(state, chunk, 512)
+            fleets[name] = (step, state)
+            outs[name] = (out, c, p)
+            grew = {k for k in kern.LAUNCHES if kern.LAUNCHES[k] != before[k]}
+            assert grew == ({kname} if name == "dma" and p else set())
+            launched += name == "dma" and p > 0
+        torch.cuda.synchronize()
+        assert outs["dma"][1:] == outs["xla"][1:] == outs["dma_interpret"][1:]
+        p = outs["dma"][2]
+        for name in ("xla", "dma_interpret"):
+            assert (outs[name][0][:p] - outs["dma"][0][:p]).abs().max().item() <= (
+                BF16X4_VS_F32_ATOL if name == "xla" and kname == "dma_banded_contract" else KERNEL_ATOL)
+    assert launched >= 4
