@@ -28,10 +28,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    fleet call runs the band kernel alone; the bound is the taps-wide work;
    one PyTorch ``matmul`` over the overlapping window view beside it.  B4
    and B5 at 8192 stereo streams (R 16384) of 1176 -> 1280 and 588 ->
-   1280, the ragged 1280 -> 1176 at R 2 and 37, B5 over a P = 8 pool;
-   a NaN row confined to its row, the noise floor against the f64
-   operator, and one f32 ``torch.matmul`` by the dense T2 as the library
-   yardstick;
+   1280, the ragged 1280 -> 1176 (cols 294) at R 2 and 37, 1280 -> 3528
+   (cols 882) at R 4099, 2560 -> 2352 (s 8) at R 1027 and 3528 -> 1280
+   (rows 4410) at R 130, B5 over a P = 8 pool; a NaN row confined to its
+   row, an Inf and a NaN just outside a group's band leaving that group
+   finite, the noise floor against the f64 operator; ptxas's registers
+   and spills (none), wgmma (HGMMA) and TMA (UTMALDG) in the SASS; the
+   refusals (N % 4 != 0, a foreign t2h half); at the bench pair the
+   work the kernel issues and the bytes it stages from L2, B7 (three
+   passes) at the same projector in turns with B4, and one f32
+   ``torch.matmul`` by the dense T2 as the library yardstick;
 4. full width, 1024 stereo streams, Latency.Sample64 / Attenuation.Db90,
    max_chunk 4096, horizon 16, 40 ``resample`` calls and one
    ``resample_many`` of T = 8 per path: 44.1 -> 48 kHz (periodic, B1),
@@ -849,12 +855,79 @@ def sums_in_f32(prev, cur, wh, wcorr, plan):
     return torch.cat(outs, dim=1)
 
 
+def b4_build_report() -> None:
+    """B4/B5's kernel as built: ptxas's registers, shared memory and spills
+    (none), the dynamic shared memory, and ``wgmma`` (``HGMMA``) and TMA
+    (``UTMALDG``) in the library's SASS."""
+    log = _build.build_log()
+    section = log[log.find("== fft_magsplit.cu"):].split("\n== ")[0]
+    for line in section.splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"[3] B4 ptxas magsplit_kernel: {line.strip()}")
+            check("spill" not in line or " 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"B4's kernel spills: {line.strip()}")
+    if "magsplit_kernel" not in section:
+        print("[3] B4 ptxas: not in the build log (cached build)")
+    else:
+        print(f"[3] B4 ptxas: {section.count('warpgroup.arrive is injected')} wgmma fences injected by ptxas "
+              f"for the register A operands (C7519)")
+    libs = _build.build()
+    print(f"[3] B4/B5: {libs['fft_magsplit_smem'].fft_magsplit_smem()} bytes of dynamic shared memory per "
+          f"block; ptxas's count is the 384-thread launch bound's, setmaxnreg then gives the consumer "
+          f"warpgroups 232 registers and the producer 40")
+    counts, where = sass_counts(libs["fft_magsplit_projector"]._name, ("HGMMA", "UTMALDG"),
+                                SOURCES["magsplit_projector"][0], ("wgmma.mma_async", "cp.async.bulk.tensor"))
+    check(all(counts.values()), f"B4's wgmma and TMA instructions in {where}: {counts}")
+    print(f"[3] B4 in {where}: {counts}")
+
+
+def magsplit_refusals(device) -> None:
+    """The card's B4 refuses what its TMA maps and packed weights cannot
+    take, with ValueError, and never runs the plain version instead: N not
+    a multiple of 4 (390 -> 384), and a ``wcorr`` whose t2h half is not
+    ``wh``'s slice."""
+    before = dict(_build.LAUNCHES)
+    plan = mag.plan_magsplit(390, 384)
+    x = torch.randn((16, 390), device=device)
+    cases = [("N = 390", x, *mag.magsplit_weights(plan, device), plan, "multiple of 4")]
+    plan = mag.plan_magsplit(1176, 1280)
+    wh, wcorr = mag.magsplit_weights(plan, device)
+    bad = wcorr.clone()
+    bad[1, plan.wc + 3, 7] = 1.0
+    cases.append(("a foreign t2h half", torch.randn((16, 1176), device=device), wh, bad, plan, "t2h"))
+    for what, x, wh, wcorr, plan, rule in cases:
+        try:
+            mag.magsplit_projector(x, x, wh, wcorr, plan=plan)
+        except ValueError as e:
+            check(rule in str(e), f"B4 refuses {what}: {e}")
+        else:
+            raise RuntimeError(f"FAILED: B4 took {what}")
+    check(_build.LAUNCHES == before, "a refused call launches nothing")
+    print("[3] B4 refuses N % 4 != 0 (390 -> 384) and a foreign t2h half with ValueError; nothing launched")
+
+
+def out_of_band(pool_prev, pool_cur, plan):
+    """``prev``, ``cur`` with an Inf in row 0 just past group 0's band (x2
+    column rows + 2: the tail of group 0's last tile) and a NaN in the last
+    row just before group 1's band (x2 column bps * lp - 1: the head of
+    group 1's first tile where that is not on 4 columns)."""
+    x2 = torch.cat([pool_prev, pool_cur], dim=1)
+    x2[0, plan.rows + 2] = float("inf")
+    x2[-1, plan.bps * plan.lp - 1] = float("nan")
+    n = plan.n_in
+    return x2[:, :n].contiguous(), x2[:, n:].contiguous()
+
+
 def phase_magsplit_kernels(device, cases, timed):
-    """B4 and B5 against their plain version, NaN confinement and the
-    noise floor at every ``(n_in, n_out, R)`` case; times, bound and the
-    library yardstick at the ``timed`` case, the calls rotating over a
-    P = 8 pool so that at full width each finds its 154 MB of input
-    outside the 50 MB L2."""
+    """B4 and B5 against their plain version, NaN confinement, an
+    out-of-band Inf and NaN, and the noise floor at every ``(n_in, n_out,
+    R)`` case; at the ``timed`` case the times, the bound, the work the
+    kernel issues and the bytes it stages, B7 (three passes) at the same
+    projector and the library yardstick, the calls rotating over a P = 8
+    pool so that at full width each finds its 154 MB of input outside the
+    50 MB L2."""
+    b4_build_report()
+    magsplit_refusals(device)
     entries = {}
     for n_in, n_out, R in cases:
         plan, wh, wcorr, pool = magsplit_case(device, n_in, n_out, R, 8, seed=R + n_in)
@@ -884,14 +957,28 @@ def phase_magsplit_kernels(device, cases, timed):
         others[[r_nan, r_inf]] = False
         check(bool(finite[others].all()), "other rows stay finite")
         err_bad = float((got_b[finite] - ref_b[finite]).abs().max()) if finite.any() else 0.0
+        # out of band: the groups whose band misses the value stay finite
+        o_prev, o_cur = out_of_band(pool[3], pool[4], plan)
+        got_o = mag.magsplit_projector(o_prev, o_cur, wh, wcorr, plan=plan)
+        ref_o = mag.magsplit_projector_reference(o_prev, o_cur, wh, wcorr, plan=plan)
+        torch.cuda.synchronize()
+        fin_o = torch.isfinite(ref_o)
+        c = plan.cols
+        check(torch.equal(torch.isfinite(got_o), fin_o), f"B4 {n_in}->{n_out} R {R}: out-of-band pattern")
+        check(bool(torch.isfinite(got_o[0, :c]).all()) and bool(torch.isfinite(got_o[-1, c : 2 * c]).all()),
+              f"B4 {n_in}->{n_out} R {R}: a group whose band misses a non-finite input stays finite")
+        check(not fin_o[0].all() and not fin_o[-1, :c].all() and bool(fin_o[1:-1].all()),
+              "the groups whose band holds it go non-finite")
+        err_bad = max(err_bad, float((got_o[fin_o] - ref_o[fin_o]).abs().max()))
+        del got_o, ref_o, o_prev, o_cur
         worst = max(err, err_pool, err_bad)
         check(worst <= KERNEL_ATOL, f"B4/B5 vs plain {n_in}->{n_out} R {R}: {worst:.3e} > {KERNEL_ATOL}")
         check(fl_kernel >= plan.floor_db - 2.0,
               f"B4 floor {fl_kernel:.2f} dB >= plan {plan.floor_db} - 2 at {n_in}->{n_out}")
         print(f"[3] B4/B5 {n_in}->{n_out} R {R} (s {plan.s}, rows {plan.rows}, wc {plan.wc}, cols "
               f"{plan.cols}): max |kernel - plain| B4 {err:.3e}, B5 {err_pool:.3e} over slot pairs "
-              f"{pairs}, NaN/Inf rows {err_bad:.3e}; floor vs f64 (64 rows) kernel {fl_kernel:.2f} dB, "
-              f"plain {fl_plain:.2f} dB, plan {plan.floor_db} dB")
+              f"{pairs}, NaN/Inf rows and out-of-band Inf/NaN {err_bad:.3e}; floor vs f64 (64 rows) kernel "
+              f"{fl_kernel:.2f} dB, plain {fl_plain:.2f} dB, plan {plan.floor_db} dB")
         for name, e in (("magsplit_projector", max(err, err_bad)), ("magsplit_projector_pool", err_pool)):
             entry = entries.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], e)
@@ -907,6 +994,15 @@ def phase_magsplit_kernels(device, cases, timed):
             lambda i: mag.magsplit_projector_pool(pool, i % P, (i + 1) % P, wh, wcorr, plan=plan),
             lambda i: mag.magsplit_projector_reference(pool[i % P], pool[(i + 1) % P], wh, wcorr, plan=plan),
         )
+        # B7 at the same projector, as the FFT matmul backend calls it
+        # (x_t [R, N] @ T [N, 2M], three passes), in turns with B4
+        t_hi, t_lo = (h.to(device) for h in m3.split_weight(
+            torch.from_numpy(fft_engine.get_projection_matrix(n_in, n_out))))
+        ms7_b4, ms7, t7 = timed_pair(
+            lambda i: mag.magsplit_projector(pool[i % P], pool[(i + 1) % P], wh, wcorr, plan=plan),
+            lambda i: m3.matmul3(pool[i % P], t_hi, t_lo, passes=3),
+        )
+        del t_hi, t_lo
         t2 = torch.from_numpy(mag._t2_f64(n_in, n_out).astype(np.float32)).to(device)
 
         def library(i):
@@ -922,6 +1018,8 @@ def phase_magsplit_kernels(device, cases, timed):
         flop = 2 * R * (plan.rows + 2 * plan.wc) * plan.cols * plan.s
         nbytes = 4 * (2 * R * n_in + R * n_out) + 2 * plan.s * (plan.rows + 2 * plan.wc) * plan.cols
         b_ms, b_by = bound_ms(flop, nbytes, BF16_PEAK_TFLOPS)
+        tp = mag.tile_plan(plan)
+        issued, staged = tp.issued_flop(R), tp.staged_bytes(R)
         lib_flop = 2 * R * 2 * n_in * n_out
         for name, ms, plain_ms, t in (("magsplit_projector", ms4, plain4, t4),
                                       ("magsplit_projector_pool", ms5, plain5, t5)):
@@ -930,6 +1028,13 @@ def phase_magsplit_kernels(device, cases, timed):
                   f"{b_ms:.4f} ms, {b_by}: {flop / 1e9:.1f} GFLOP at {BF16_PEAK_TFLOPS:.0f} TFLOP/s "
                   f"bf16, {nbytes / 1e6:.1f} MB at {HBM_TBPS} TB/s)")
             entries[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        print(f"    issued: {issued / 1e9:.1f} GFLOP bf16 on the tensor cores ({tp.issued_k()} k per output "
+              f"column over the groups against the bound's {plan.s * (plan.rows + 2 * plan.wc)}; "
+              f"{issued / ms4 / 1e9:.1f} TFLOP/s, {100 * issued / (BF16_PEAK_TFLOPS * 1e9) / ms4:.1f}% of "
+              f"the peak); staged from L2: {staged / 1e9:.3f} GB per call ({staged / ms4 / 1e9:.2f} TB/s)")
+        print(f"    B7 (csrc/matmul3.cu, three passes) at the same projector, [{R}, {n_in}] @ [{n_in}, "
+              f"{2 * n_out}] as the matmul backend calls it, in turns with B4: B7 {t7[0]:.4f} / {t7[3]:.4f} ms, "
+              f"B4 {t7[1]:.4f} / {t7[2]:.4f} ms; B4 {ms7 / ms7_b4:.2f}x faster")
         print(f"    library: torch.matmul(cat(prev, cur), T2) in f32, TF32 off: {lib_ms:.4f} ms "
               f"({lib_flop / 1e9:.1f} GFLOP dense, {lib_flop / lib_ms / 1e9:.1f} TFLOP/s); max |library "
               f"- plain| {lib_err:.3e}")
@@ -2422,7 +2527,8 @@ def main() -> None:
     ]))
     entries.update(phase_magsplit_kernels(
         device,
-        [(1176, 1280, 16384), (588, 1280, 16384), (1280, 1176, 37), (1280, 1176, 2)],
+        [(1176, 1280, 16384), (588, 1280, 16384), (1280, 1176, 37), (1280, 1176, 2),
+         (1280, 3528, 4099), (2560, 2352, 1027), (3528, 1280, 130)],
         timed=(1176, 1280, 16384),  # 8192 stereo streams at the bench pair
     ))
     launches = {name: 0 for name in entries}

@@ -4,7 +4,8 @@
 // nearest even on the f32 bits, a non-finite value passing through (so its
 // lo is NaN), and lo = bf16(a - hi) with subnormal operands and results of
 // the subtraction treated as zero of the same sign, as XLA does.  Included by
-// the magsplit (B4/B5), matmul3 (B7) and async combine (B6b) kernels.
+// the magsplit (B4/B5), matmul3 (B7) and async combine (B6b) kernels; B4/B5
+// split two values at a time with bf16x2_split_hi / bf16x2_split_lo.
 
 #pragma once
 
@@ -36,4 +37,24 @@ __device__ __forceinline__ __nv_bfloat16 bf16_split_part(float a, bool lo) {
   const float hi = bf16_split_hi(a);
   if (lo) return bf16_split_lo(a, hi);
   return __float2bfloat16_rn(hi);
+}
+
+// Two values' hi as one packed bf16x2 word (a0 in the low half), by one
+// cvt.rn.bf16x2.f32: round to nearest even is the integer rule above for
+// every finite value and for +-Inf (overflow rounds to Inf in both); a NaN
+// stays a NaN (its payload may differ, which no product sees).
+__device__ __forceinline__ uint32_t bf16x2_split_hi(float a0, float a1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(a1), "f"(a0));
+  return r;
+}
+
+// Their lo, given the packed hi: sub.ftz flushes subnormal operands and a
+// subnormal difference to zero of the same sign, as bf16_flush does around
+// the subtraction in bf16_split_lo; the difference is then rounded as hi is.
+__device__ __forceinline__ uint32_t bf16x2_split_lo(float a0, float a1, uint32_t hi) {
+  float d0, d1;
+  asm("sub.rn.ftz.f32 %0, %1, %2;\n" : "=f"(d0) : "f"(a0), "f"(__uint_as_float(hi << 16)));
+  asm("sub.rn.ftz.f32 %0, %1, %2;\n" : "=f"(d1) : "f"(a1), "f"(__uint_as_float(hi & 0xFFFF0000u)));
+  return bf16x2_split_hi(d0, d1);
 }

@@ -43,12 +43,13 @@ SMEM_MAX = 232448
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 #: one shared library per source; the headers are included by the B2 source
-#: (tiled_contract) and by the B4, B6 and B7 sources (bf16_split)
+#: (tiled_contract), by the B4, B6 and B7 sources (bf16_split) and by the B4
+#: and B7 sources (hopper_tma)
 _SOURCES = (
     "fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu", "fir_async_combine.cu",
     "fir_fleet_step.cu", "matmul3.cu",
 )
-_HEADERS = ("tiled_contract.cuh", "bf16_split.cuh")
+_HEADERS = ("tiled_contract.cuh", "bf16_split.cuh", "hopper_tma.cuh")
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -63,9 +64,13 @@ _SIGNATURES = {
     "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
     # ... the same, then the lanes per thread (4 or 1), stream
     "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
-    # prev, cur, w, out, R, N, M, s, cols, cols_pad, k_pad, r0_step, b0_off,
-    # rows, wc, col_frags, stream
-    "fft_magsplit_projector": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    # prev, cur and weight maps, tiles, starts, out, R, M, s, cols, cols_pad,
+    # stream
+    "fft_magsplit_projector": [_P] * 6 + [_I] * 5 + [_P],
+    # base, kind (0 x f32, 1 weights bf16), rows, cols, map out
+    "fft_magsplit_encode": [_P, _I, _I, _I, _P],
+    # (none): the kernel's dynamic shared memory per block
+    "fft_magsplit_smem": [],
     # buffer, a_t, j, s, lanes, out, R, base0, n_out, out_cap, taps, M, skew, stream
     "fir_async_combine": [_P] * 6 + [_I, _I64, _I, _I, _I, _I64, _I, _P],
     # buffer, frags, s, lanes, rowmap, win, out, R, base0, n_out, out_cap,

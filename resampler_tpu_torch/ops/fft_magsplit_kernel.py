@@ -20,19 +20,26 @@ projector.
   PyTorch version, for CPU tensors only.  There is no fallback between the
   two.  The TPU kernel's row padding to a multiple of 8 and the pool's
   ``R % 8`` gate do not carry over: the CUDA kernel masks ragged rows.
+  The kernel's K tiles and packed weights are planned here
+  (``MagsplitTilePlan``); it reads ``prev`` and ``cur`` through TMA maps
+  (cached per pointer and shape), so ``N`` must be a multiple of 4 on the
+  card, and it takes only a weight pair whose ``t2h`` half of ``wcorr``
+  is ``wh``'s slice, as ``magsplit_weights`` builds it: the wrappers raise
+  ``ValueError`` otherwise, on the card only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import threading
 
 import numpy as np
 import torch
 
-from ._build import LAUNCHES, device_kind, launch
+from ._build import LAUNCHES, build, device_kind, launch
 from .matmul3 import bf16_bits_np, bf16_round_np, split_hi_lo
 
 __all__ = [
@@ -224,41 +231,178 @@ def magsplit_weights(plan: MagsplitPlan, device="cuda"):
 # B4 / B5 and their plain version
 # --------------------------------------------------------------------------
 
-#: the kernel's K step and its column tile unit (``csrc/fft_magsplit.cu``)
-_BK = 32
-_COL_UNIT = 64
-_MAX_COL_FRAGS = 5
-#: kernel-side weight copies: (plan, device) -> (wh, wcorr, packed, col_frags)
+#: the kernel's K tile, row tile and column tile (``csrc/fft_magsplit.cu``)
+TILE_K = 64
+TILE_ROWS = 128
+TILE_COLS = 160
+#: bytes one K tile stages: the f32 x tile and a bf16 weight tile
+_X_TILE_BYTES = 4 * TILE_ROWS * TILE_K
+_W_TILE_BYTES = 2 * TILE_K * TILE_COLS
+
+
+@dataclasses.dataclass(frozen=True)
+class MagsplitTile:
+    """One K tile of a group's pass-1 band: ``TILE_K`` columns of ``prev``
+    (``src`` 0) or ``cur`` (``src`` 1) from column ``col`` (a multiple of
+    4), of which the tile-local columns ``[lo, hi)`` lie in the band; local
+    column ``j`` is row ``band_row + j`` of ``wh[group]``; its columns
+    ``[corr_lo, corr_hi)`` (empty if equal) lie in the correction band."""
+
+    group: int
+    src: int
+    col: int
+    lo: int
+    hi: int
+    band_row: int
+    corr_lo: int
+    corr_hi: int
+
+
+class MagsplitTilePlan:
+    """Kernel B4/B5's K tiles (host numpy, once per plan).  Each group's
+    pass-1 band ``[r0, r0 + rows)`` of ``x2 = [prev | cur]`` is cut at
+    ``N`` into its ``prev`` and ``cur`` parts, and each part into tiles of
+    ``TILE_K`` columns, so no tile reads both tensors.  A part's first tile
+    starts at its first column rounded down to a multiple of 4: a TMA
+    box's innermost coordinate must sit on 16 bytes, and a band starts
+    where the plan puts it (``294 q`` at the bench pair); the kernel
+    selects the tile's columns outside ``[lo, hi)`` to zero.  The
+    correction band ``[rb, rb + wc)`` lies inside the pass-1 band (``b0 <=
+    g + 1 - w_p``), so every correction column sits in exactly one tile,
+    which serves all three passes.
+
+    - ``tiles``: the ``MagsplitTile`` list, group by group;
+    - ``starts [s + 1]`` int32: group ``q``'s tiles are ``starts[q] ..
+      starts[q + 1]``;
+    - ``table [n_tiles, 8]`` int32, the kernel's copy: ``src, col, lo, hi,
+      wh tile, t2l tile (-1: none), corr_lo, corr_hi``, the tile indices
+      into the packed weights (``pack``): each tile's ``wh`` rows, then,
+      where it meets the correction band, its ``t2l`` rows;
+    - ``cols_pad``: ``cols`` rounded up to whole ``TILE_COLS`` tiles."""
+
+    def __init__(self, plan: MagsplitPlan):
+        n, lp = plan.n_in, plan.lp
+        tiles, starts, table = [], [0], []
+        n_w = 0
+        for q in range(plan.s):
+            r0 = q * plan.bps * lp
+            rb = r0 + plan.b0 * lp
+            if not (r0 <= rb and rb + plan.wc <= r0 + plan.rows):
+                raise ValueError(f"group {q}'s correction band leaves its pass-1 band")
+            for b_lo, b_hi, src in ((r0, min(r0 + plan.rows, n), 0), (max(r0, n), r0 + plan.rows, 1)):
+                for c in range(b_lo - (b_lo - src * n) % 4, b_hi, TILE_K):
+                    lo, hi = max(b_lo - c, 0), min(b_hi - c, TILE_K)
+                    clo, chi = min(max(rb - c, lo), hi), min(max(rb + plan.wc - c, lo), hi)
+                    if chi <= clo:
+                        clo = chi = 0
+                    tile = MagsplitTile(q, src, c - src * n, lo, hi, c - r0, clo, chi)
+                    tiles.append(tile)
+                    corr = chi > clo
+                    table.append((src, tile.col, lo, hi, n_w, n_w + 1 if corr else -1, clo, chi))
+                    n_w += 1 + corr
+            starts.append(len(tiles))
+        self.plan = plan
+        self.tiles = tiles
+        self.starts = np.asarray(starts, np.int32)
+        self.table = np.asarray(table, np.int32)
+        self.n_wtiles = n_w
+        self.cols_pad = -(-plan.cols // TILE_COLS) * TILE_COLS
+
+    def issued_k(self) -> int:
+        """The tensor cores' k per output column, summed over the groups:
+        16 per k16 step below a tile's ``hi`` (``hi * wh``; ``lo < 4``), and 32
+        more per step that meets its correction band (``hi * t2l``, ``lo
+        * wh``), as the kernel skips the others."""
+        k = 0
+        for t in self.tiles:
+            for k0 in range(0, t.hi, 16):
+                k += 16 + (32 if t.corr_lo < k0 + 16 and k0 < t.corr_hi else 0)
+        return k
+
+    def issued_flop(self, R: int) -> float:
+        """bf16 tensor-core operations one call issues at ``R`` rows (every
+        row and column tile full, as the kernel runs them)."""
+        return 2.0 * (-(-R // TILE_ROWS) * TILE_ROWS) * self.issued_k() * self.cols_pad
+
+    def staged_bytes(self, R: int) -> int:
+        """Bytes one call brings from L2 into shared memory: each block
+        stages its group's tiles (x, ``wh`` and, where the tile meets the
+        correction band, ``t2l``)."""
+        blocks = -(-R // TILE_ROWS) * (self.cols_pad // TILE_COLS)
+        per_tile = _X_TILE_BYTES + _W_TILE_BYTES * (1 + (self.table[:, 5] >= 0))
+        return int(blocks * per_tile.sum())
+
+    def pack(self, wh: torch.Tensor, wcorr: torch.Tensor) -> torch.Tensor:
+        """The kernel-side weight copy ``[n_wtiles * TILE_K, cols_pad]``
+        bf16 on ``wh``'s device: per tile its ``wh`` rows (zero outside
+        ``[lo, hi)``) and, where it meets the correction band, its ``t2l`` rows
+        (``wcorr[q, :wc]``) at their columns, zero elsewhere; columns past
+        ``cols`` zero.  The ``t2h`` half of ``wcorr`` is not copied: ``lo``
+        multiplies the ``wh`` tile, which the kernel may do only because
+        ``wcorr[:, wc:]`` is bit for bit ``wh[:, b0*lp : b0*lp + wc]``; that
+        is checked here and raises ``ValueError`` otherwise."""
+        p = self.plan
+        off = p.b0 * p.lp
+        if not torch.equal(wcorr[:, p.wc :].view(torch.int16), wh[:, off : off + p.wc].view(torch.int16)):
+            raise ValueError(
+                "wcorr's t2h half is not bit for bit wh's rows b0*lp .. b0*lp + wc: the kernel "
+                "multiplies lo by the staged wh tile (magsplit_weights builds such a pair)"
+            )
+        packed = torch.zeros((self.n_wtiles, TILE_K, self.cols_pad), dtype=torch.bfloat16, device=wh.device)
+        for t, row in zip(self.tiles, self.table):
+            b = t.band_row
+            packed[row[4], t.lo : t.hi, : p.cols] = wh[t.group, b + t.lo : b + t.hi]
+            if row[5] >= 0:
+                c0 = b - off  # local column 0's row in the correction band
+                packed[row[5], t.corr_lo : t.corr_hi, : p.cols] = wcorr[t.group, c0 + t.corr_lo : c0 + t.corr_hi]
+        return packed.reshape(self.n_wtiles * TILE_K, self.cols_pad)
+
+
+#: kernel-side weights per (plan, device): (wh, wcorr, tile plan, packed,
+#: and on a CUDA device the table, the starts and the packed weights' map)
 _packed: dict[tuple, tuple] = {}
 _packed_lock = threading.Lock()
+#: encoded x maps per (pointer, R, N); a fleet's pool slots and chunks recur
+_x_maps: dict[tuple, ctypes.Array] = {}
+_X_MAPS_MAX = 256
 
 
-def _col_frags(cols: int) -> int:
-    """Column tile of the kernel, in units of 64: one tile per group where
-    ``cols <= 320``, else tiles of 320."""
-    return min(-(-cols // _COL_UNIT), _MAX_COL_FRAGS)
+@functools.lru_cache(maxsize=None)
+def tile_plan(plan: MagsplitPlan) -> MagsplitTilePlan:
+    return MagsplitTilePlan(plan)
+
+
+def _encode(ptr: int, kind: int, rows: int, cols: int) -> ctypes.Array:
+    """A TMA map (128 bytes) of ``csrc/fft_magsplit.cu``: kind 0, f32 x
+    ``[rows, cols]``; kind 1, the packed weights."""
+    buf = ctypes.create_string_buffer(128)
+    err = build()["fft_magsplit_encode"].fft_magsplit_encode(
+        ctypes.c_void_p(ptr), kind, rows, cols, ctypes.c_void_p(ctypes.addressof(buf)))
+    if err != 0:
+        raise RuntimeError(f"fft_magsplit_encode failed: error {err}")
+    return buf
 
 
 def _kernel_weights(wh, wcorr, plan: MagsplitPlan):
-    """The kernel-side copy of ``(wh, wcorr)``: ``[s, k_pad, cols_pad]``
-    bf16, the two stacks concatenated along K and zero-padded (K to a
-    multiple of 32, columns to whole tiles).  Built once per (plan,
-    device) from the arrays given, and rebuilt if other arrays come."""
+    """The kernel-side copy of ``(wh, wcorr)`` and the tile plan
+    (``MagsplitTilePlan.pack``): built once per (plan, device) from the
+    arrays given, and rebuilt if other arrays come.  Returns ``(tile plan,
+    packed, on_card)``: ``on_card`` is the table, the starts and the packed
+    weights' map on a CUDA device, else None."""
     key = (plan, str(wh.device))
     with _packed_lock:
         hit = _packed.get(key)
     if hit is not None and hit[0] is wh and hit[1] is wcorr:
-        return hit[2], hit[3]
-    nf = _col_frags(plan.cols)
-    cols_pad = -(-plan.cols // (_COL_UNIT * nf)) * _COL_UNIT * nf
-    ktot = plan.rows + 2 * plan.wc
-    k_pad = -(-ktot // _BK) * _BK
-    packed = torch.zeros((plan.s, k_pad, cols_pad), dtype=torch.bfloat16, device=wh.device)
-    packed[:, : plan.rows, : plan.cols] = wh
-    packed[:, plan.rows : ktot, : plan.cols] = wcorr
+        return hit[2:]
+    tp = tile_plan(plan)
+    packed = tp.pack(wh, wcorr)
+    on_card = None
+    if wh.device.type == "cuda":
+        on_card = (torch.from_numpy(tp.table).to(wh.device), torch.from_numpy(tp.starts).to(wh.device),
+                   _encode(packed.data_ptr(), 1, packed.shape[0], packed.shape[1]))
     with _packed_lock:
-        _packed[key] = (wh, wcorr, packed, nf)
-    return packed, nf
+        _packed[key] = (wh, wcorr, tp, packed, on_card)
+    return tp, packed, on_card
 
 
 def _check(prev, cur, wh, wcorr, plan: MagsplitPlan) -> None:
@@ -309,17 +453,41 @@ def magsplit_projector_reference(prev, cur, wh, wcorr, *, plan: MagsplitPlan):
     return torch.cat(outs, dim=1).float()
 
 
-def _launch_projector(prev_ptr: int, cur_ptr: int, R: int, wh, wcorr, plan, device):
-    packed, nf = _kernel_weights(wh, wcorr, plan)
-    out = torch.empty((R, plan.n_out), dtype=torch.float32, device=device)
-    _I = ctypes.c_int
+def _x_map(t: torch.Tensor) -> ctypes.Array:
+    """The TMA map of an x operand ``[R, N]`` f32, cached per (pointer, R,
+    N).  TMA needs 16-byte rows and a 16-byte aligned base."""
+    R, n = t.shape
+    if n % 4 != 0:
+        raise ValueError(
+            f"kernel B4/B5 reads prev and cur through TMA, whose row stride must be a multiple of "
+            f"16 bytes: N = {n} is not a multiple of 4"
+        )
+    if t.data_ptr() % 16 != 0:
+        raise ValueError("kernel B4/B5 reads prev and cur through TMA: their data must start on 16 bytes")
+    key = (t.data_ptr(), R, n)
+    with _packed_lock:
+        buf = _x_maps.get(key)
+    if buf is None:
+        buf = _encode(t.data_ptr(), 0, R, n)
+        with _packed_lock:
+            if len(_x_maps) >= _X_MAPS_MAX:
+                _x_maps.clear()
+            _x_maps[key] = buf
+    return buf
+
+
+def _launch_projector(prev, cur, wh, wcorr, plan):
+    """Launch B4's kernel on ``prev``, ``cur`` (``[R, N]`` views, for B5
+    two slots of the pool) on the current stream."""
+    mp, mc = _x_map(prev), _x_map(cur)
+    tp, _, (table, starts, wmap) = _kernel_weights(wh, wcorr, plan)
+    R = prev.shape[0]
+    out = torch.empty((R, plan.n_out), dtype=torch.float32, device=prev.device)
     launch(
-        "fft_magsplit_projector", device,
-        ctypes.c_void_p(prev_ptr), ctypes.c_void_p(cur_ptr),
-        ctypes.c_void_p(packed.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        _I(R), _I(plan.n_in), _I(plan.n_out), _I(plan.s), _I(plan.cols),
-        _I(packed.shape[2]), _I(packed.shape[1]), _I(plan.bps * plan.lp),
-        _I(plan.b0 * plan.lp), _I(plan.rows), _I(plan.wc), _I(nf),
+        "fft_magsplit_projector", prev.device,
+        *(ctypes.c_void_p(ctypes.addressof(m)) for m in (mp, mc, wmap)),
+        ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(starts.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), R, plan.n_out, plan.s, plan.cols, tp.cols_pad,
     )
     return out
 
@@ -332,9 +500,7 @@ def magsplit_projector(prev, cur, wh, wcorr, *, plan: MagsplitPlan):
     _check(prev, cur, wh, wcorr, plan)
     if device_kind(prev) == "cpu":
         return magsplit_projector_reference(prev, cur, wh, wcorr, plan=plan)
-    out = _launch_projector(
-        prev.data_ptr(), cur.data_ptr(), prev.shape[0], wh, wcorr, plan, prev.device
-    )
+    out = _launch_projector(prev, cur, wh, wcorr, plan)
     LAUNCHES["magsplit_projector"] += 1
     return out
 
@@ -358,8 +524,6 @@ def magsplit_projector_pool(pool, idx_prev: int, idx_cur: int, wh, wcorr, *,
     _check(prev, cur, wh, wcorr, plan)
     if device_kind(pool) == "cpu":
         return magsplit_projector_reference(prev, cur, wh, wcorr, plan=plan)
-    out = _launch_projector(
-        prev.data_ptr(), cur.data_ptr(), prev.shape[0], wh, wcorr, plan, pool.device
-    )
+    out = _launch_projector(prev, cur, wh, wcorr, plan)
     LAUNCHES["magsplit_projector_pool"] += 1
     return out

@@ -224,12 +224,16 @@ def test_coprime_fleet_on_card_matches_cpu(cuda, in_hz, out_hz, path, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n_in,n_out,R", [(1176, 1280, 256), (588, 1280, 64), (1280, 1176, 37), (1176, 1280, 2)],
-    ids=["bench-pair", "stopband-pair", "ragged-cols-R37", "stereo-R2"],
+    "n_in,n_out,R",
+    [(1176, 1280, 256), (588, 1280, 64), (1280, 1176, 37), (1176, 1280, 2), (1280, 3528, 131),
+     (2560, 2352, 67), (3528, 1280, 5)],
+    ids=["bench-pair", "stopband-pair", "ragged-cols-R37", "stereo-R2", "cols882-R131", "s8-R67",
+         "rows4410-R5"],
 )
 def test_magsplit_kernels_match_plain_on_card(cuda, n_in, n_out, R):
     """B4 and, on a P = 4 pool, B5 against the plain version; a NaN row
-    stays in its row."""
+    stays in its row; an Inf just past group 0's band (in its last tile's
+    tail) and a NaN just before group 1's band leave those groups finite."""
     plan = mag.plan_magsplit(n_in, n_out)
     wh, wcorr = mag.magsplit_weights(plan, cuda)
     rng = np.random.default_rng(5)
@@ -255,6 +259,43 @@ def test_magsplit_kernels_match_plain_on_card(cuda, n_in, n_out, R):
     assert not torch.isfinite(got[R // 2]).all()
     fin = torch.isfinite(ref)
     assert (got[fin] - ref[fin]).abs().max().item() <= KERNEL_ATOL
+    x2 = torch.cat([pool[0], pool[1]], dim=1)
+    x2[0, plan.rows + 2] = float("inf")
+    x2[-1, plan.bps * plan.lp - 1] = float("nan")
+    prev, cur = x2[:, :n_in].contiguous(), x2[:, n_in:].contiguous()
+    got = mag.magsplit_projector(prev, cur, wh, wcorr, plan=plan)
+    ref = mag.magsplit_projector_reference(prev, cur, wh, wcorr, plan=plan)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fin)
+    c = plan.cols
+    assert torch.isfinite(got[0, :c]).all() and torch.isfinite(got[-1, c : 2 * c]).all()
+    assert not fin[0].all() and not fin[-1, :c].all()
+    assert (got[fin] - ref[fin]).abs().max().item() <= KERNEL_ATOL
+
+
+@pytest.mark.cuda
+def test_magsplit_kernel_refuses_what_tma_cannot_read(cuda):
+    """On the card B4 raises ValueError, launching nothing and running no
+    plain version, for N not a multiple of 4 (TMA's 16-byte row stride:
+    390 -> 384) and for a ``wcorr`` whose t2h half is not ``wh``'s slice;
+    the CPU's plain version takes both."""
+    before = dict(kern.LAUNCHES)
+    plan = mag.plan_magsplit(390, 384)
+    x = torch.ones((8, 390), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mag.magsplit_projector(x, x, *mag.magsplit_weights(plan, cuda), plan=plan)
+    cpu = mag.magsplit_projector(x.cpu(), x.cpu(), *mag.magsplit_weights(plan, "cpu"), plan=plan)
+    assert cpu.shape == (8, 384)
+    plan = mag.plan_magsplit(1176, 1280)
+    wh, wcorr = mag.magsplit_weights(plan, cuda)
+    bad = wcorr.clone()
+    bad[0, plan.wc, 0] = 0.5
+    x = torch.ones((8, 1176), device=cuda)
+    with pytest.raises(ValueError, match="t2h"):
+        mag.magsplit_projector(x, x, wh, bad, plan=plan)
+    assert mag.magsplit_projector(x.cpu(), x.cpu(), wh.cpu(), bad.cpu(), plan=plan).shape == (8, 1280)
+    assert kern.LAUNCHES == before
 
 
 @pytest.mark.cuda

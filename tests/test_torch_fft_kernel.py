@@ -128,17 +128,30 @@ def test_wrappers_check_arguments():
 
 
 def test_kernel_weight_copy_layout():
-    """The kernel-side weight copy: the two stacks along K, zero-padded to
-    whole K steps and column tiles; the cached arrays stay JAX's shapes."""
+    """The kernel-side weight copy (``MagsplitTilePlan.pack``): per K tile
+    its ``wh`` rows with zero rows outside ``[lo, hi)``, and where it meets the
+    correction band its ``t2l`` rows at their columns with zero rows
+    elsewhere; columns zero-padded to whole 160-column tiles; the ``t2h``
+    half of ``wcorr`` not copied; built once per (plan, device)."""
     for pair in ((1176, 1280), (1280, 1176), (588, 1280)):
         tp = tmag.plan_magsplit(*pair)
         wh, wcorr = tmag.magsplit_weights(tp, "cpu")
-        packed, nf = tmag._kernel_weights(wh, wcorr, tp)
-        s, k_pad, cols_pad = packed.shape
-        ktot = tp.rows + 2 * tp.wc
-        assert s == tp.s and k_pad % 32 == 0 and k_pad - 32 < ktot <= k_pad
-        assert cols_pad % (64 * nf) == 0 and cols_pad - 64 * nf < tp.cols <= cols_pad
-        assert torch.equal(packed[:, : tp.rows, : tp.cols], wh)
-        assert torch.equal(packed[:, tp.rows : ktot, : tp.cols], wcorr)
-        assert not packed[:, ktot:].float().any() and not packed[:, :, tp.cols :].float().any()
-        assert tmag._kernel_weights(wh, wcorr, tp)[0] is packed  # built once
+        plan, packed, _ = tmag._kernel_weights(wh, wcorr, tp)
+        K, C = tmag.TILE_K, plan.cols_pad
+        assert packed.shape == (plan.n_wtiles * K, C) and packed.dtype == torch.bfloat16
+        assert C % 160 == 0 and C - 160 < tp.cols <= C
+        w = packed.reshape(plan.n_wtiles, K, C)
+        assert not w[:, :, tp.cols :].float().any()
+        rb_off = tp.b0 * tp.lp
+        for t, row in zip(plan.tiles, plan.table):
+            q, b = t.group, t.band_row
+            assert torch.equal(w[row[4], t.lo : t.hi, : tp.cols], wh[q, b + t.lo : b + t.hi])
+            assert not w[row[4], : t.lo].float().any() and not w[row[4], t.hi :].float().any()
+            if row[5] >= 0:
+                lo, hi, c0 = t.corr_lo, t.corr_hi, b - rb_off
+                assert torch.equal(w[row[5], lo:hi, : tp.cols], wcorr[q, c0 + lo : c0 + hi])
+                assert not w[row[5], :lo].float().any() and not w[row[5], hi:].float().any()
+        # the correction band's t2l rows once each, its t2h half never
+        n_corr = int((plan.table[:, 5] >= 0).sum())
+        assert plan.n_wtiles == len(plan.tiles) + n_corr
+        assert tmag._kernel_weights(wh, wcorr, tp)[1] is packed  # built once
