@@ -71,8 +71,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    128, max_out 2176, skew 1; (b) 22050 -> 96000, skew 2; (c) 48000 ->
    44101; (d) the wide 4000000000 -> 4000000001; (e) 367500 -> 1601; (f)
    a ragged R of 6; (g) a starved state whose frame skew passes
-   skew_periods; every case at several bases and n_out bounds, timed
-   with CUDA events against its bound;
+   skew_periods; every case at several bases and n_out bounds in both
+   forms (the one L/M picks: per position at (a)-(d), (f), (g), per
+   output at (e); and the other), timed with CUDA events against its
+   bound, the other form in turns with the picked one; ptxas's registers
+   and spills of both forms (none); each case's form, tiles, shared
+   memory and the work it issues (positions or outputs x 8 x taps) with
+   its own bound beside the row's;
 12. the async multi-tenant fleet at full width,
    ``BatchedResamplerFir(1024, 2, ..., sync_variant="async_tm",
    max_chunk=2048, horizon=16, max_out=2176, initial_positions=...)``, at
@@ -1295,6 +1300,57 @@ def b6b_issued(plan, n_out, R):
     return bound_ms(flop, nbytes, BF16_PEAK_TFLOPS) + (flop, nbytes)
 
 
+def b6_issued(plan, n_out, R, form=None):
+    """The work B6 issues for one call: in the positions form, 8 degrees x
+    taps multiply-adds at every position of each computed tile's passes,
+    for every lane of each 32-lane tile (padded lanes included); in the
+    per-output form the same per emitted output; plus the combine.  The
+    bytes: the rows each tile stages, read once per lane tile, the output
+    and the lane words.  Returns ``(bound ms, by, flop, bytes, positions
+    or outputs contracted per lane)``."""
+    tp = plan.f32_tiles(form)
+    lanes = -(-R // 32) * 32
+    units = staged = 0
+    for t in range(tp.emit[n_out]):
+        lo, hi = (int(v) for v in tp.tiles[t])
+        n_e = min(hi, n_out) - 1
+        if tp.form == "positions":
+            pos = -(-(int(plan.j[n_e]) + plan.skew + 2 - int(tp.rowmap[t, 0])) // b6.F32_PASS) * b6.F32_PASS
+            units += pos
+            staged += pos + plan.taps
+        else:
+            units += n_e + 1 - lo
+            staged += int(tp.aux[n_e]) + tp.window
+    flop = 2 * plan.d1 * plan.taps * units * lanes + 2 * plan.d1 * n_out * R
+    nbytes = 4 * (staged * R + plan.out_cap * R) + 16 * R
+    return bound_ms(flop, nbytes) + (flop, nbytes, units)
+
+
+def other_form(plan) -> str:
+    """The B6 form that ``L/M`` does not pick."""
+    return "outputs" if plan.f32_tiles().form == "positions" else "positions"
+
+
+def b6_build_report() -> None:
+    """B6's kernel as built: ptxas's registers and spills of each form
+    (``combine_kernel<true>``: positions, ``<false>``: per output), none
+    spilling."""
+    log = _build.build_log()
+    section = log[log.find("== fir_async_combine.cu"):].split("\n== ")[0]
+    form = None
+    for line in section.splitlines():
+        if "Compiling entry" in line:
+            form = None
+            if "combine_kernelILb" in line:
+                form = "positions" if "combine_kernelILb1" in line else "outputs"
+        elif form is not None and ("registers" in line or "spill" in line):
+            print(f"[11] B6 ptxas combine_kernel ({form} form): {line.strip()}")
+            check("spill" not in line or " 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"B6 combine_kernel ({form}) spills: {line.strip()}")
+    if "combine_kernelILb" not in section:
+        print("[11] B6 ptxas: not in the build log (cached build)")
+
+
 def b6b_build_report() -> None:
     """B6b's tensor-core kernel as built: ptxas's registers and spills of
     each instantiation (``tc_combine_kernel<KS>``: 16 KS taps), none
@@ -1331,6 +1387,8 @@ def phase_async_kernel(device, cases, precision="highest"):
     kname, phase = ("B6b", 24) if precision == "bf16x4" else ("B6", 11)
     if precision == "bf16x4":
         b6b_build_report()
+    else:
+        b6_build_report()
     for n, (name, in_hz, out_hz, taps, R, skew, starved) in enumerate(cases):
         L, M = reduce_ratio(in_hz, out_hz)
         cfg, plan = async_plan(in_hz, out_hz, taps, skew, precision=precision)
@@ -1346,13 +1404,16 @@ def phase_async_kernel(device, cases, precision="highest"):
         n_main = min(plan.out_cap, (2048 * M) // L)  # a steady-state step's emitted outputs
         err = 0.0
         calls = 0
+        # B6: both forms, the one L/M picks and the other
+        forms = (None,) if precision == "bf16x4" else (None, other_form(plan))
         for base0 in (0, 1, 3, 2 * (ring // 4) + 1, top):
             for n_out in {n_main, plan.out_cap, 1, 0}:
-                got = b6.async_combine(buf, base0, n_out, lanes, plan)
                 ref = b6.async_combine_reference(buf, base0, n_out, lanes, plan)
-                err = max(err, float((got - ref).abs().max()))
-                check(bool((got[n_out:] == 0).all()), f"{kname} {name}: masked lanes are zero")
-                calls += 1
+                for form in forms:
+                    got = b6.async_combine(buf, base0, n_out, lanes, plan, _form=form)
+                    err = max(err, float((got - ref).abs().max()))
+                    check(bool((got[n_out:] == 0).all()), f"{kname} {name}: masked lanes are zero")
+                    calls += 1
         torch.cuda.synchronize()
         check(err <= KERNEL_ATOL, f"{kname} vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
         worst = max(worst, err)
@@ -1373,6 +1434,23 @@ def phase_async_kernel(device, cases, precision="highest"):
             print(f"    tiles: {tp.outputs} outputs x 32 lanes, <= {tp.rows} staged rows, {tp.smem_bytes} B "
                   f"shared; issued {i_flop / 1e9:.3f} GFLOP, {i_bytes / 1e6:.1f} MB, bound {i_ms:.4f} ms "
                   f"({i_by}; {100 * i_ms / ms:.1f}% of it reached)")
+        else:
+            for form in (None, other_form(plan)):
+                tp = plan.f32_tiles(form)
+                if form is None:
+                    f_ms, how = ms, "picked by L/M"
+                else:  # the other form, in turns with the one L/M picks
+                    forced = lambda i, f=form: b6.async_combine(buf, rot[i % 8], n_main, lanes, plan, _form=f)
+                    f_ms, picked_ms, _ = timed_pair(forced, lambda i: b6.async_combine(
+                        buf, rot[i % 8], n_main, lanes, plan))
+                    how = f"forced; in turns, the picked form {picked_ms:.4f} ms"
+                i_ms, i_by, i_flop, i_bytes, units = b6_issued(plan, n_main, R, form)
+                tile = (f"{tp.passes} passes of 32 positions" if tp.form == "positions"
+                        else f"<= {tp.rows_pad} staged rows")
+                print(f"    {tp.form} form ({how}): {tp.n_tiles} tiles of <= {tp.out_max} outputs, {tile}, "
+                      f"{tp.smem_bytes} B shared; {f_ms:.4f} ms; issued {units} {tp.form} per lane, "
+                      f"{i_flop / 1e9:.3f} GFLOP, {i_bytes / 1e6:.1f} MB, bound {i_ms:.4f} ms ({i_by}; "
+                      f"{100 * i_ms / f_ms:.1f}% of it reached)")
         if entry is None:
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del buf
@@ -1506,7 +1584,7 @@ def phase_async_fleet(device, smi, label, in_hz, out_hz, B=1024, C=2, max_chunk=
           f"Msamples/s [output frames x streams x channels per second, bench.py's async count; card: {smi}]")
     print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     per_kernel = profile_steps(fleet, chunks)
-    b6_us = sum(us for key, us in per_kernel.items() if "async_combine" in key)
+    b6_us = sum(us for key, us in per_kernel.items() if "f32::combine_kernel" in key)
     n_out = steps[n_steps - 1][1]
     _, plan = async_plan(in_hz, out_hz, 128, 1)
     b_ms, b_by, _, _ = async_bound(plan, L, n_out, np.repeat(phases % M, C), B * C, C)

@@ -13,31 +13,71 @@
 //   u = 2 * (float(rem) / float(M)) - 1      (IEEE division, round to nearest)
 //
 // buffer [ring, R] f32; a_t [taps, 8] f32 (the Farrow basis A, transposed);
-// j [out_cap], s [out_cap] int64 (static tables); lanes [2, R] int64: row 0
+// js [out_cap] int32 pairs (j, s; static tables); lanes [2, R] int64: row 0
 // the residue word of each lane (its stream's r_b, or pos_lo when wide), row 1
 // its stream's frame skew base_rel, read as off = base_rel where it lies in
 // [1, skew] and 0 otherwise (the XLA step's region-select fall-through in
 // starved states); out [out_cap, R] f32.
 //
 // Replaces resampler_tpu/ops/fir_async_kernel.py:294 build_async_combine
-// (body _kernel :192, _contract :139, _residues :164, _combine :173).  The
-// TPU kernel builds a per-block atlas of the basis rows because Mosaic cannot
-// gather, and absorbs the 8-row DMA remainder with a static switch; here any
-// ring row is addressable, so each output reads its taps rows directly.  The
-// wrap candidate is chosen by SELECT, as the JAX XLA step does (not the TPU
-// kernel's blend z0 + w (z1 - z0)), so only the chosen row's responses are
-// evaluated: 8 * taps FMAs per output.
+// (body _kernel :192, _contract :139, _residues :164, _combine :173), in
+// the form of the function the JAX XLA step computes
+// (resampler_tpu/engine/fir_fleets.py:1161-1257): one banded einsum of the
+// basis responses at every ring position, then takes at j and j + 1.  The
+// TPU kernel's per-block atlas, its 8-row DMA switch and its wrap blend
+// z0 + w (z1 - z0) are Mosaic's workarounds and do not carry over: the
+// wrap row is picked by SELECT, as the XLA step does.
 //
-// Bound on an H100: f32 FMA.  At 44.1 -> 44.101 kHz, 128 taps, 1024 stereo
-// streams (R 2048) and ~2050 emitted outputs a call is ~8.6 GFLOP, ~0.13 ms
-// at 67 TFLOP/s, against ~19 MB of ring rows and ~18 MB of output, ~0.011 ms
-// at 3.35 TB/s.  Design (simple first): a block is 32 consecutive lanes (one
-// warp across lanes, so every ring-row load is one coalesced 128-byte
-// segment) by 4 warps, each thread owning kNPT = 8 consecutive outputs of
-// its lane, whose windows overlap, so the rows come from L1; A sits in
-// shared memory as [taps][8] and is read as two broadcast 16-byte loads per
-// tap, shared by the thread's 8 outputs.  f32 FMA, no tensor cores.
+// What bounds B6 on an H100: f32 FMA.  At 44.1 -> 44.101 kHz, 128 taps,
+// 1024 stereo streams (R 2048) and 2048 emitted outputs a call needs the
+// responses at ~2050 distinct positions per lane, 8.657 GFLOP, 0.129 ms at
+// 67 TFLOP/s, against 35.7 MB of rows and output (0.011 ms at 3.35 TB/s).
+// The per-output kernel this replaces did 8 x taps FMAs per output with
+// eight 64-bit-addressed global loads of ring rows per tap (each sample
+// read ~8 times over overlapping windows) at 146 registers: 0.446 ms.
 //
+// Design.  The host's F32TilePlan (ops/fir_async_kernel.py) cuts the
+// outputs into tiles of consecutive outputs and lists each tile's ring
+// rows; a persistent block (32 lanes x 4 warps, two per SM) walks its
+// tiles, staging the next one's rows and (j, s) with cp.async (16-byte
+// along the lanes where R % 4 == 0, else 4-byte; lanes past R zero-filled)
+// into the second of two [row][32 lanes] f32 stages while it computes the
+// current one.  Two forms, chosen on the host by L/M alone:
+//
+// - positions (L <= 1.5 M): the tile's outputs read positions p = j[n] +
+//   off + c in [j[n_lo], j[n_hi - 1] + skew + 2); the block computes
+//   Y[p, d] = sum_t A[d, t] x[p + t] at every one of them once, 32 per
+//   pass.  A thread owns one lane x 8 consecutive positions x 8 degrees
+//   (64 f32 sums) and slides a register window over the staged rows: one
+//   shared load of x per tap, A[:, t] as two broadcast 16-byte loads, 64
+//   FMAs, no lane offset in the inner loop (all lanes read one staged
+//   row: no bank conflict).  Then every output whose position, for this
+//   lane, falls among the thread's 8 (found through the host's pfirst
+//   table) takes its 8 responses from the thread's row of a scratch and
+//   the Chebyshev combine.  At L/M ~ 1 a position serves ~1 output; at
+//   22050 -> 96000 (L/M 147/640) ~4.35, so the work per output falls to
+//   ~0.23 of a per-output contraction;
+// - outputs (above: a position would serve too few outputs for its cost;
+//   at 367500 -> 1601, 1 in 229.5): each output contracts its own window
+//   among the staged rows (the union of the tile's windows).
+//
+// The results go through shared memory, so the stores to out [out_cap, R]
+// are whole 128-byte rows; outputs past n_out are selected to zero, rows
+// past the computed tiles zero-filled, never multiplied by a mask.  A
+// non-finite sample makes non-finite exactly the outputs whose window
+// holds it.  f32 FMA on the CUDA cores, IEEE division for u.
+//
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 11) the positions
+// form takes ~0.25 ms at the case above (0.446 before), ~52% of the peak
+// on the 8.925 GFLOP it issues (2112 positions per lane): 161 registers,
+// no spill, 109,936 B of shared memory, 2 blocks of 4 warps per SM.  The
+// per-output form takes ~0.38 ms there: a position costs ~0.65 of an
+// output's own window, hence the forms' crossing at L/M = 1.5.  Variant
+// builds timed on the card: the A loads cost the most, then the combine
+// (more where a position serves several outputs); 3 blocks per SM, A
+// from the constant bank, 16 positions per thread or a fully unrolled
+// tap loop were no faster at every ratio.
+
 // Kernel B6b, the TPU kernel's default precision="bf16x4" (its _contract
 // :139-161, weight split :396-413), computes the same out[n, r] with the
 // degree-banded split contraction: each ring sample split once, x = hi + lo
@@ -117,111 +157,375 @@
 
 namespace {
 
-constexpr int kD1 = 8;       // Chebyshev degree 7 + 1
-constexpr int kLanes = 32;   // lanes per block (threadIdx.x)
-constexpr int kWarps = 4;    // threadIdx.y
-constexpr int kNPT = 8;      // consecutive outputs per thread
+constexpr int kD1 = 8;  // Chebyshev degree 7 + 1
 
-__global__ void __launch_bounds__(kLanes * kWarps)
-async_combine_kernel(const float* __restrict__ buffer,
-                     const float* __restrict__ a_t,
-                     const int64_t* __restrict__ j_tab,
-                     const int64_t* __restrict__ s_tab,
-                     const int64_t* __restrict__ lanes,
-                     float* __restrict__ out, int R, int64_t base0, int n_out,
-                     int out_cap, int taps, uint32_t M, int skew) {
-  // [taps][2]: degrees 0-3, 4-7 of A
-  extern __shared__ float4 a_s[];
-  const int tid = threadIdx.y * kLanes + threadIdx.x;
-  const float4* a_v = reinterpret_cast<const float4*>(a_t);
-  for (int i = tid; i < 2 * taps; i += kLanes * kWarps) a_s[i] = a_v[i];
-  __syncthreads();
+// An asynchronous copy of `bytes` (0 or the size) from global to shared
+// memory; 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
 
-  const int r = blockIdx.x * kLanes + threadIdx.x;
-  const int n0 = (blockIdx.y * kWarps + threadIdx.y) * kNPT;
-  if (r >= R || n0 >= out_cap) return;
+__device__ __forceinline__ void cp_async8(int2* dst, const int2* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+}
 
-  if (n0 >= n_out) {  // masked lanes only: the n_out mask, nothing to read
-    for (int i = 0; i < kNPT && n0 + i < out_cap; ++i)
-      out[static_cast<int64_t>(n0 + i) * R + r] = 0.0f;
-    return;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The lane's residue at output split sn (the JAX XLA step's arithmetic):
+// the wrap bit, and u = 2 rem / M - 1 rounded as written.
+__device__ __forceinline__ int residue(uint32_t res, uint32_t sn, uint32_t M, float m_f, float& u) {
+  const uint32_t t = res + sn;
+  const bool wrap = (t < res) || (t >= M);
+  const uint32_t rem = wrap ? t - M : t;
+  const float frac = __fdiv_rn(__uint2float_rn(rem), m_f);
+  u = __fsub_rn(__fmul_rn(2.0f, frac), 1.0f);
+  return wrap ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// B6: the f32 kernel
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kLanes = 32;               // lanes per block (one warp across lanes)
+constexpr int kWarps = 4;
+constexpr int kThreads = kLanes * kWarps;
+constexpr int kP = 8;                    // consecutive positions per thread
+constexpr int kPass = kP * kWarps;       // positions per pass of a block
+constexpr int kYsPitch = kP * kD1 + 4;   // floats per lane of a warp's response scratch
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most one group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// sum_d T_d(u) y[d], the recurrence and its rounding as the XLA step
+// writes them (no contraction of the Chebyshev products).
+__device__ __forceinline__ float cheb(float u, const float (&y)[kD1]) {
+  const float u2 = __fmul_rn(2.0f, u);
+  float t_prev = 1.0f, t_cur = u;
+  float acc = y[0];
+#pragma unroll
+  for (int d = 1; d < kD1; ++d) {
+    acc = fmaf(t_cur, y[d], acc);
+    const float t_next = __fsub_rn(__fmul_rn(u2, t_cur), t_prev);
+    t_prev = t_cur;
+    t_cur = t_next;
   }
+  return acc;
+}
 
-  // ---- per-output residues (the JAX XLA step's arithmetic, rounding as
-  // written: no contraction of the Chebyshev products) ----
-  const uint32_t res = static_cast<uint32_t>(lanes[r]);
-  const int64_t base_rel = lanes[R + r];
-  const int64_t off = (base_rel >= 1 && base_rel <= skew) ? base_rel : 0;
-  const float m_f = __uint2float_rn(M);
-  int64_t row[kNPT];
-  float u[kNPT];
-#pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    // outputs past n_out read output n0's rows (n0 < n_out) and are zeroed
-    const int n = (n0 + i < n_out) ? n0 + i : n0;
-    const uint32_t t = res + static_cast<uint32_t>(s_tab[n]);
-    const bool wrap = (t < res) || (t >= M);
-    const uint32_t rem = wrap ? t - M : t;
-    const float frac = __fdiv_rn(__uint2float_rn(rem), m_f);
-    u[i] = __fsub_rn(__fmul_rn(2.0f, frac), 1.0f);
-    row[i] = base0 + off + j_tab[n] + (wrap ? 1 : 0);
+struct Args {
+  const float* buffer;
+  const float* a_t;       // [taps][8]
+  const int2* js;         // [out_cap]: j, s (u32 bits)
+  const int64_t* lanes;   // [2][R]: residue word, frame skew
+  const int2* tiles;      // [n_tiles]: n_lo, n_hi
+  const int* rowmap;      // [n_tiles][rows_pad]
+  const int* aux;         // positions: pfirst [n_aux]; outputs: win [out_cap]
+  float* out;             // [out_cap][R]
+  int R;
+  int64_t base0;
+  int n_out, out_cap, taps;
+  uint32_t M;
+  int skew, n_emit, z0, rows_pad, out_max, n_aux, vec;
+};
+
+// The rows tile tt stages for this call: the positions form's passes that
+// reach its last emitted output's positions (plus the row past the last
+// tap that the sliding window loads), or the per-output form's prefix of
+// the windows' union up to the last emitted output's window.
+template <bool kPositions>
+__device__ __forceinline__ int tile_rows(const Args& a, int tt, int2 tl) {
+  const int n_e = min(tl.y, a.n_out) - 1;
+  if (kPositions) {
+    const int npos = a.js[n_e].x + a.skew + 2 - a.rowmap[static_cast<int64_t>(tt) * a.rows_pad];
+    return (npos + kPass - 1) / kPass * kPass + a.taps;
   }
+  return a.aux[n_e] + a.taps + a.skew + 1;
+}
 
-  // ---- basis responses at each output's chosen row ----
-  float y[kNPT][kD1];
-#pragma unroll
-  for (int i = 0; i < kNPT; ++i)
-#pragma unroll
-    for (int d = 0; d < kD1; ++d) y[i][d] = 0.0f;
-  const float* col = buffer + r;
-  for (int t = 0; t < taps; ++t) {
-    const float4 v0 = a_s[2 * t];
-    const float4 v1 = a_s[2 * t + 1];
-    const float a[kD1] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-    for (int i = 0; i < kNPT; ++i) {
-      const float x = __ldg(col + (row[i] + t) * static_cast<int64_t>(R));
-#pragma unroll
-      for (int d = 0; d < kD1; ++d) y[i][d] = fmaf(a[d], x, y[i][d]);
+// Copy tile tt's rows for the lane tile at r0 into `st` [rows][32] f32
+// (16-byte copies where R % 4 == 0: four lanes in or out together, else
+// 4-byte; lanes past R are zero-filled) and its emitted outputs' (j, s)
+// into `jst`.
+template <bool kPositions>
+__device__ __forceinline__ void stage_tile(const Args& a, int tt, int r0, float* st, int2* jst) {
+  const int2 tl = a.tiles[tt];
+  const int rows = tile_rows<kPositions>(a, tt, tl);
+  const int* rm = a.rowmap + static_cast<int64_t>(tt) * a.rows_pad;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < min(tl.y, a.n_out) - tl.x; i += kThreads) cp_async8(jst + i, a.js + tl.x + i);
+  if (a.vec) {
+    for (int e = tid; e < rows * (kLanes / 4); e += kThreads) {
+      const int i = e >> 3, q = (e & 7) * 4;
+      const bool in = r0 + q < a.R;
+      const float* src = in ? a.buffer + (a.base0 + rm[i]) * static_cast<int64_t>(a.R) + r0 + q : a.buffer;
+      cp_async16(st + i * kLanes + q, src, in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < rows * kLanes; e += kThreads) {
+      const int i = e >> 5, q = e & 31;
+      const bool in = r0 + q < a.R;
+      const float* src = in ? a.buffer + (a.base0 + rm[i]) * static_cast<int64_t>(a.R) + r0 + q : a.buffer;
+      cp_async4(st + i * kLanes + q, src, in ? 4 : 0);
     }
   }
+}
 
-  // ---- Chebyshev recurrence and combine, then the n_out mask ----
+// The positions form on one staged tile: each pass computes 32 positions
+// (warp w: positions pb .. pb + 7 of every lane), the responses
+// Y[p, d] = sum_t A[d, t] x[p + t] in 64 f32 sums per thread over a
+// sliding window of x (one new shared load per tap); then every output of
+// the tile whose position, for this thread's lane, falls among the
+// thread's 8 takes its 8 responses (through the thread's row of the
+// warp's scratch) and the Chebyshev combine.
+__device__ __forceinline__ void positions_tile(const Args& a, int tt, int2 tl, const float* st,
+                                               const int2* jst, const float4* a_s, float* yw, float* out_s,
+                                               uint32_t res, int off, float m_f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_end = min(tl.y, a.n_out);
+  const int p0 = a.rowmap[static_cast<int64_t>(tt) * a.rows_pad];
+  const int passes = (jst[n_end - 1 - tl.x].x + a.skew + 2 - p0 + kPass - 1) / kPass;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int pb = pass * kPass + warp * kP;
+    const float* xs = st + pb * kLanes + lane;
+    float acc[kP][kD1];
 #pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    const int n = n0 + i;
-    if (n >= out_cap) break;
-    float acc = 0.0f;
-    if (n < n_out) {
-      const float u2 = __fmul_rn(2.0f, u[i]);
-      float t_prev = 1.0f, t_cur = u[i];
-      acc = y[i][0];
+    for (int i = 0; i < kP; ++i)
 #pragma unroll
-      for (int d = 1; d < kD1; ++d) {
-        acc = fmaf(t_cur, y[i][d], acc);
-        const float t_next = __fsub_rn(__fmul_rn(u2, t_cur), t_prev);
-        t_prev = t_cur;
-        t_cur = t_next;
+      for (int d = 0; d < kD1; ++d) acc[i][d] = 0.0f;
+    // xw[m]: row pb + t0 + m; xn[m]: row pb + t0 + kP + m
+    float xw[kP], xn[kP];
+#pragma unroll
+    for (int m = 0; m < kP; ++m) xw[m] = xs[m * kLanes];
+#pragma unroll 2
+    for (int t0 = 0; t0 < a.taps; t0 += kP) {
+#pragma unroll
+      for (int m = 0; m < kP; ++m) xn[m] = xs[(t0 + kP + m) * kLanes];
+#pragma unroll
+      for (int k = 0; k < kP; ++k) {
+        const float4 v0 = a_s[2 * (t0 + k)];
+        const float4 v1 = a_s[2 * (t0 + k) + 1];
+        const float c[kD1] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          const float x = (k + i < kP) ? xw[k + i] : xn[k + i - kP];
+#pragma unroll
+          for (int d = 0; d < kD1; ++d) acc[i][d] = fmaf(c[d], x, acc[i][d]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kP; ++m) xw[m] = xn[m];
+    }
+    // the responses to this thread's own row of the scratch
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      float4* y4 = reinterpret_cast<float4*>(yw + i * kD1);
+      y4[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      y4[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    // the outputs whose j lies in [pa - off - 1, pa + kP - off) may read
+    // one of positions pa .. pa + kP - 1 (pfirst: the first output whose
+    // j reaches a position)
+    const int pa = p0 + pb;
+    const int n_a = max(tl.x, a.aux[min(max(pa - off - 1, 0), a.n_aux - 1)]);
+    const int n_b = min(n_end, a.aux[min(max(pa + kP - off, 0), a.n_aux - 1)]);
+    for (int n = n_a; n < n_b; ++n) {
+      const int2 e = jst[n - tl.x];
+      float u;
+      const int q = e.x + off + residue(res, static_cast<uint32_t>(e.y), a.M, m_f, u) - pa;
+      if (q >= 0 && q < kP) {
+        const float4 y0 = *reinterpret_cast<const float4*>(yw + q * kD1);
+        const float4 y1 = *reinterpret_cast<const float4*>(yw + q * kD1 + 4);
+        const float y[kD1] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+        out_s[(n - tl.x) * kLanes + lane] = cheb(u, y);
       }
     }
-    out[static_cast<int64_t>(n) * R + r] = acc;
   }
 }
 
-int launch(const float* buffer, const float* a_t, const int64_t* j_tab, const int64_t* s_tab,
-           const int64_t* lanes, float* out, int R, int64_t base0, int n_out, int out_cap, int taps,
-           int64_t M, int skew, void* stream) {
-  const int per_block = kWarps * kNPT;
-  const dim3 grid((R + kLanes - 1) / kLanes, (out_cap + per_block - 1) / per_block);
-  const size_t smem = static_cast<size_t>(taps) * kD1 * sizeof(float);
-  if (grid.y > 65535u || smem > 48 * 1024 || M < 1 || M > 0xFFFFFFFFLL) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+// The per-output form on one staged tile: warp w takes the tile's outputs
+// w, w + 4, ...; each thread contracts its lane's window (its start among
+// the staged rows: win[n] + off + c).
+__device__ __forceinline__ void outputs_tile(const Args& a, int2 tl, const float* st, const int2* jst,
+                                             const float4* a_s, float* out_s, uint32_t res, int off, float m_f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_end = min(tl.y, a.n_out);
+  for (int n = tl.x + warp; n < n_end; n += kWarps) {
+    const int2 e = jst[n - tl.x];
+    float u;
+    const int start = a.aux[n] + off + residue(res, static_cast<uint32_t>(e.y), a.M, m_f, u);
+    const float* xs = st + start * kLanes + lane;
+    float y[kD1];
+#pragma unroll
+    for (int d = 0; d < kD1; ++d) y[d] = 0.0f;
+#pragma unroll 8
+    for (int t = 0; t < a.taps; ++t) {
+      const float4 v0 = a_s[2 * t];
+      const float4 v1 = a_s[2 * t + 1];
+      const float x = xs[t * kLanes];
+      y[0] = fmaf(v0.x, x, y[0]);
+      y[1] = fmaf(v0.y, x, y[1]);
+      y[2] = fmaf(v0.z, x, y[2]);
+      y[3] = fmaf(v0.w, x, y[3]);
+      y[4] = fmaf(v1.x, x, y[4]);
+      y[5] = fmaf(v1.y, x, y[5]);
+      y[6] = fmaf(v1.z, x, y[6]);
+      y[7] = fmaf(v1.w, x, y[7]);
+    }
+    out_s[(n - tl.x) * kLanes + lane] = cheb(u, y);
   }
-  async_combine_kernel<<<grid, dim3(kLanes, kWarps), smem, static_cast<cudaStream_t>(stream)>>>(
-      buffer, a_t, j_tab, s_tab, lanes, out, R, base0, n_out, out_cap, taps, static_cast<uint32_t>(M),
-      skew);
+}
+
+// A persistent block walks the work items t = blockIdx.x, + gridDim.x, ...
+// (item t: tile t / n_lt of lane tile t % n_lt, the tiles with an output
+// below n_out), staging item t + gridDim.x while it computes item t; then
+// stores the tile's rows of out whole, outputs past n_out selected to zero.
+// Last, the rows [z0, out_cap) past every computed tile are zero-filled.
+// Shared memory: A [taps][8], two stages [rows_pad][32], the warps'
+// response scratch [4][32][kYsPitch] (positions form), the tile's results
+// [out_max][32], two stages of the tile's (j, s) [out_max].
+template <bool kPositions>
+__global__ void __launch_bounds__(kThreads, 2) combine_kernel(const Args a) {
+  extern __shared__ __align__(16) float f32_smem[];
+  float4* a_s = reinterpret_cast<float4*>(f32_smem);
+  float* stage = f32_smem + a.taps * kD1;
+  float* ys = stage + 2 * a.rows_pad * kLanes;
+  float* out_s = ys + (kPositions ? kWarps * kLanes * kYsPitch : 0);
+  int2* js_s = reinterpret_cast<int2*>(out_s + a.out_max * kLanes);
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < 2 * a.taps; i += kThreads) a_s[i] = reinterpret_cast<const float4*>(a.a_t)[i];
+  float* yw = ys + tid * kYsPitch;
+  const float m_f = __uint2float_rn(a.M);
+
+  const int n_lt = (a.R + kLanes - 1) / kLanes;
+  const int total = n_lt * a.n_emit;
+  int t = blockIdx.x;
+  if (t < total) stage_tile<kPositions>(a, t / n_lt, (t % n_lt) * kLanes, stage, js_s);
+  cp_async_commit();
+  for (int k = 0; t < total; ++k, t += gridDim.x) {
+    const int tn = t + gridDim.x;
+    if (tn < total) {
+      const int b = (k + 1) & 1;
+      stage_tile<kPositions>(a, tn / n_lt, (tn % n_lt) * kLanes, stage + b * a.rows_pad * kLanes,
+                             js_s + b * a.out_max);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const int tt = t / n_lt, r0 = (t % n_lt) * kLanes;
+    const int2 tl = a.tiles[tt];
+    const int r = r0 + lane;
+    uint32_t res = 0;
+    int off = 0;
+    if (r < a.R) {
+      res = static_cast<uint32_t>(a.lanes[r]);
+      const int64_t br = a.lanes[a.R + r];
+      off = (br >= 1 && br <= a.skew) ? static_cast<int>(br) : 0;
+    }
+    const float* st = stage + (k & 1) * a.rows_pad * kLanes;
+    const int2* jst = js_s + (k & 1) * a.out_max;
+    if (kPositions) {
+      positions_tile(a, tt, tl, st, jst, a_s, yw, out_s, res, off, m_f);
+    } else {
+      outputs_tile(a, tl, st, jst, a_s, out_s, res, off, m_f);
+    }
+    __syncthreads();
+
+    const int nt = tl.y - tl.x, ne = min(tl.y, a.n_out) - tl.x;
+    if (a.vec) {
+      for (int e = tid; e < nt * (kLanes / 4); e += kThreads) {
+        const int i = e >> 3, q = (e & 7) * 4;
+        if (r0 + q < a.R) {
+          const float4 v = i < ne ? *reinterpret_cast<const float4*>(out_s + i * kLanes + q)
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          *reinterpret_cast<float4*>(a.out + static_cast<int64_t>(tl.x + i) * a.R + r0 + q) = v;
+        }
+      }
+    } else {
+      for (int e = tid; e < nt * kLanes; e += kThreads) {
+        const int i = e >> 5, q = e & 31;
+        if (r0 + q < a.R) a.out[static_cast<int64_t>(tl.x + i) * a.R + r0 + q] = i < ne ? out_s[i * kLanes + q] : 0.0f;
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // ---- the rows past every computed tile: zeros ----
+  const int64_t first = static_cast<int64_t>(a.z0) * a.R, count = static_cast<int64_t>(a.out_cap - a.z0) * a.R;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  if (a.vec) {
+    float4* o = reinterpret_cast<float4*>(a.out + first);
+    for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + tid; e < count / 4; e += stride)
+      o[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + tid; e < count; e += stride)
+      a.out[first + e] = 0.0f;
+  }
+}
+
+// The persistent grid of a form at `smem` bytes: every block resident
+// (blocks per SM from the occupancy calculator, times the SMs).  Both,
+// and the shared-memory attribute, are set once per device and size and
+// then reused: the async fleet launches B6 every step.
+template <bool kPositions>
+cudaError_t resident_blocks(size_t smem, int& blocks) {
+  constexpr int kDevices = 16;
+  static int cached_smem[kDevices] = {}, cached_blocks[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && cached_smem[dev] == static_cast<int>(smem)) {
+    blocks = cached_blocks[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(combine_kernel<kPositions>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, combine_kernel<kPositions>, kThreads,
+                                                           smem)) != cudaSuccess) {
+    return err;
+  }
+  blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  if (dev < kDevices) {
+    cached_smem[dev] = static_cast<int>(smem);
+    cached_blocks[dev] = blocks;
+  }
+  return cudaSuccess;
+}
+
+template <bool kPositions>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = 4 * (static_cast<size_t>(a.taps) * kD1 + 2 * static_cast<size_t>(a.rows_pad) * kLanes +
+                           (kPositions ? kWarps * kLanes * kYsPitch : 0) +
+                           static_cast<size_t>(a.out_max) * (kLanes + 4));
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int cap = 0;
+  const cudaError_t err = resident_blocks<kPositions>(smem, cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // no block without work (the zero fill takes at least one)
+  const int64_t items = static_cast<int64_t>((a.R + kLanes - 1) / kLanes) * a.n_emit;
+  const int64_t fill = (static_cast<int64_t>(a.out_cap - a.z0) * a.R + 4 * kThreads - 1) / (4 * kThreads);
+  const int64_t want = items > fill ? items : fill;
+  const int grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  combine_kernel<kPositions><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // B6b: the tensor-core kernel
@@ -235,22 +539,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kSlots = kWarps / 2;
 constexpr int kStagePitch = 36;         // floats per staged f32 row
 
-// An asynchronous copy of `bytes` (0 or the size) from global to shared
-// memory; 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // d += a * b: one m16n8k16 bf16 product with f32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -262,17 +550,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo_elem, float hi_elem) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo_elem))) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi_elem))) << 16);
-}
-
-// The lane's residue at output split sn (the JAX XLA step's arithmetic):
-// the wrap bit, and u = 2 rem / M - 1 rounded as written.
-__device__ __forceinline__ int residue(uint32_t res, uint32_t sn, uint32_t M, float m_f, float& u) {
-  const uint32_t t = res + sn;
-  const bool wrap = (t < res) || (t >= M);
-  const uint32_t rem = wrap ? t - M : t;
-  const float frac = __fdiv_rn(__uint2float_rn(rem), m_f);
-  u = __fsub_rn(__fmul_rn(2.0f, frac), 1.0f);
-  return wrap ? 1 : 0;
 }
 
 // T_{2 tig}(u) y0 + T_{2 tig + 1}(u) y1, the recurrence rounded as B6 does.
@@ -497,14 +774,26 @@ int tc_launch(const float* buffer, const uint2* frags, const int64_t* s_tab, con
 // caller checks shapes, contiguity, n_out <= out_cap and that every row
 // [base0, base0 + skew + j[n_out - 1] + 1 + taps) lies in the ring.
 
-// B6: a_t [taps, 8] f32, the Farrow basis A transposed.
-extern "C" int fir_async_combine(const float* buffer, const float* a_t,
-                                 const int64_t* j_tab, const int64_t* s_tab,
-                                 const int64_t* lanes, float* out, int R,
-                                 int64_t base0, int n_out, int out_cap,
-                                 int taps, int64_t M, int skew, void* stream) {
-  return launch(buffer, a_t, j_tab, s_tab, lanes, out, R, base0, n_out, out_cap, taps, M, skew,
-                stream);
+// B6: a_t [taps, 8] f32, the Farrow basis A transposed; js [out_cap] int32
+// pairs (j, s as u32 bits); tiles [n_tiles][2], rowmap [n_tiles][rows_pad]
+// and aux int32, the tile plan (ops/fir_async_kernel.py F32TilePlan) of
+// the form `positions` picks (aux: pfirst [n_aux] or win [out_cap]); the
+// first n_emit tiles are computed and rows [z0, out_cap) zero-filled;
+// vec: R % 4 == 0 and a 16-byte aligned buffer.
+extern "C" int fir_async_combine(const float* buffer, const float* a_t, const void* js, const int64_t* lanes,
+                                 const void* tiles, const int* rowmap, const int* aux, float* out, int R,
+                                 int64_t base0, int n_out, int out_cap, int taps, int64_t M, int skew,
+                                 int positions, int n_emit, int z0, int rows_pad, int out_max, int n_aux,
+                                 int vec, void* stream) {
+  if (M < 1 || M > 0xFFFFFFFFLL || skew < 1 || taps < f32::kP || taps % f32::kP || n_emit < 0 ||
+      z0 < 0 || z0 > out_cap || n_aux < 1) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const f32::Args a{buffer, a_t, static_cast<const int2*>(js), lanes, static_cast<const int2*>(tiles),
+                    rowmap, aux, out, R, base0, n_out, out_cap, taps, static_cast<uint32_t>(M), skew,
+                    n_emit, z0, rows_pad, out_max, n_aux, vec};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return positions ? f32::launch<true>(a, st) : f32::launch<false>(a, st);
 }
 
 // B6b: frags [3][taps / 16][32][2] uint32, the B fragments of a_hi, a_hi_c

@@ -71,8 +71,10 @@ _SIGNATURES = {
     "fft_magsplit_encode": [_P, _I, _I, _I, _P],
     # (none): the kernel's dynamic shared memory per block
     "fft_magsplit_smem": [],
-    # buffer, a_t, j, s, lanes, out, R, base0, n_out, out_cap, taps, M, skew, stream
-    "fir_async_combine": [_P] * 6 + [_I, _I64, _I, _I, _I, _I64, _I, _P],
+    # buffer, a_t, js, lanes, tiles, rowmap, aux, out, R, base0, n_out, out_cap,
+    # taps, M, skew, positions, n_emit, z0, rows_pad, out_max, n_aux, vec,
+    # stream
+    "fir_async_combine": [_P] * 8 + [_I, _I64, _I, _I, _I, _I64] + [_I] * 8 + [_P],
     # buffer, frags, s, lanes, rowmap, win, out, R, base0, n_out, out_cap,
     # taps, M, skew, outputs per tile, rows_pad, pitch_w, vec, stream
     "fir_async_combine_bf16x4": [_P] * 7 + [_I, _I64, _I, _I, _I, _I64] + [_I] * 5 + [_P],

@@ -41,6 +41,15 @@ the kernel and f64 in the plain version.
   ``async_combine_reference``, the plain PyTorch version (the XLA step's
   region select, banded einsum, wrap takes and Chebyshev combine), runs for
   CPU tensors.  There is no fallback between the two.
+- ``F32TilePlan`` (B6's, ``plan.f32_tiles()``) cuts the outputs into
+  tiles of consecutive outputs, each with the ring rows its block stages
+  with ``cp.async`` (a persistent block stages its next tile while it
+  computes this one), in one of two forms that ``L/M`` picks: at
+  ``L <= POSITIONS_MAX_RATIO * M`` the block computes the 8 basis
+  responses once per position ``p`` of the tile's range (a thread: one
+  lane, 8 consecutive positions, 64 f32 sums over a sliding window of the
+  staged rows) and each output takes those of its position ``j[n] + off
+  + c``; above, each output contracts its own window.
 - ``AsyncTilePlan`` (B6b's, ``plan.tiles``) cuts the outputs into tiles
   and lists, per tile, the ring rows its block stages (the union of its
   outputs' windows, in order) and where each output's window starts among
@@ -68,8 +77,8 @@ from ._build import LAUNCHES, SMEM_MAX, device_kind, launch
 from .matmul3 import bf16_bits_np, bf16_round_np, split_hi_lo
 
 __all__ = [
-    "AsyncCombinePlan", "AsyncTilePlan", "async_combine", "async_combine_plan", "async_combine_reference",
-    "b_fragments", "degree_cut",
+    "AsyncCombinePlan", "AsyncTilePlan", "F32TilePlan", "async_combine", "async_combine_plan",
+    "async_combine_reference", "b_fragments", "degree_cut",
 ]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -90,6 +99,27 @@ TC_TILE_OUTPUTS = (128, 64, 32, 16, 8, 4, 2, 1)
 #: floats per staged f32 row in shared memory (the lanes, padded so the
 #: split pass reads without bank conflicts)
 TC_STAGE_PITCH = 36
+#: B6's block: 32 lanes by 4 warps
+F32_LANES, F32_WARPS = 32, 4
+#: consecutive positions per thread (8 degrees each: 64 f32 sums), and
+#: per pass of a block
+F32_KP = 8
+F32_PASS = F32_KP * F32_WARPS
+#: floats per lane of a warp's response scratch: 8 positions x 8 degrees,
+#: padded so 16-byte accesses meet no bank conflict
+F32_YS_PITCH = F32_KP * 8 + 4
+#: passes of 32 positions per tile at most
+F32_MAX_PASSES = 4
+#: B6 computes every position where L <= POSITIONS_MAX_RATIO * M, about
+#: L/M positions per output, and above it contracts each output's own
+#: window.  On an H100 a position cost 0.65x an output's own contraction
+#: (chip_smoke.py phase 11, case (a), both forms in turns: 0.2592 ms for
+#: 2112 positions per lane, 0.3863 ms for 2048 outputs), so the forms
+#: cross near L/M = 1.5
+POSITIONS_MAX_RATIO = 1.5
+#: shared memory of one B6 block when two share an SM (228 KB per SM, 1 KB
+#: reserved per block)
+F32_SMEM_TWO = 115_712
 
 
 def degree_cut(A) -> int:
@@ -163,6 +193,110 @@ class AsyncTilePlan:
         return rows, np.searchsorted(rows, jt)
 
 
+class F32TilePlan:
+    """B6's tiles (the f32 kernel).  A block is 32 lanes by 4 warps and
+    walks its tiles with a double-buffered ``cp.async`` stage; each tile
+    is a run of consecutive outputs ``[n_lo, n_hi)`` and the ring rows it
+    stages.  The form follows from ``L/M`` alone:
+
+    - ``"positions"`` (``L <= POSITIONS_MAX_RATIO * M``): the tile's
+      outputs read positions ``p = j[n] + off + c`` in ``[j[n_lo],
+      j[n_hi - 1] + skew + 2)``; the block computes the 8 basis responses
+      of every position of that range once, a pass of 32 positions at a
+      time (a thread: one lane, ``F32_KP`` consecutive positions), and
+      each output takes its position's.  The stage is the contiguous rows
+      from ``j[n_lo]``.  Tiles are as long as the shared-memory budget of
+      two blocks per SM allows, in passes of 32 positions (the count of
+      passes per tile that computes the fewest positions in all);
+    - ``"outputs"`` (above, where a position would serve too few outputs
+      for its cost): each output contracts its own window; the stage is
+      the union of the tile's windows, as ``AsyncTilePlan``'s.
+
+    Tables (int32): ``tiles [n_tiles, 2]`` (``n_lo``, ``n_hi``);
+    ``rowmap [n_tiles, rows_pad]`` the ring rows (relative to ``base0``) of
+    each tile's staged rows, padded with the last row its outputs read;
+    ``aux``: for ``"positions"`` ``pfirst [n_aux]``, the first output whose
+    ``j`` reaches position ``p``, for ``"outputs"`` ``win [out_cap]``,
+    where output ``n``'s window starts among its tile's staged rows.
+    ``emit[n_out]`` is the number of tiles with an output below ``n_out``
+    (the tiles one call computes) and ``z0[n_out]`` the first output row
+    past them (rows from there to ``out_cap`` are zero-filled)."""
+
+    def __init__(self, j, taps: int, skew: int, L: int, M: int, form: str | None = None):
+        j = np.asarray(j, np.int64)
+        if j.ndim != 1 or j.size < 1 or np.any(np.diff(j) < 0) or j[0] < 0:
+            raise ValueError("j must be a non-empty, non-decreasing table of rows >= 0")
+        if taps < F32_KP or taps % F32_KP:
+            raise ValueError(f"B6's tiles take a multiple of {F32_KP} taps, got {taps}")
+        if skew < 1 or L < 1 or M < 1:
+            raise ValueError(f"need skew >= 1, L >= 1 and M >= 1: {skew}, {L}, {M}")
+        if form is None:
+            form = "positions" if L <= POSITIONS_MAX_RATIO * M else "outputs"
+        if form not in ("positions", "outputs"):
+            raise ValueError(f"form must be 'positions' or 'outputs', not {form!r}")
+        self.form, self.taps, self.skew = form, int(taps), int(skew)
+        self.window = self.taps + self.skew + 1
+        out_cap = j.size
+        if form == "positions":
+            best = None
+            for passes in range(1, F32_MAX_PASSES + 1):
+                if passes * F32_PASS < self.skew + 2:
+                    continue
+                rows_pad = passes * F32_PASS + self.taps
+                fixed = 4 * (8 * self.taps + 2 * F32_LANES * rows_pad + F32_WARPS * F32_LANES * F32_YS_PITCH)
+                out_max = (F32_SMEM_TWO - fixed) // (4 * F32_LANES + 16)  # results, two (j, s) stages
+                if out_max < 1:
+                    continue
+                # each tile: from n_lo, the outputs whose positions stay in
+                # its passes, at most out_max of them
+                last = np.searchsorted(j, j + passes * F32_PASS - self.skew - 2, side="right")
+                bounds = [0]
+                while bounds[-1] < out_cap:
+                    n_lo = bounds[-1]
+                    bounds.append(int(min(last[n_lo], n_lo + out_max, out_cap)))
+                lo, hi = np.array(bounds[:-1]), np.array(bounds[1:])
+                span = j[hi - 1] + self.skew + 2 - j[lo]
+                computed = int((-(-span // F32_PASS) * F32_PASS).sum())
+                if best is None or computed < best[0]:
+                    best = (computed, passes, rows_pad, lo, hi)
+            if best is None:
+                raise ValueError(f"skew {skew} leaves no positions tile within the shared-memory budget")
+            self.positions, self.passes, self.rows_pad, lo, hi = best
+            last_row = j[hi - 1] + self.window - 1  # the last row the tile's outputs read
+            self.rowmap = np.minimum(j[lo][:, None] + np.arange(self.rows_pad), last_row[:, None])
+            # positions up to j[-1] + skew + 1, plus a thread's F32_KP past them
+            self.aux = np.searchsorted(j, np.arange(int(j[-1]) + self.skew + 3 + F32_KP), side="left")
+        else:
+            out_max = 64  # outputs per tile at most: the results' share of the budget
+            rows_cap = (F32_SMEM_TWO // 4 - 8 * self.taps - (F32_LANES + 4) * out_max) // (2 * F32_LANES)
+            if self.window > rows_cap:
+                raise ValueError(f"a window of {self.window} rows exceeds {rows_cap}")
+            new = np.minimum(np.diff(j), self.window)  # rows each output adds to its predecessor's union
+            bounds = [0]
+            while bounds[-1] < out_cap:
+                n_lo = bounds[-1]
+                grow = self.window + np.cumsum(new[n_lo : n_lo + out_max - 1])
+                bounds.append(min(n_lo + 1 + int(np.searchsorted(grow, rows_cap, side="right")), out_cap))
+            lo, hi = np.array(bounds[:-1]), np.array(bounds[1:])
+            unions = [np.unique((j[a:b, None] + np.arange(self.window)).ravel()) for a, b in zip(lo, hi)]
+            self.rows_pad = max(u.size for u in unions)
+            self.rowmap = np.stack([np.pad(u, (0, self.rows_pad - u.size), mode="edge") for u in unions])
+            self.aux = np.concatenate([np.searchsorted(u, j[a:b]) for u, a, b in zip(unions, lo, hi)])
+            self.positions = None
+        self.tiles = np.stack([lo, hi], axis=1).astype(np.int32)
+        self.rowmap = self.rowmap.astype(np.int32)
+        self.aux = self.aux.astype(np.int32)
+        self.n_tiles = len(lo)
+        self.out_max = int((hi - lo).max())
+        self.smem_bytes = 4 * (8 * self.taps + 2 * F32_LANES * self.rows_pad + (F32_LANES + 4) * self.out_max
+                               + (F32_WARPS * F32_LANES * F32_YS_PITCH if form == "positions" else 0))
+        if self.smem_bytes > SMEM_MAX:
+            raise ValueError(f"B6's tiles need {self.smem_bytes} B of shared memory")
+        emit = np.searchsorted(lo, np.arange(out_cap + 1), side="left")
+        self.emit = emit.tolist()
+        self.z0 = np.where(emit > 0, hi[np.maximum(emit - 1, 0)], 0).tolist()
+
+
 def b_fragments(bases) -> np.ndarray:
     """The tensor cores' B operand: bf16-valued bases ``[d1 = 8, taps]``
     packed as ``mma.sync`` m16n8k16 fragments, ``[len(bases), taps/16,
@@ -186,8 +320,10 @@ class AsyncCombinePlan:
     Farrow basis), ``j``, ``s`` ``[out_cap]`` int64, ``M``,
     ``skew_periods``, ``precision`` (``"highest"``: B6, f32; ``"bf16x4"``:
     B6b, with the split basis ``a_hi``, ``a_lo`` and the degree cut
-    ``dc``).  ``reach`` is the highest ring row, relative to ``base0``,
-    that a call may read: the ring must hold ``[base0, base0 + reach)``."""
+    ``dc``).  ``L = j[1] * M + s[1]`` is the ratio's numerator (B6's form
+    follows ``L/M``).  ``reach`` is the highest ring row, relative to
+    ``base0``, that a call may read: the ring must hold ``[base0, base0 +
+    reach)``."""
 
     def __init__(self, A: np.ndarray, j: np.ndarray, s: np.ndarray, M: int, skew_periods: int,
                  precision: str = "highest"):
@@ -207,6 +343,7 @@ class AsyncCombinePlan:
             raise ValueError("j and s must be equal-length, non-empty lane tables")
         if not 1 <= self.M <= _U32 or self.skew < 1:
             raise ValueError(f"need 1 <= M < 2^32 and skew_periods >= 1: {M}, {skew_periods}")
+        self.L = int(self.j[1]) * self.M + int(self.s[1]) if self.out_cap > 1 else self.M
         # B6b's weight split (XLA's astype: round to nearest even, in f32)
         # and degree cut
         self.dc = degree_cut(self.A)
@@ -222,6 +359,7 @@ class AsyncCombinePlan:
         p_pad = -(-(int(self.j[-1]) + 2) // _LB) * _LB
         self.reach = p_pad + self.taps - 1 + self.skew
         self._tiles = None
+        self._f32_tiles: dict = {}
         self._dev: dict = {}
 
     @property
@@ -231,6 +369,15 @@ class AsyncCombinePlan:
         if self._tiles is None:
             self._tiles = AsyncTilePlan(self.j, self.taps, self.skew)
         return self._tiles
+
+    def f32_tiles(self, form: str | None = None) -> F32TilePlan:
+        """B6's tile plan in ``form`` (``None``: the form ``L/M`` picks),
+        built on first use (it raises where B6's tiles do not take the
+        fleet's taps)."""
+        key = form or ("positions" if self.L <= POSITIONS_MAX_RATIO * self.M else "outputs")
+        if key not in self._f32_tiles:
+            self._f32_tiles[key] = F32TilePlan(self.j, self.taps, self.skew, self.L, self.M, key)
+        return self._f32_tiles[key]
 
     @property
     def frags(self) -> np.ndarray:
@@ -251,8 +398,23 @@ class AsyncCombinePlan:
             host = dict(a_t=self.A.T, j=self.j, s=self.s, **self._ab)
             if self.precision == "bf16x4" and device.type == "cuda":
                 host.update(frags=self.frags.view(np.int32), rowmap=self.tiles.rowmap, win=self.tiles.win)
+            elif device.type == "cuda":
+                # j and s as one 8-byte word per output (s < 2^32 as u32 bits)
+                host.update(js=np.stack([self.j.astype(np.int32), self.s.astype(np.uint32).view(np.int32)], 1))
             tabs = self._dev[device] = {
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()
+            }
+        return tabs
+
+    def f32_tables(self, device: torch.device, form: str | None = None) -> dict:
+        """B6's tile tables in ``form`` on ``device``, uploaded once."""
+        tp = self.f32_tiles(form)
+        key = (device, tp.form)
+        tabs = self._dev.get(key)
+        if tabs is None:
+            tabs = self._dev[key] = {
+                k: torch.from_numpy(np.ascontiguousarray(getattr(tp, k))).to(device)
+                for k in ("tiles", "rowmap", "aux")
             }
         return tabs
 
@@ -303,9 +465,9 @@ def async_combine_reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCo
 
 
 def _reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan, dtype):
-    """``async_combine_reference`` with B6b's responses and the combine in
-    ``dtype`` (float64: the exact sums, the CPU tests' yardstick for the
-    tensor-core tiling)."""
+    """``async_combine_reference`` with the responses and the combine in
+    ``dtype`` (float64: B6b's exact sums, B6's sums of the f32 samples and
+    basis in f64; the CPU tests' yardstick for the kernels' tilings)."""
     _check(buffer, base0, n_out, lanes, plan)
     R = buffer.shape[1]
     out = buffer.new_zeros((plan.out_cap, R), dtype=dtype)
@@ -344,7 +506,7 @@ def _reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan, dt
             + torch.einsum("qs,ksr->kqr", ab_lo, hi) + torch.einsum("qs,ksr->kqr", ab_lo, lo)
         ).to(dtype)
     else:
-        y = torch.einsum("qs,ksr->kqr", tabs["ab"], segs).to(dtype)
+        y = torch.einsum("qs,ksr->kqr", tabs["ab"].to(dtype), segs.to(dtype))
     y = y.reshape(p_pad, plan.d1, R)
 
     # ---- wrap select and Chebyshev combine ----
@@ -354,11 +516,13 @@ def _reference(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan, dt
     return out
 
 
-def async_combine(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan):
+def async_combine(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan, *,
+                  _form: str | None = None):
     """B6 (or B6b for a ``"bf16x4"`` plan), ``[out_cap, R]`` f32 (lanes
     ``n >= n_out`` are zero).  CUDA tensors launch the kernel on the
     current stream; CPU tensors run the plain version.  Anything else
-    raises."""
+    raises.  ``_form`` forces B6's form (``"positions"`` or ``"outputs"``,
+    to check and time both on one shape)."""
     _check(buffer, base0, n_out, lanes, plan)
     if device_kind(buffer) == "cpu":
         return async_combine_reference(buffer, base0, n_out, lanes, plan)
@@ -379,10 +543,16 @@ def async_combine(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan)
         )
         LAUNCHES["async_combine_bf16x4"] += 1
     else:
+        tp = plan.f32_tiles(_form)
+        ft = plan.f32_tables(buffer.device, _form)
+        vec = int(R % 4 == 0 and buffer.data_ptr() % 16 == 0)
         launch(
             "fir_async_combine", buffer.device, _P(buffer.data_ptr()), _P(tabs["a_t"].data_ptr()),
-            _P(tabs["j"].data_ptr()), _P(tabs["s"].data_ptr()), _P(lanes.data_ptr()), _P(out.data_ptr()),
-            _I(R), _I64(base0), _I(n_out), _I(plan.out_cap), _I(plan.taps), _I64(plan.M), _I(plan.skew),
+            _P(tabs["js"].data_ptr()), _P(lanes.data_ptr()), _P(ft["tiles"].data_ptr()),
+            _P(ft["rowmap"].data_ptr()), _P(ft["aux"].data_ptr()), _P(out.data_ptr()), _I(R), _I64(base0),
+            _I(n_out), _I(plan.out_cap), _I(plan.taps), _I64(plan.M), _I(plan.skew),
+            _I(int(tp.form == "positions")), _I(tp.emit[n_out]), _I(tp.z0[n_out]), _I(tp.rows_pad),
+            _I(tp.out_max), _I(tp.aux.size), _I(vec),
         )
         LAUNCHES["async_combine"] += 1
     return out

@@ -376,15 +376,21 @@ def test_fft_backends_on_card_match_cpu(cuda, backend):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "in_hz,out_hz,taps,R,skew,starved",
-    [(44100, 44101, 128, 256, 1, False), (22050, 96000, 64, 128, 2, False),
-     (48000, 44101, 128, 6, 1, False), (4_000_000_000, 4_000_000_001, 128, 128, 1, False),
-     (44100, 44101, 128, 64, 1, True)],
-    ids=["near-unity", "upsample-skew2", "down-ragged-R6", "wide", "starved"],
+    "in_hz,out_hz,taps,R,skew,starved,poison",
+    [(44100, 44101, 128, 256, 1, False, False), (22050, 96000, 64, 128, 2, False, False),
+     (48000, 44101, 128, 6, 1, False, False), (4_000_000_000, 4_000_000_001, 128, 128, 1, False, False),
+     (44100, 44101, 128, 64, 1, True, False), (367500, 1601, 128, 128, 1, False, False),
+     (44100, 44101, 16, 96, 1, False, False), (44100, 44101, 128, 64, 1, False, True)],
+    ids=["near-unity", "upsample-skew2", "down-ragged-R6", "wide", "starved", "heavy-down-e", "taps16",
+         "nan-inf-in-one-lane"],
 )
-def test_async_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R, skew, starved):
-    """B6 against its plain version on random residues and skews (past
-    ``skew_periods`` when starved), at every ``n_out`` bound."""
+def test_async_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R, skew, starved, poison):
+    """B6 in both forms (the one L/M picks and the other) against its
+    plain version on random residues and skews (past ``skew_periods`` when
+    starved), at every ``n_out`` bound.  Poisoned: a NaN in one lane's
+    ring and an Inf in another's make non-finite exactly the outputs whose
+    window holds them; the rest agree with the plain version wherever it
+    is finite (its banded einsum spreads them over their band: 0 x NaN)."""
     L, M = rt.types.reduce_ratio(in_hz, out_hz)
     cfg = tfir.FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
     coeffs = tfir.fir_coefficients(
@@ -396,18 +402,40 @@ def test_async_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R, skew, 
         clamp_j=cfg.input_capacity + 2 if cfg.wide else None,
     )
     rng = np.random.default_rng(8)
-    buf = torch.from_numpy(rng.standard_normal((plan.reach + 9, R), dtype=np.float32)).to(cuda)
+    host = rng.standard_normal((plan.reach + 9, R), dtype=np.float32)
+    if poison:
+        host[200, 5] = np.nan
+        host[77, 9] = np.inf
+    buf = torch.from_numpy(host).to(cuda)
     res = rng.integers(0, M, R)
     base_rel = rng.integers(0, skew + 1 + (5 if starved else 0), R)
     lanes = torch.from_numpy(np.stack([res, base_rel])).to(cuda)
+    picked = plan.f32_tiles().form
+    assert picked == ("outputs" if in_hz == 367500 else "positions")
     before = dict(kern.LAUNCHES)
+    calls = 0
     for base0, n_out in ((0, out_cap), (9, out_cap // 2), (3, 1), (5, 0)):
-        got = b6.async_combine(buf, base0, n_out, lanes, plan)
         ref = b6.async_combine_reference(buf, base0, n_out, lanes, plan)
-        torch.cuda.synchronize()
-        assert (got - ref).abs().max().item() <= KERNEL_ATOL
-        assert torch.all(got[n_out:] == 0)
-    assert kern.LAUNCHES == dict(before, async_combine=before["async_combine"] + 4)
+        for form in ("positions", "outputs"):
+            got = b6.async_combine(buf, base0, n_out, lanes, plan, _form=form)
+            calls += 1
+            torch.cuda.synchronize()
+            assert torch.all(got[n_out:] == 0)
+            if not poison:
+                assert (got - ref).abs().max().item() <= KERNEL_ATOL
+                continue
+            off = np.where((base_rel >= 1) & (base_rel <= skew), base_rel, 0)
+            t = (res[None, :] + plan.s[:n_out, None]) & 0xFFFFFFFF
+            first = base0 + plan.j[:n_out, None] + off[None, :] + ((t < res[None, :]) | (t >= M))
+            bad = ~np.isfinite(host)
+            holds = np.zeros((out_cap, R), bool)
+            holds[:n_out] = bad[first[..., None] + np.arange(taps), np.arange(R)[None, :, None]].any(-1)
+            g, r = got.cpu().numpy(), ref.cpu().numpy()
+            assert np.array_equal(~np.isfinite(g), holds)
+            fin = np.isfinite(r)
+            assert n_out < 2 or (holds[:, 5].any() and holds[:, 9].any() and fin.any())
+            assert np.abs(g[fin] - r[fin]).max() <= KERNEL_ATOL
+    assert kern.LAUNCHES == dict(before, async_combine=before["async_combine"] + calls)
     with pytest.raises(IndexError):
         b6.async_combine(buf, 10, out_cap, lanes, plan)
 
