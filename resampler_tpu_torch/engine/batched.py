@@ -23,6 +23,7 @@ import torch
 
 from ..dsp.planner import plan_conversion
 from ..types import Attenuation, Latency, SampleRate, reduce_ratio
+from ..utils import tracing
 from . import fft as fft_engine
 from .fir import (
     FirConfig,
@@ -237,14 +238,18 @@ class BatchedResamplerFir:
             )
         else:
             n = chunks.shape[1]
-            tm = chunks.permute(1, 0, 2).reshape(n, -1)
+            with tracing.span("fir.relayout_in"):
+                tm = chunks.permute(1, 0, 2).reshape(n, -1)
             self._state, out, consumed, produced = self._fleet_step(
                 self._state, tm, n_valid
             )
-        return out, consumed, produced, out.abs().amax()
+        tracing.count("fir.steps")
+        with tracing.span("fir.peak"):
+            return out, consumed, produced, out.abs().amax()
 
     def _chunks(self, chunks, ndim: int):
-        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self._device)
+        with tracing.span("fir.upload"):
+            chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self._device)
         if chunks.ndim != ndim or chunks.shape[-3] != self.n_streams or (
             chunks.shape[-1] != self._config.channels
         ):
@@ -276,20 +281,21 @@ class BatchedResamplerFir:
         stay on the device; ``consumed``/``produced`` are int32 numpy
         arrays, frames per channel (on the synchronized fleets every
         stream the same)."""
-        chunks = self._chunks(chunks, 3)
-        B, n, _ = chunks.shape
-        if self._kind == "vmapped":
-            nv = np.full(B, n, np.int64) if n_valid is None else n_valid
+        with tracing.span("fir.step"):
+            chunks = self._chunks(chunks, 3)
+            B, n, _ = chunks.shape
+            if self._kind == "vmapped":
+                nv = np.full(B, n, np.int64) if n_valid is None else n_valid
+                out, consumed, produced, peak = self._step(chunks, nv)
+                return out, consumed.astype(np.int32), produced.astype(np.int32), peak
+            nv = n if n_valid is None else int(np.min(n_valid))
             out, consumed, produced, peak = self._step(chunks, nv)
-            return out, consumed.astype(np.int32), produced.astype(np.int32), peak
-        nv = n if n_valid is None else int(np.min(n_valid))
-        out, consumed, produced, peak = self._step(chunks, nv)
-        return (
-            out,
-            np.full((B,), consumed, np.int32),
-            np.full((B,), produced, np.int32),
-            peak,
-        )
+            return (
+                out,
+                np.full((B,), consumed, np.int32),
+                np.full((B,), produced, np.int32),
+                peak,
+            )
 
     def resample_many(self, chunks, n_valid=None):
         """Step ``T`` consecutive chunks per stream: ``chunks [T, B, n, C]``
@@ -299,33 +305,33 @@ class BatchedResamplerFir:
         fleets, ``[T, B]`` (``[T]`` broadcasts) on the vmapped fleet;
         ``consumed`` / ``produced`` come back ``[T]`` and ``[T, B]``
         likewise."""
-        chunks = self._chunks(chunks, 4)
-        T, B, n, _ = chunks.shape
-        vmapped = self._kind == "vmapped"
-        if n_valid is None:
-            nv = np.full((T, B) if vmapped else (T,), n, np.int64)
-        else:
-            nv = np.asarray(n_valid, np.int64)
-            if vmapped and nv.ndim == 1:
-                nv = np.broadcast_to(nv[:, None], (T, B))
-            elif not vmapped and nv.ndim == 2:
-                nv = nv.min(axis=1)
-            want = (T, B) if vmapped else (T,)
-            if nv.shape != want:
-                raise ValueError(f"n_valid must be [T] or [T, B], got {nv.shape}")
-        outs, cs, ps, peaks = [], [], [], []
-        for t in range(T):
-            out, c, p, peak = self._step(chunks[t], nv[t] if vmapped else int(nv[t]))
-            outs.append(out)
-            cs.append(c)
-            ps.append(p)
-            peaks.append(peak)
-        return (
-            torch.stack(outs),
-            np.asarray(cs, np.int32),
-            np.asarray(ps, np.int32),
-            torch.stack(peaks).amax(),
-        )
+        with tracing.span("fir.step"):
+            chunks = self._chunks(chunks, 4)
+            T, B, n, _ = chunks.shape
+            vmapped = self._kind == "vmapped"
+            if n_valid is None:
+                nv = np.full((T, B) if vmapped else (T,), n, np.int64)
+            else:
+                nv = np.asarray(n_valid, np.int64)
+                if vmapped and nv.ndim == 1:
+                    nv = np.broadcast_to(nv[:, None], (T, B))
+                elif not vmapped and nv.ndim == 2:
+                    nv = nv.min(axis=1)
+                want = (T, B) if vmapped else (T,)
+                if nv.shape != want:
+                    raise ValueError(f"n_valid must be [T] or [T, B], got {nv.shape}")
+            outs, cs, ps, peaks = [], [], [], []
+            for t in range(T):
+                out, c, p, peak = self._step(chunks[t], nv[t] if vmapped else int(nv[t]))
+                outs.append(out)
+                cs.append(c)
+                ps.append(p)
+                peaks.append(peak)
+            with tracing.span("fir.relayout_out"):
+                out = torch.stack(outs)
+            with tracing.span("fir.peak"):
+                peak = torch.stack(peaks).amax()
+            return out, np.asarray(cs, np.int32), np.asarray(ps, np.int32), peak
 
 
 class BatchedResamplerFft:
@@ -406,12 +412,13 @@ class BatchedResamplerFft:
         """``chunks`` as a contiguous f32 tensor on the device, and whether
         it is the caller's own memory (a tensor already in that form,
         which the carry must not keep)."""
-        if isinstance(chunks, torch.Tensor):
-            t = chunks.to(self._device, torch.float32).contiguous()
-            callers = t is chunks
-        else:
-            t = torch.tensor(np.asarray(chunks, np.float32), device=self._device)
-            callers = False
+        with tracing.span("fft.upload"):
+            if isinstance(chunks, torch.Tensor):
+                t = chunks.to(self._device, torch.float32).contiguous()
+                callers = t is chunks
+            else:
+                t = torch.tensor(np.asarray(chunks, np.float32), device=self._device)
+                callers = False
         C, N = self._config.channels, self._config.fft_size_input
         if t.ndim != ndim or tuple(t.shape[-3:]) != (self.n_streams, C, N):
             raise ValueError(
@@ -424,17 +431,20 @@ class BatchedResamplerFft:
         # the input-domain carry holds the last chunk: copy it out of the
         # caller's memory, so that later writes there change no output
         if callers and "prev" in state:
-            return {"prev": state["prev"].clone()}
+            with tracing.span("fft.keep"):
+                return {"prev": state["prev"].clone()}
         return state
 
     def resample(self, chunks):
         """Step all streams: ``chunks [B, C, N]`` (numpy, or a tensor,
         ideally already on the fleet's device) -> ``out [B, C, M]``, a
         tensor on the device."""
-        chunks, callers = self._chunks(chunks, 3)
-        state, out = self._step(self._state, chunks)
-        self._state = self._keep(state, callers)
-        return out
+        with tracing.span("fft.step"):
+            chunks, callers = self._chunks(chunks, 3)
+            with tracing.span("fft.contract"):
+                state, out = self._step(self._state, chunks)
+            self._state = self._keep(state, callers)
+            return out
 
     def resample_many(self, chunks):
         """Step ``T`` consecutive chunks per stream: ``chunks [T, B, C, N]
@@ -447,26 +457,31 @@ class BatchedResamplerFft:
         N]`` view of ``chunks``.  Only chunk 0, whose ``prev`` is the
         carry, takes the fleet step (kernel B4).  Other backends loop the
         fleet step."""
-        chunks, callers = self._chunks(chunks, 4)
-        T = chunks.shape[0]
-        if self._resolved_backend != "magsplit" or T < 2:
-            state, outs = self._state, []
-            for t in range(T):
-                state, out = self._step(state, chunks[t])
-                outs.append(out)
-            self._state = self._keep(state, callers)
-            return torch.stack(outs)
-        if self._pool_step is None:
-            self._pool_step = fft_engine.make_fft_fleet_step_pool(
-                self._config, self.n_streams, backend=self._backend,
-                device=self._device,
-            )
-        C, N = self._config.channels, self._config.fft_size_input
-        pool = chunks.reshape(T, self.n_streams * C, N)
-        _, out0 = self._step(self._state, chunks[0])
-        outs = [out0]
-        for t in range(1, T):
-            _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
-            outs.append(out)
-        self._state = self._keep({"prev": chunks[T - 1]}, callers)
-        return torch.stack(outs)
+        with tracing.span("fft.step"):
+            chunks, callers = self._chunks(chunks, 4)
+            T = chunks.shape[0]
+            if self._resolved_backend != "magsplit" or T < 2:
+                state, outs = self._state, []
+                with tracing.span("fft.contract"):
+                    for t in range(T):
+                        state, out = self._step(state, chunks[t])
+                        outs.append(out)
+                    outs = torch.stack(outs)
+                self._state = self._keep(state, callers)
+                return outs
+            if self._pool_step is None:
+                self._pool_step = fft_engine.make_fft_fleet_step_pool(
+                    self._config, self.n_streams, backend=self._backend,
+                    device=self._device,
+                )
+            C, N = self._config.channels, self._config.fft_size_input
+            pool = chunks.reshape(T, self.n_streams * C, N)
+            with tracing.span("fft.contract"):
+                _, out0 = self._step(self._state, chunks[0])
+                outs = [out0]
+                for t in range(1, T):
+                    _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
+                    outs.append(out)
+                outs = torch.stack(outs)
+            self._state = self._keep({"prev": chunks[T - 1]}, callers)
+            return outs

@@ -37,6 +37,7 @@ import torch
 
 from ..dsp.window import WindowType, calculate_cutoff_kaiser, make_sincs_for_kaiser
 from ..types import Attenuation
+from ..utils import tracing
 
 __all__ = [
     "PHASES",
@@ -892,23 +893,27 @@ def make_fir_step_batched(
 
     def step(state: dict, chunks, n_valid, out_budget):
         chunks, n_valid, budget = checked(state, chunks, n_valid, out_budget)
-        avail = np.asarray(state["available_frames"], np.int64)
-        if wide:
-            pos = (np.asarray(state["pos_hi"], np.int64), np.asarray(state["pos_lo"], np.int64))
-            to_copy = np.minimum(n_valid, valid_end - avail)
-            avail = avail + to_copy
-            n_out = np.minimum(wide.emitted(*pos, avail), budget)
-        else:
-            pos = np.asarray(state["pos_num"], np.int64)
-            to_copy, avail, n_out = stream_schedule(config, avail, pos, n_valid, budget)
-        buffer = slide_in(state["buffer"], chunks, to_copy, valid_end)
-        out = convolve(buffer, avail, pos, n_out)
-        if wide:
-            avail, hi, lo = wide.advance_each(*pos, n_out, avail)
-            pos_state = dict(pos_hi=hi, pos_lo=lo)
-        else:
-            avail, pos = stream_consume(config, pos, n_out, avail)
-            pos_state = dict(pos_num=pos)
+        with tracing.span("fir.schedule"):
+            avail = np.asarray(state["available_frames"], np.int64)
+            if wide:
+                pos = (np.asarray(state["pos_hi"], np.int64),
+                       np.asarray(state["pos_lo"], np.int64))
+                to_copy = np.minimum(n_valid, valid_end - avail)
+                avail = avail + to_copy
+                n_out = np.minimum(wide.emitted(*pos, avail), budget)
+            else:
+                pos = np.asarray(state["pos_num"], np.int64)
+                to_copy, avail, n_out = stream_schedule(config, avail, pos, n_valid, budget)
+        with tracing.span("fir.contract"):
+            buffer = slide_in(state["buffer"], chunks, to_copy, valid_end)
+            out = convolve(buffer, avail, pos, n_out)
+        with tracing.span("fir.schedule"):
+            if wide:
+                avail, hi, lo = wide.advance_each(*pos, n_out, avail)
+                pos_state = dict(pos_hi=hi, pos_lo=lo)
+            else:
+                avail, pos = stream_consume(config, pos, n_out, avail)
+                pos_state = dict(pos_num=pos)
         return dict(buffer=buffer, available_frames=avail, **pos_state), out, to_copy, n_out
 
     return step

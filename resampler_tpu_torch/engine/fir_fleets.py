@@ -48,6 +48,7 @@ from ..ops.fir_dma_kernel import (
 from ..ops.fir_kernel import FleetStepPlan, SpareBuffer
 from ..ops.fir_sync_kernel import fir_fleet_step_sync
 from ..ops.matmul3 import matmul3, matmul3_reference, split_weight
+from ..utils import tracing
 from .fir import (
     FARROW_DEGREE,
     FirConfig,
@@ -421,35 +422,42 @@ def make_fir_fleet_step_sync_tm(
         # masked rows as zeros ----
         to_copy = min(n_valid, cap - avail)
         check_window(fill, n_in, buffer.shape[0], "ring append")
-        buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
+        with tracing.span("fir.append"):
+            buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
         fill += to_copy
         avail += to_copy
 
         # ---- shared schedule; the wide one counts its emission mask ----
-        if wide:
-            n_out = min(wide.emitted(*pos, avail), out_cap)
-        else:
-            n_out = _compute_n_out(config, pos, avail, out_cap)
+        with tracing.span("fir.schedule"):
+            if wide:
+                n_out = min(wide.emitted(*pos, avail), out_cap)
+            else:
+                n_out = _compute_n_out(config, pos, avail, out_cap)
 
         # ---- fleet-wide contraction; a step that emits nothing skips it
         # (all its lanes are masked, and heavy downsampling carries pos
         # past the buffered frames there) ----
         if n_out:
-            out = contract(buffer, start, pos, avail)
-            out[n_out:] = 0.0
+            with tracing.span("fir.contract"):
+                out = contract(buffer, start, pos, avail)
+            with tracing.span("fir.mask"):
+                out[n_out:] = 0.0
         else:
-            out = buffer.new_zeros((out_cap, R))
+            with tracing.span("fir.mask"):
+                out = buffer.new_zeros((out_cap, R))
         if out_layout == "bm":
-            out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+            with tracing.span("fir.relayout_out"):
+                out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
 
         # ---- consume: advance start, no data movement ----
-        if wide:
-            consumed, hi, lo = wide.advance(*pos, n_out, avail)
-            pos_state = dict(pos_hi=hi, pos_lo=lo)
-        else:
-            pos_after = pos + n_out * L
-            consumed = min(pos_after // M, avail)
-            pos_state = dict(pos_num=pos_after - consumed * M)
+        with tracing.span("fir.schedule"):
+            if wide:
+                consumed, hi, lo = wide.advance(*pos, n_out, avail)
+                pos_state = dict(pos_hi=hi, pos_lo=lo)
+            else:
+                pos_after = pos + n_out * L
+                consumed = min(pos_after // M, avail)
+                pos_state = dict(pos_num=pos_after - consumed * M)
         start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
 
         new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)
@@ -465,8 +473,10 @@ def _compact(buffer, start: int, fill: int, cap: int, max_chunk: int, slack: int
     ring = buffer.shape[0]
     if fill + max_chunk + slack > ring:
         ws = min(start, ring - cap)
-        buffer[:cap] = buffer[ws : ws + cap].clone()
-        buffer[cap:] = 0.0
+        with tracing.span("fir.compact"):
+            buffer[:cap] = buffer[ws : ws + cap].clone()
+            buffer[cap:] = 0.0
+        tracing.count("fir.compactions")
         start -= ws
         fill -= ws
     return start, fill
@@ -569,38 +579,44 @@ def make_fir_fleet_step_async_tm(
         # ---- append, with the NaN fence of the sync fleet ----
         to_copy = min(n_valid, cap - avail)
         check_window(fill, n_in, buffer.shape[0], "ring append")
-        buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
+        with tracing.span("fir.append"):
+            buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
         fill += to_copy
         avail += to_copy
 
         # ---- the per-stream schedule, [B] numpy on the host ----
-        if wide:
-            pos_hi = stream_words(state["pos_hi"], B, "pos_hi")
-            pos_lo = stream_words(state["pos_lo"], B, "pos_lo")
-            mx_hi = int(pos_hi.max())
-            mx_lo = int(pos_lo[pos_hi == mx_hi].max())
-            n_out = min(wide.emitted(mx_hi, mx_lo, avail), out_cap)
-            b0 = min(int(pos_hi.min()), avail)
-            base_rel, res = pos_hi - b0, pos_lo
-        else:
-            pos = stream_words(state["pos_num"], B, "pos_num")
-            n_out = _compute_n_out(config, int(pos.max()), avail, out_cap)
-            b0 = min(int(pos.min()) // M, avail)
-            base_rel, res = np.divmod(pos - b0 * M, M)
-        lanes = upload(np.stack([np.repeat(res, C), np.repeat(base_rel, C)]), device)
+        with tracing.span("fir.schedule"):
+            if wide:
+                pos_hi = stream_words(state["pos_hi"], B, "pos_hi")
+                pos_lo = stream_words(state["pos_lo"], B, "pos_lo")
+                mx_hi = int(pos_hi.max())
+                mx_lo = int(pos_lo[pos_hi == mx_hi].max())
+                n_out = min(wide.emitted(mx_hi, mx_lo, avail), out_cap)
+                b0 = min(int(pos_hi.min()), avail)
+                base_rel, res = pos_hi - b0, pos_lo
+            else:
+                pos = stream_words(state["pos_num"], B, "pos_num")
+                n_out = _compute_n_out(config, int(pos.max()), avail, out_cap)
+                b0 = min(int(pos.min()) // M, avail)
+                base_rel, res = np.divmod(pos - b0 * M, M)
 
-        out = combine(buffer, start + b0, n_out, lanes, plan)  # [out_cap, R], masked
+        # the lanes' upload and the kernel (its mask included)
+        with tracing.span("fir.contract"):
+            lanes = upload(np.stack([np.repeat(res, C), np.repeat(base_rel, C)]), device)
+            out = combine(buffer, start + b0, n_out, lanes, plan)  # [out_cap, R], masked
         if out_layout == "bm":
-            out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+            with tracing.span("fir.relayout_out"):
+                out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
 
         # ---- consume: the shared scalar, the per-stream rest into pos ----
-        if wide:
-            consumed, hi, lo = wide.advance(pos_hi, pos_lo, n_out, avail)
-            pos_state = dict(pos_hi=hi, pos_lo=lo)
-        else:
-            pos_after = pos + n_out * L
-            consumed = min(int(pos_after.min()) // M, avail)
-            pos_state = dict(pos_num=pos_after - consumed * M)
+        with tracing.span("fir.schedule"):
+            if wide:
+                consumed, hi, lo = wide.advance(pos_hi, pos_lo, n_out, avail)
+                pos_state = dict(pos_hi=hi, pos_lo=lo)
+            else:
+                pos_after = pos + n_out * L
+                consumed = min(int(pos_after.min()) // M, avail)
+                pos_state = dict(pos_num=pos_after - consumed * M)
         start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
 
         new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)

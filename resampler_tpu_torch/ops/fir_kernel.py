@@ -73,6 +73,7 @@ from ..engine.fir import (
     stream_words,
     upload,
 )
+from ..utils import tracing
 from ._build import LAUNCHES, SMEM_MAX, device_kind, launch
 
 __all__ = [
@@ -218,7 +219,8 @@ class SpareBuffer:
             spare is None or spare is buffer or spare.shape != buffer.shape
             or spare.device != buffer.device
         ):
-            spare = torch.zeros_like(buffer)
+            with tracing.span("fir.contract"):
+                spare = torch.zeros_like(buffer)
         self._spare = buffer
         return spare
 
@@ -379,11 +381,13 @@ def launch_step(plan: FleetStepPlan, buffers, view, sched_dev, out_buffers, coun
 
 def _fleet_step(plan, buffers, chunks, avail, pos_num, n_valid, budget, out_buffers, plain):
     check_step(plan, buffers, chunks, out_buffers)
-    sched = schedule(plan, avail, pos_num, n_valid, budget, chunks.shape[1])
-    if plain:
-        new, out = step_reference(plan, buffers, chunks, sched, out_buffers)
-    else:
-        new, out = step_kernel(plan, buffers, chunks, sched, out_buffers, "fir_fleet_step")
+    with tracing.span("fir.schedule"):
+        sched = schedule(plan, avail, pos_num, n_valid, budget, chunks.shape[1])
+    with tracing.span("fir.contract"):
+        if plain:
+            new, out = step_reference(plan, buffers, chunks, sched, out_buffers)
+        else:
+            new, out = step_kernel(plan, buffers, chunks, sched, out_buffers, "fir_fleet_step")
     return new, out, sched["avail"], sched["pos"], sched["to_copy"], sched["n_out"]
 
 

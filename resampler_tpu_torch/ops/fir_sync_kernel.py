@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import tracing
 from ._build import device_kind
 from .fir_kernel import FleetStepPlan, check_step, schedule, step_kernel, step_reference
 
@@ -35,11 +36,14 @@ def _sync_step(plan, buffers, chunks, avail, pos_num, n_valid, channel_major, ou
             raise TypeError(f"{what} must be an int (one shared schedule), got {type(v).__name__}")
     view = chunks.transpose(1, 2) if channel_major and chunks.ndim == 3 else chunks
     check_step(plan, buffers, view, out_buffers)
-    sched = schedule(plan, [avail], [pos_num], [n_valid], [plan.config.out_capacity], view.shape[1])
-    if plain:
-        new, out = step_reference(plan, buffers, view, sched, out_buffers)
-    else:
-        new, out = step_kernel(plan, buffers, view, sched, out_buffers, "fir_fleet_step_sync")
+    with tracing.span("fir.schedule"):
+        sched = schedule(plan, [avail], [pos_num], [n_valid], [plan.config.out_capacity],
+                         view.shape[1])
+    with tracing.span("fir.contract"):
+        if plain:
+            new, out = step_reference(plan, buffers, view, sched, out_buffers)
+        else:
+            new, out = step_kernel(plan, buffers, view, sched, out_buffers, "fir_fleet_step_sync")
     return (new, out, int(sched["avail"][0]), int(sched["pos"][0]),
             int(sched["to_copy"][0]), int(sched["n_out"][0]))
 

@@ -22,6 +22,7 @@ import torch
 from .engine.batched import BatchedResamplerFir
 from .types import Attenuation, Latency
 from .utils.native import HostStreamPool
+from .utils import tracing
 
 __all__ = ["StreamingFleet"]
 
@@ -98,7 +99,12 @@ class StreamingFleet:
             raise IndexError(
                 f"stream {stream} out of range [0, {self.n_streams})"
             )
-        return self.pool.push(stream, interleaved)
+        with tracing.span("runtime.push"):
+            accepted = self.pool.push(stream, interleaved)
+        refused = np.size(interleaved) - accepted
+        if refused:
+            tracing.count("runtime.values_refused", refused)
+        return accepted
 
     def pending(self, stream: int) -> int:
         """Values queued (pool + carry) but not yet consumed on device."""
@@ -124,8 +130,37 @@ class StreamingFleet:
         All host staging is whole-batch numpy (one ``take_along_axis``
         gather per reshuffle): no per-stream python work besides the
         pool's drain and the per-stream output slices."""
-        B, n, C = self.n_streams, self.chunk_frames, self.channels
-        drained, pool_valid = self.pool.fill(n)
+        with tracing.span("runtime.step"):
+            outs = self._step()
+        tracing.count("runtime.steps")
+        tracing.count("runtime.carried_frames", int(self._carry_len.sum()))
+        return outs
+
+    def _step(self) -> list[np.ndarray]:
+        B, n = self.n_streams, self.chunk_frames
+        with tracing.span("runtime.drain"):
+            drained, pool_valid = self.pool.fill(n)
+        with tracing.span("runtime.stage"):
+            batch, n_valid, rest, rest_len = self._stage(drained, pool_valid)
+
+        out, consumed, produced, _peak = self.engine.resample(batch, n_valid)
+        with tracing.span("runtime.fetch"):
+            out = torch.as_tensor(out).cpu().numpy()
+            consumed = np.asarray(consumed, np.int64)
+            produced = np.asarray(produced, np.int64)
+
+        with tracing.span("runtime.recarry"):
+            self._recarry(batch, n_valid, consumed, rest, rest_len)
+
+        with tracing.span("runtime.deliver"):
+            return [
+                out[s, : int(produced[s])].reshape(-1).copy() for s in range(B)
+            ]
+
+    def _stage(self, drained, pool_valid):
+        """``[carry | drained]`` packed per stream: the batch of the
+        fleet step, its valid counts, and what is left past the batch."""
+        n = self.chunk_frames
         pool_valid = np.asarray(pool_valid, np.int64)
         carry_len = self._carry_len
 
@@ -153,13 +188,11 @@ class StreamingFleet:
         rest_idx = take[:, None] + np.arange(cap)[None, :]
         np.clip(rest_idx, 0, cap + n - 1, out=rest_idx)
         rest = np.take_along_axis(packed, rest_idx[:, :, None], axis=1)
-        rest_len = lens - take
+        return batch, n_valid, rest, lens - take
 
-        out, consumed, produced, _peak = self.engine.resample(batch, n_valid)
-        out = torch.as_tensor(out).cpu().numpy()
-        consumed = np.asarray(consumed, np.int64)
-        produced = np.asarray(produced, np.int64)
-
+    def _recarry(self, batch, n_valid, consumed, rest, rest_len) -> None:
+        """The carry rebuilt after the fleet step."""
+        n = self.chunk_frames
         # frames the device couldn't accept go back to the FRONT of the
         # carry: carry' = [batch[consumed:valid] | rest]
         tail_len = n_valid - consumed
@@ -178,10 +211,6 @@ class StreamingFleet:
         carry[pos >= new_len[:, None]] = 0.0
         self._carry = carry
         self._carry_len = new_len
-
-        return [
-            out[s, : int(produced[s])].reshape(-1).copy() for s in range(B)
-        ]
 
     def drain(self) -> list[np.ndarray]:
         """Step until no stream makes progress; per-stream concatenated
