@@ -84,10 +84,10 @@ class StreamingFleet:
             initial_positions=initial_positions,
             device=device,
         )
-        # Unconsumed frames awaiting the next device step, staged in ONE
-        # left-aligned [B, cap, C] array + per-stream lengths so every
-        # step's carry handling is a few whole-batch numpy ops instead of
-        # an O(B) python loop of per-stream concats.
+        # Unconsumed frames awaiting the next device step: one persistent
+        # left-aligned [B, cap, C] buffer + per-stream lengths.  A step
+        # reads a row only up to its length and writes only the rows of
+        # streams left with frames, so no row is ever zeroed.
         self._carry = np.zeros((n_streams, 2 * chunk_frames, channels),
                                np.float32)
         self._carry_len = np.zeros(n_streams, np.int64)
@@ -127,9 +127,10 @@ class StreamingFleet:
         """Drain one batch (carry first, then pool), resample all streams
         on device, return each stream's newly produced samples.
 
-        All host staging is whole-batch numpy (one ``take_along_axis``
-        gather per reshuffle): no per-stream python work besides the
-        pool's drain and the per-stream output slices."""
+        The drained batch goes to the fleet as it is: only the rows of
+        streams that carry frames are repacked, in place, and only the
+        streams left with frames after the step have their carry row
+        rewritten.  With no stream carrying, staging copies nothing."""
         with tracing.span("runtime.step"):
             outs = self._step()
         tracing.count("runtime.steps")
@@ -141,7 +142,7 @@ class StreamingFleet:
         with tracing.span("runtime.drain"):
             drained, pool_valid = self.pool.fill(n)
         with tracing.span("runtime.stage"):
-            batch, n_valid, rest, rest_len = self._stage(drained, pool_valid)
+            batch, n_valid, rest = self._stage(drained, pool_valid)
 
         out, consumed, produced, _peak = self.engine.resample(batch, n_valid)
         with tracing.span("runtime.fetch"):
@@ -150,7 +151,7 @@ class StreamingFleet:
             produced = np.asarray(produced, np.int64)
 
         with tracing.span("runtime.recarry"):
-            self._recarry(batch, n_valid, consumed, rest, rest_len)
+            self._recarry(batch, n_valid, consumed, rest)
 
         with tracing.span("runtime.deliver"):
             return [
@@ -158,58 +159,44 @@ class StreamingFleet:
             ]
 
     def _stage(self, drained, pool_valid):
-        """``[carry | drained]`` packed per stream: the batch of the
-        fleet step, its valid counts, and what is left past the batch."""
+        """The batch of the fleet step, its valid counts, and the frames
+        past the batch (``{stream: frames}``, streams that carry only).
+
+        The batch is ``drained`` itself: a stream with no carry feeds its
+        drained row as the pool left it (zero past its ``pool_valid``,
+        which is at most a chunk); a stream that carries gets its row
+        rewritten in place as ``[carry | drained]`` cut to the chunk."""
         n = self.chunk_frames
-        pool_valid = np.asarray(pool_valid, np.int64)
         carry_len = self._carry_len
+        n_valid = np.minimum(carry_len + pool_valid, n).astype(np.int32)
+        carrying = np.flatnonzero(carry_len)
+        tracing.count("runtime.staged_streams", carrying.size)
+        rest = {}
+        lens, valid = carry_len.tolist(), pool_valid.tolist()
+        for s in carrying.tolist():
+            row = np.concatenate(
+                [self._carry[s, : lens[s]], drained[s, : valid[s]]]
+            )
+            drained[s, : min(lens[s] + valid[s], n)] = row[:n]
+            rest[s] = row[n:]
+        return drained, n_valid, rest
 
-        # combined = [carry | drained], valid length per stream
-        self._ensure_carry_capacity(int(carry_len.max(initial=0)) + n)
-        cap = self._carry.shape[1]
-        combined = np.concatenate([self._carry, drained], axis=1)
-        # drained data starts at column `cap`, but logically belongs right
-        # after the carry: gather it into place in the same pass as the
-        # batch/carry split below.
-        lens = carry_len + pool_valid
-        take = np.minimum(lens, n)
-
-        pos = np.arange(cap + n)[None, :]
-        src = np.where(
-            pos < carry_len[:, None], pos, cap + pos - carry_len[:, None]
-        )
-        np.clip(src, 0, cap + n - 1, out=src)
-        packed = np.take_along_axis(combined, src[:, :, None], axis=1)
-        lane = np.arange(n)[None, :, None]
-        batch = np.where(lane < take[:, None, None], packed[:, :n], 0.0)
-        n_valid = take.astype(np.int32)
-
-        # leftover after the take, shifted to the front of the carry
-        rest_idx = take[:, None] + np.arange(cap)[None, :]
-        np.clip(rest_idx, 0, cap + n - 1, out=rest_idx)
-        rest = np.take_along_axis(packed, rest_idx[:, :, None], axis=1)
-        return batch, n_valid, rest, lens - take
-
-    def _recarry(self, batch, n_valid, consumed, rest, rest_len) -> None:
-        """The carry rebuilt after the fleet step."""
-        n = self.chunk_frames
-        # frames the device couldn't accept go back to the FRONT of the
-        # carry: carry' = [batch[consumed:valid] | rest]
+    def _recarry(self, batch, n_valid, consumed, rest) -> None:
+        """The carry after the fleet step: frames the device did not
+        accept go back to the FRONT, ``[batch[consumed:valid] | rest]``.
+        Rows of streams left with no frame are not written."""
         tail_len = n_valid - consumed
-        new_len = tail_len + rest_len
+        new_len = tail_len.astype(np.int64)
+        for s, r in rest.items():
+            new_len[s] += r.shape[0]
         self._ensure_carry_capacity(int(new_len.max(initial=0)))
-        cap = self._carry.shape[1]
-        pos = np.arange(cap)[None, :]
-        both = np.concatenate([batch, rest], axis=1)
-        src = np.where(
-            pos < tail_len[:, None],
-            consumed[:, None] + pos,
-            n + pos - tail_len[:, None],
-        )
-        np.clip(src, 0, both.shape[1] - 1, out=src)
-        carry = np.take_along_axis(both, src[:, :, None], axis=1)
-        carry[pos >= new_len[:, None]] = 0.0
-        self._carry = carry
+        tails, starts = tail_len.tolist(), consumed.tolist()
+        for s in np.flatnonzero(new_len).tolist():
+            t, c = tails[s], starts[s]
+            self._carry[s, :t] = batch[s, c : c + t]
+            r = rest.get(s)
+            if r is not None:
+                self._carry[s, t : t + r.shape[0]] = r
         self._carry_len = new_len
 
     def drain(self) -> list[np.ndarray]:

@@ -22,6 +22,8 @@ snapshots them together with the kernel wrappers' launch counts
 - ``runtime.steps``: ``StreamingFleet.step`` calls;
 - ``runtime.carried_frames``: frames per stream left in the host carry
   after each step, summed over streams and steps;
+- ``runtime.staged_streams``: streams whose batch row a step packed from
+  the host carry, summed over steps (the rest pass through as drained);
 - ``runtime.values_refused``: values ``StreamingFleet.push`` did not
   queue (a full queue, or a trailing part of a frame);
 - ``fir.steps``: FIR fleet steps (each chunk of ``resample_many`` is one);
@@ -42,8 +44,8 @@ __all__ = ["PREFIX", "count", "counters", "reset_counters", "span"]
 PREFIX = "rtt."
 
 _COUNTS = dict.fromkeys(
-    ("runtime.steps", "runtime.carried_frames", "runtime.values_refused",
-     "fir.steps", "fir.compactions"),
+    ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
+     "runtime.values_refused", "fir.steps", "fir.compactions"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

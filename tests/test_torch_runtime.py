@@ -15,6 +15,7 @@ import resampler_tpu_torch as trt
 from resampler_tpu.runtime import StreamingFleet as JaxStreamingFleet
 from resampler_tpu.utils.checkpoint import load_state, save_state
 from resampler_tpu.utils.native import HostStreamPool as JaxPool
+from resampler_tpu_torch.utils import tracing
 from resampler_tpu_torch.utils.native import HostStreamPool
 from resampler_tpu_torch.utils.state import state_from_numpy, state_to_numpy
 
@@ -224,3 +225,103 @@ def test_async_state_round_trip(tmp_path):
             chunks = rng.standard_normal((3, CHUNK, 2)).astype(np.float32)
             _compare(j.resample(chunks), t.resample(chunks))
             _assert_states_equal(j.state, t.state)
+
+
+def _stage_plain(carry, carry_len, drained, pool_valid, n):
+    """``StreamingFleet``'s staging as whole-batch numpy regathers over
+    every stream: ``(batch, n_valid, rest, rest_len)``."""
+    pool_valid = np.asarray(pool_valid, np.int64)
+    cap = carry.shape[1]
+    combined = np.concatenate([carry, drained], axis=1)
+    lens = carry_len + pool_valid
+    take = np.minimum(lens, n)
+    pos = np.arange(cap + n)[None, :]
+    src = np.where(pos < carry_len[:, None], pos, cap + pos - carry_len[:, None])
+    np.clip(src, 0, cap + n - 1, out=src)
+    packed = np.take_along_axis(combined, src[:, :, None], axis=1)
+    lane = np.arange(n)[None, :, None]
+    batch = np.where(lane < take[:, None, None], packed[:, :n], 0.0)
+    rest_idx = take[:, None] + np.arange(cap)[None, :]
+    np.clip(rest_idx, 0, cap + n - 1, out=rest_idx)
+    rest = np.take_along_axis(packed, rest_idx[:, :, None], axis=1)
+    return batch, take.astype(np.int32), rest, lens - take
+
+
+def _recarry_plain(batch, n_valid, consumed, rest, rest_len, n):
+    """The carry rebuilt from the whole batch: ``(carry, carry_len)``."""
+    tail_len = n_valid - consumed
+    new_len = tail_len + rest_len
+    cap = max(rest.shape[1], int(new_len.max(initial=0)))
+    pos = np.arange(cap)[None, :]
+    both = np.concatenate([batch, rest], axis=1)
+    src = np.where(pos < tail_len[:, None], consumed[:, None] + pos, n + pos - tail_len[:, None])
+    np.clip(src, 0, both.shape[1] - 1, out=src)
+    carry = np.take_along_axis(both, src[:, :, None], axis=1)
+    carry[pos >= new_len[:, None]] = 0.0
+    return carry, new_len
+
+
+#: per case: the carry lengths before the first step (from ``(rng, B, n)``)
+#: and the frames each step's fleet takes (from ``(rng, n_valid)``)
+STAGING = {
+    "none-carrying": (lambda rng, B, n: np.zeros(B, np.int64), lambda rng, nv: nv),
+    "all-carrying": (lambda rng, B, n: rng.integers(1, n, B),
+                     lambda rng, nv: np.maximum(nv - rng.integers(1, 64, nv.size), 0)),
+    "random-mix": (lambda rng, B, n: rng.integers(0, 2, B) * rng.integers(1, n, B),
+                   lambda rng, nv: np.where(rng.random(nv.size) < 0.3, nv // 2, nv)),
+    "rest-past-chunk": (lambda rng, B, n: rng.integers(n, 2 * n, B),
+                        lambda rng, nv: nv // 4),
+    "capacity-growth": (lambda rng, B, n: np.zeros(B, np.int64),
+                        lambda rng, nv: np.where(np.arange(nv.size) % 2, 0, nv)),
+    "consumed-below-valid": (lambda rng, B, n: np.zeros(B, np.int64),
+                             lambda rng, nv: rng.integers(0, nv + 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGING))
+def test_staging_matches_the_whole_batch_regather(case):
+    """``_stage`` and ``_recarry``, which touch only the streams that carry,
+    against the whole-batch regathers over every stream, step after step:
+    the batch bit for bit, the valid counts, the carry rows up to their
+    lengths and the lengths; with no stream carrying the batch is the
+    drained array itself."""
+    B, C, n = 16, 2, 64
+    fleet = trt.StreamingFleet(B, C, 44100, 48000, chunk_frames=n, device="cpu")
+    rng = np.random.default_rng(sorted(STAGING).index(case))
+    first_len, take = STAGING[case]
+    carry_len = np.asarray(first_len(rng, B, n), np.int64)
+    carry = np.zeros((B, 2 * n, C), np.float32)
+    for s in range(B):
+        carry[s, : carry_len[s]] = rng.standard_normal((carry_len[s], C))
+    fleet._carry[:], fleet._carry_len = carry, carry_len.copy()
+    cap0 = carry.shape[1]
+    for _ in range(6):
+        pool_valid = rng.integers(0, n + 1, B).astype(np.int32)
+        pool_valid[rng.integers(B)] = n  # a full chunk each step
+        drained = np.zeros((B, n, C), np.float32)
+        for s in range(B):
+            drained[s, : pool_valid[s]] = rng.standard_normal((pool_valid[s], C))
+        want_batch, want_valid, rest, rest_len = _stage_plain(carry, carry_len, drained.copy(),
+                                                              pool_valid, n)
+        staged = tracing.counters()["runtime.staged_streams"]
+        batch, n_valid, got_rest = fleet._stage(drained, pool_valid)
+        assert tracing.counters()["runtime.staged_streams"] - staged == np.count_nonzero(carry_len)
+        if not carry_len.any():
+            assert batch is drained and not got_rest
+        assert batch.dtype == want_batch.dtype and n_valid.dtype == want_valid.dtype
+        np.testing.assert_array_equal(batch.view(np.uint32), want_batch.view(np.uint32))
+        np.testing.assert_array_equal(n_valid, want_valid)
+        consumed = np.asarray(take(rng, n_valid.astype(np.int64)), np.int64)
+        carry, carry_len = _recarry_plain(want_batch, want_valid, consumed, rest, rest_len, n)
+        fleet._recarry(batch, n_valid, consumed, got_rest)
+        np.testing.assert_array_equal(fleet._carry_len, carry_len)
+        assert fleet._carry_len.dtype == np.int64
+        for s in range(B):
+            np.testing.assert_array_equal(fleet._carry[s, : carry_len[s]].view(np.uint32),
+                                          carry[s, : carry_len[s]].view(np.uint32))
+    if case == "capacity-growth":
+        assert carry_len.max() > cap0 and fleet._carry.shape[1] >= carry_len.max()
+    if case == "none-carrying":
+        assert not carry_len.any()
+    else:
+        assert carry_len.any()

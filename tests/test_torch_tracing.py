@@ -177,20 +177,27 @@ def test_runtime_counters_follow_the_carry_and_the_queue(synchronized):
     fleet = rtt.StreamingFleet(B, C, *FIR, chunk_frames=256, synchronized=synchronized,
                                queue_capacity_frames=1024, device="cpu")
     rng = np.random.default_rng(7)
-    carried, offered, accepted = 0, 0, 0
+    carried, staged, offered, accepted = 0, 0, 0, 0
     for k in range(12):
         for b in range(B):
             x = rng.uniform(-1, 1, int(rng.integers(1, 700)) * C + (k % 2)).astype(np.float32)
             offered += x.size
             accepted += fleet.push(b, x)
+        staged += np.count_nonzero(fleet._carry_len)
         fleet.step()
         carried += int(fleet._carry_len.sum())
     c = tracing.counters()
     assert c["runtime.steps"] == 12
     assert c["runtime.carried_frames"] == carried
+    assert c["runtime.staged_streams"] == staged
     assert c["runtime.values_refused"] == offered - accepted > 0
     if synchronized:
         assert carried > 0  # the shared count holds the faster streams' frames back
+        assert staged > 0
+    else:
+        # the vmapped fleet takes every frame drained (at most a chunk), so
+        # the backlog waits in the pool and every batch row passes through
+        assert carried == staged == 0
 
 
 @pytest.mark.parametrize("wrapper", sorted(_build.LAUNCHES))
