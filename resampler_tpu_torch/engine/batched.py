@@ -176,53 +176,56 @@ class BatchedResamplerFir:
         per-stream ``[n_streams]`` vector and return ``[n_streams]``; the
         async fleet refuses a slew that would widen the position spread to
         ``skew_periods * M``."""
-        M = self._config.ratio_den
-        per_stream = self._kind in ("vmapped", "async_tm")
-        if not per_stream and np.ndim(samples) != 0:
-            raise ValueError(
-                "synchronized fleets share one phase; per-stream slew "
-                "needs the async tm fleet (sync_variant='async_tm') "
-                "or the general (vmapped) fleet"
-            )
-        delta_f = np.round(np.atleast_1d(np.asarray(samples, np.float64)) * M)
-        delta_f = np.broadcast_to(delta_f, (self.n_streams if per_stream else 1,))
-        st = self._state
-        if self._config.wide:
-            # exact Python ints: the two u32 words can exceed int64 together
-            pos = np.asarray(
-                [int(h) * M + int(lo) for h, lo in zip(np.atleast_1d(st["pos_hi"]),
-                                                     np.atleast_1d(st["pos_lo"]))],
-                object,
-            )
-            # no int32 envelope; heavy downsampling carries pos past
-            # capacity*M, so only the history clamp applies
-            applied = np.maximum(np.asarray([int(d) for d in delta_f], object), -pos)
-        else:
-            pos = np.atleast_1d(np.asarray(st["pos_num"], np.int64))
-            ceiling = self._config.input_capacity * M
-            applied = np.clip(delta_f.astype(np.int64), -pos, np.maximum(0, ceiling - pos))
-        new_pos = pos + applied
-        if self._async:
-            spread = int(new_pos.max() - new_pos.min())
-            limit = self._skew_periods * M
-            if spread >= limit:
+        with tracing.span("fir.slew"):
+            M = self._config.ratio_den
+            per_stream = self._kind in ("vmapped", "async_tm")
+            if not per_stream and np.ndim(samples) != 0:
                 raise ValueError(
-                    f"per-stream slew would widen the fleet position spread "
-                    f"to {spread} (>= skew_periods*M = {limit}); the async tm "
-                    "fleet only tracks bounded drift: widen skew_periods or "
-                    "use the general (vmapped) fleet"
+                    "synchronized fleets share one phase; per-stream slew "
+                    "needs the async tm fleet (sync_variant='async_tm') "
+                    "or the general (vmapped) fleet"
                 )
-        if np.any(applied != 0):
+            delta_f = np.round(np.atleast_1d(np.asarray(samples, np.float64)) * M)
+            delta_f = np.broadcast_to(delta_f, (self.n_streams if per_stream else 1,))
+            st = self._state
             if self._config.wide:
-                moved = dict(pos_hi=np.asarray([p // M for p in new_pos], np.int64),
-                             pos_lo=np.asarray([p % M for p in new_pos], np.int64))
+                # exact Python ints: the two u32 words can exceed int64 together
+                pos = np.asarray(
+                    [int(h) * M + int(lo) for h, lo in zip(np.atleast_1d(st["pos_hi"]),
+                                                         np.atleast_1d(st["pos_lo"]))],
+                    object,
+                )
+                # no int32 envelope; heavy downsampling carries pos past
+                # capacity*M, so only the history clamp applies
+                applied = np.maximum(np.asarray([int(d) for d in delta_f], object), -pos)
             else:
-                moved = dict(pos_num=new_pos)
-            if not per_stream:
-                moved = {k: int(v[0]) for k, v in moved.items()}
-            self._state = dict(st, **moved)
-        applied_s = np.asarray(applied / M, np.float64)
-        return applied_s if per_stream else float(applied_s[0])
+                pos = np.atleast_1d(np.asarray(st["pos_num"], np.int64))
+                ceiling = self._config.input_capacity * M
+                applied = np.clip(delta_f.astype(np.int64), -pos, np.maximum(0, ceiling - pos))
+            new_pos = pos + applied
+            if self._async:
+                spread = int(new_pos.max() - new_pos.min())
+                limit = self._skew_periods * M
+                if spread >= limit:
+                    raise ValueError(
+                        f"per-stream slew would widen the fleet position spread "
+                        f"to {spread} (>= skew_periods*M = {limit}); the async tm "
+                        "fleet only tracks bounded drift: widen skew_periods or "
+                        "use the general (vmapped) fleet"
+                    )
+            moved_streams = int(np.count_nonzero(applied != 0))
+            if moved_streams:
+                tracing.count("fir.slews", moved_streams)
+                if self._config.wide:
+                    moved = dict(pos_hi=np.asarray([p // M for p in new_pos], np.int64),
+                                 pos_lo=np.asarray([p % M for p in new_pos], np.int64))
+                else:
+                    moved = dict(pos_num=new_pos)
+                if not per_stream:
+                    moved = {k: int(v[0]) for k, v in moved.items()}
+                self._state = dict(st, **moved)
+            applied_s = np.asarray(applied / M, np.float64)
+            return applied_s if per_stream else float(applied_s[0])
 
     def _step(self, chunks, n_valid):
         """One step: ``n_valid`` is the shared count (an int), or on the

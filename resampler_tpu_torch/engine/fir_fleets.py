@@ -600,9 +600,10 @@ def make_fir_fleet_step_async_tm(
                 b0 = min(int(pos.min()) // M, avail)
                 base_rel, res = np.divmod(pos - b0 * M, M)
 
-        # the lanes' upload and the kernel (its mask included)
-        with tracing.span("fir.contract"):
+        # the lanes' upload, then the kernel (its mask included)
+        with tracing.span("fir.lanes"):
             lanes = upload(np.stack([np.repeat(res, C), np.repeat(base_rel, C)]), device)
+        with tracing.span("fir.contract"):
             out = combine(buffer, start + b0, n_out, lanes, plan)  # [out_cap, R], masked
         if out_layout == "bm":
             with tracing.span("fir.relayout_out"):
@@ -613,10 +614,13 @@ def make_fir_fleet_step_async_tm(
             if wide:
                 consumed, hi, lo = wide.advance(pos_hi, pos_lo, n_out, avail)
                 pos_state = dict(pos_hi=hi, pos_lo=lo)
+                rel = (hi - hi.min()) * M + lo  # exact: hi spreads by a few frames
             else:
                 pos_after = pos + n_out * L
                 consumed = min(int(pos_after.min()) // M, avail)
                 pos_state = dict(pos_num=pos_after - consumed * M)
+                rel = pos_after
+        tracing.count("fir.async.spread", int(rel.max() - rel.min()))
         start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
 
         new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)

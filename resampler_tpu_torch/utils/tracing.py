@@ -8,6 +8,16 @@ With no profiler running it returns one shared object that does nothing,
 after a single read of torch's profiler flag: no clock, no allocation, no
 torch call.  An active profiler is the only switch.
 
+The stages, each one span: ``runtime.push``; ``runtime.step`` and in it
+``runtime.drain``, ``.stage``, ``.recarry``, ``.fetch``, ``.deliver``;
+``fir.step`` (``BatchedResamplerFir.resample`` and ``resample_many``) and
+in it ``fir.upload``, ``fir.relayout_in``, ``fir.append``,
+``fir.schedule``, ``fir.lanes`` (the async fleet's ``[2, R]`` lane
+upload), ``fir.contract``, ``fir.mask``, ``fir.relayout_out``,
+``fir.compact``, ``fir.peak``; ``fir.slew`` (``BatchedResamplerFir.slew``,
+a root of its own); ``fft.step`` and in it ``fft.upload``,
+``fft.contract``, ``fft.keep``.
+
 The ranges are recorded as operator-scope events
 (``torch._C._profiler._RecordFunctionFast``), not as user annotations
 (``torch.profiler.record_function``): the profiler mirrors a user
@@ -27,7 +37,11 @@ snapshots them together with the kernel wrappers' launch counts
 - ``runtime.values_refused``: values ``StreamingFleet.push`` did not
   queue (a full queue, or a trailing part of a frame);
 - ``fir.steps``: FIR fleet steps (each chunk of ``resample_many`` is one);
-- ``fir.compactions``: ring compactions of the time-major fleets.
+- ``fir.compactions``: ring compactions of the time-major fleets;
+- ``fir.slews``: streams whose applied slew was non-zero, summed over
+  ``BatchedResamplerFir.slew`` calls;
+- ``fir.async.spread``: the async fleet's position spread ``max(pos) -
+  min(pos)`` in 1/M frames after each step, summed over steps.
 """
 
 from __future__ import annotations
@@ -45,7 +59,8 @@ PREFIX = "rtt."
 
 _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
-     "runtime.values_refused", "fir.steps", "fir.compactions"),
+     "runtime.values_refused", "fir.steps", "fir.compactions", "fir.slews",
+     "fir.async.spread"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

@@ -81,8 +81,8 @@ NESTING = {
         ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.contract",
          "fir.mask", "fir.relayout_out", "fir.peak"), "fir.step")},
     "async": {"fir.step": None, **dict.fromkeys(
-        ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.contract",
-         "fir.relayout_out", "fir.peak"), "fir.step")},
+        ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.lanes",
+         "fir.contract", "fir.relayout_out", "fir.peak"), "fir.step")},
     "vmapped": {"fir.step": None, **dict.fromkeys(
         ("fir.upload", "fir.schedule", "fir.contract", "fir.peak"), "fir.step")},
     "slide": {"fir.step": None, **dict.fromkeys(
@@ -169,6 +169,50 @@ def test_compactions_counted_as_they_happen(kind):
     assert moved >= 2
     assert c["fir.compactions"] == moved
     assert c["fir.steps"] == 40
+
+
+@pytest.mark.parametrize("kind", ["async", "vmapped", "tm"])
+def test_slew_is_a_root_span_and_counts_the_streams_it_moved(kind):
+    """``fir.slew`` wraps the whole call, outside any step; ``fir.slews``
+    counts the streams whose applied slew is non-zero (the history clamp
+    cuts a slew back to the first frame kept, a zero slew moves nothing)."""
+    fleet = _fir(kind)
+    fleet.resample(_chunks(0))
+    tracing.reset_counters()
+    M = fleet.config.ratio_den
+    moved = 0
+    # the async fleet keeps its spread under one period, M = 160 frames / 160
+    slews = ([0.0, 0.3, -0.25], [-0.1, 0.0, 0.0], 0.05, 0.0) if kind == "async" else (
+        [0.0, 1.5, -0.25], [-1e6, 0.0, 0.0], 0.5, 0.0)
+    for v in slews:
+        if kind == "tm":
+            v = float(np.atleast_1d(v)[0])
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            applied = fleet.slew(v)
+        assert [ev.name for ev in prof.events() if ev.name.startswith(tracing.PREFIX)] == [
+            tracing.PREFIX + "fir.slew"]
+        moved += int(np.count_nonzero(np.rint(np.atleast_1d(applied) * M)))
+    c = tracing.counters()
+    assert c["fir.slews"] == moved > 0
+    assert c["fir.steps"] == 0 and c["fir.async.spread"] == 0
+
+
+def test_async_spread_counted_after_each_step():
+    """``fir.async.spread`` adds ``max(pos) - min(pos)`` after every step,
+    joined phases and slews included."""
+    tracing.reset_counters()
+    fleet = rtt.BatchedResamplerFir(B, C, *FIR, synchronized=True, sync_variant="async_tm",
+                                    max_chunk=4096, initial_positions=[0, 70, 155],
+                                    device="cpu")
+    spread = 0
+    for k in range(5):
+        fleet.resample(_chunks(k))
+        pos = fleet.state["pos_num"]
+        spread += int(pos.max() - pos.min())
+        fleet.slew(np.array([0.0, 0.01, -0.02]) * (k % 2))
+    c = tracing.counters()
+    assert c["fir.steps"] == 5
+    assert c["fir.async.spread"] == spread > 0
 
 
 @pytest.mark.parametrize("synchronized", [False, True, "async"])
