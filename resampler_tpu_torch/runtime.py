@@ -91,6 +91,8 @@ class StreamingFleet:
         self._carry = np.zeros((n_streams, 2 * chunk_frames, channels),
                                np.float32)
         self._carry_len = np.zeros(n_streams, np.int64)
+        # pinned host copy of a card fleet's output, made by the first _fetch
+        self._fetch_buffer: torch.Tensor | None = None
 
     def push(self, stream: int, interleaved: np.ndarray) -> int:
         """Queue interleaved f32 audio for one stream (thread-safe).
@@ -146,7 +148,7 @@ class StreamingFleet:
 
         out, consumed, produced, _peak = self.engine.resample(batch, n_valid)
         with tracing.span("runtime.fetch"):
-            out = torch.as_tensor(out).cpu().numpy()
+            out = self._fetch(out)
             consumed = np.asarray(consumed, np.int64)
             produced = np.asarray(produced, np.int64)
 
@@ -157,6 +159,26 @@ class StreamingFleet:
             return [
                 out[s, : int(produced[s])].reshape(-1).copy() for s in range(B)
             ]
+
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """The fleet's output on the host, whole, once the device is done.
+
+        A card's output is copied into one pinned buffer that the fleet
+        keeps across steps (a fresh pageable array would map and fault in
+        its pages every step); the array returned is a view of that
+        buffer, valid until the next fetch, so ``runtime.deliver`` copies
+        what it hands out.  An output already on the CPU is returned as a
+        view of itself."""
+        if not out.is_cuda:
+            return out.numpy()
+        buf = self._fetch_buffer
+        if buf is None or buf.shape != out.shape or buf.dtype != out.dtype:
+            buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._fetch_buffer = buf
+        else:
+            tracing.count("runtime.fetch_reuses")
+        buf.copy_(out)  # synchronous: the step's device work is done after it
+        return buf.numpy()
 
     def _stage(self, drained, pool_valid):
         """The batch of the fleet step, its valid counts, and the frames

@@ -34,6 +34,9 @@ snapshots them together with the kernel wrappers' launch counts
   after each step, summed over streams and steps;
 - ``runtime.staged_streams``: streams whose batch row a step packed from
   the host carry, summed over steps (the rest pass through as drained);
+- ``runtime.fetch_reuses``: ``StreamingFleet`` fetches of a card fleet's
+  output that landed in the fleet's pinned host buffer without allocating
+  it (0 on the CPU, where the output is read in place);
 - ``runtime.values_refused``: values ``StreamingFleet.push`` did not
   queue (a full queue, or a trailing part of a frame);
 - ``fir.steps``: FIR fleet steps (each chunk of ``resample_many`` is one);
@@ -59,8 +62,8 @@ PREFIX = "rtt."
 
 _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
-     "runtime.values_refused", "fir.steps", "fir.compactions", "fir.slews",
-     "fir.async.spread"),
+     "runtime.fetch_reuses", "runtime.values_refused", "fir.steps",
+     "fir.compactions", "fir.slews", "fir.async.spread"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

@@ -26,6 +26,7 @@ from resampler_tpu_torch.ops import fir_dma_kernel as kern
 from resampler_tpu_torch.ops import fir_kernel as b9
 from resampler_tpu_torch.ops import fir_sync_kernel as b8
 from resampler_tpu_torch.ops import matmul3 as m3
+from resampler_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)  # several test workers share the machine's cores
 
@@ -612,6 +613,48 @@ def test_vmapped_streaming_fleet_on_card_matches_cpu(cuda):
         for yd, yc in zip(dev.step(), cpu.step()):
             assert yd.shape == yc.shape and np.isfinite(yd).all()
             assert np.abs(yd - yc).max(initial=0.0) <= DEVICE_ATOL
+
+
+def _fetch_pageable(out):
+    """``StreamingFleet``'s fetch into a fresh pageable host array."""
+    return torch.as_tensor(out).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_streaming_fleet_fetches_into_one_pinned_buffer_on_card(cuda):
+    """The vmapped ``StreamingFleet`` on the card fetches every step's
+    output into one pinned host buffer: its outputs are bit for bit those
+    of the pageable fetch and within ``DEVICE_ATOL`` of the CPU fleet's,
+    and the next step's fetch leaves the arrays of earlier steps as they
+    were."""
+    args = (4, 2, 44100, 48000, rt.Latency.Sample32, rt.Attenuation.Db90)
+    dev = rt.StreamingFleet(*args, chunk_frames=512, device=cuda)
+    plain = rt.StreamingFleet(*args, chunk_frames=512, device=cuda)
+    plain._fetch = _fetch_pageable
+    cpu = rt.StreamingFleet(*args, chunk_frames=512, device="cpu")
+    rng = np.random.default_rng(13)
+    reuses = tracing.counters()["runtime.fetch_reuses"]
+    n_steps, buffers, held = 6, set(), []
+    for _ in range(n_steps):
+        for b in range(4):
+            x = rng.standard_normal(2 * int(rng.integers(0, 1024))).astype(np.float32)
+            for fleet in (dev, plain, cpu):
+                fleet.push(b, x)
+        outs = dev.step()
+        for yd, yp, yc in zip(outs, plain.step(), cpu.step()):
+            assert yd.shape == yp.shape == yc.shape
+            np.testing.assert_array_equal(yd.view(np.uint32), yp.view(np.uint32))
+            assert np.abs(yd - yc).max(initial=0.0) <= DEVICE_ATOL
+        buffers.add(id(dev._fetch_buffer))
+        fetched = dev._fetch_buffer.numpy()
+        assert not any(np.shares_memory(o, fetched) for o in outs)
+        for prev, kept in held:
+            for p, k in zip(prev, kept):
+                np.testing.assert_array_equal(p.view(np.uint32), k.view(np.uint32))
+        held.append((outs, [o.copy() for o in outs]))
+    assert sum(o.size for outs, _ in held for o in outs) > 0
+    assert dev._fetch_buffer.is_pinned() and len(buffers) == 1
+    assert tracing.counters()["runtime.fetch_reuses"] - reuses == n_steps - len(buffers)
 
 
 @pytest.mark.cuda

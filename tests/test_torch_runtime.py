@@ -145,6 +145,35 @@ def test_streaming_fleet_matches_jax(mode):
         np.testing.assert_allclose(b, a, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("mode", [False, True, "async"])
+def test_streaming_fleet_outputs_own_their_memory(mode):
+    """Every array ``step()`` returns owns its memory: the next step's
+    fetch, which may overwrite the fleet's host copy of the output,
+    leaves the arrays of earlier steps as they were."""
+    B, C = 3, 2
+    kw = dict(synchronized=mode, chunk_frames=CHUNK, device="cpu")
+    if mode == "async":
+        kw["initial_positions"] = np.asarray([0, 9999, 44100])
+    fleet = trt.StreamingFleet(B, C, 44100, 44101, trt.Latency.Sample32,
+                               trt.Attenuation.Db90, **kw)
+    rng = np.random.default_rng(21)
+    before = tracing.counters()["runtime.fetch_reuses"]
+    held = []
+    for _ in range(5):
+        for b in range(B):
+            fleet.push(b, rng.uniform(-1, 1, C * int(rng.integers(CHUNK, 2 * CHUNK)))
+                       .astype(np.float32))
+        outs = fleet.step()
+        for prev, kept in held:
+            for p, k, o in zip(prev, kept, outs):
+                np.testing.assert_array_equal(p.view(np.uint32), k.view(np.uint32))
+                assert not np.shares_memory(p, o)
+        assert all(o.flags.owndata for o in outs)
+        held.append((outs, [o.copy() for o in outs]))
+    assert sum(o.size for outs, _ in held for o in outs) > 0
+    assert tracing.counters()["runtime.fetch_reuses"] == before
+
+
 def _lockstep(args, kw, feeds, rtol=0.0):
     """A JAX and a port ``StreamingFleet`` fed the same pushes, step for
     step; ``feeds`` yields ``(pushes {stream: interleaved}, steps)``."""

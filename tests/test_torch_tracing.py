@@ -235,6 +235,7 @@ def test_runtime_counters_follow_the_carry_and_the_queue(synchronized):
     assert c["runtime.carried_frames"] == carried
     assert c["runtime.staged_streams"] == staged
     assert c["runtime.values_refused"] == offered - accepted > 0
+    assert c["runtime.fetch_reuses"] == 0  # a CPU fleet's output is read in place
     if synchronized:
         assert carried > 0  # the shared count holds the faster streams' frames back
         assert staged > 0
