@@ -89,16 +89,15 @@ class BatchedResamplerFir:
             raise ValueError(f"unknown sync_variant {sync_variant!r}")
         # as in the JAX package, synchronized=False is the vmapped fleet
         # whatever sync_variant says
-        self._kind = sync_variant if synchronized else "vmapped"
-        self._async = self._kind == "async_tm"
-        if path != "auto" and self._kind in ("async_tm", "slide"):
+        kind = sync_variant if synchronized else "vmapped"
+        if path != "auto" and kind in ("async_tm", "slide"):
             # a silent drop would serve another convolve structure
             raise ValueError(
                 "path= requires the vmapped fleet (synchronized=False) or the "
                 "synchronized tm fleet (sync_variant='tm'); the "
                 f"{sync_variant!r} variant picks its own convolve structure"
             )
-        if initial_positions is not None and not self._async:
+        if initial_positions is not None and kind != "async_tm":
             # a silent drop would give every stream phase 0 with no error
             raise ValueError(
                 "initial_positions requires the async fleet "
@@ -115,35 +114,44 @@ class BatchedResamplerFir:
         self.n_streams = n_streams
         self.synchronized = synchronized
         self.max_chunk = max_chunk
-        self._skew_periods = skew_periods
         cutoff = fir_cutoff(
             latency.taps, attenuation, int(input_rate) / int(output_rate)
         )
         coeffs = fir_coefficients(latency.taps, attenuation, cutoff)
         kw = dict(max_chunk=max_chunk, horizon=horizon, device=self._device)
-        if self._kind == "vmapped":
-            self._fleet_step = make_fir_step_batched(
+        # each kind's step in one contract, ``step(state, chunks [B, n, C],
+        # n_valid [B] int64 or None for full chunks) -> (state', out [B,
+        # out_cap, C], consumed [B], produced [B])`` with int32 counts, and
+        # the facts the other methods read: whether the counts and the
+        # phases are per stream, the position spread the async fleet
+        # tracks, and the ring fleets' chunk limit
+        self._per_stream_counts = kind == "vmapped"
+        self._per_stream_phases = kind in ("vmapped", "async_tm")
+        self._spread_limit = skew_periods * M if kind == "async_tm" else None
+        self._chunk_limit = max_chunk if kind in ("tm", "async_tm") else None
+        if kind == "vmapped":
+            self._fleet_step = _vmapped_step(make_fir_step_batched(
                 self._config, coeffs, n_streams, path=path, device=self._device
-            )
+            ), np.full(n_streams, self._config.out_capacity, np.int64))
             self._state = fir_init_batched(self._config, n_streams, self._device)
-        elif self._kind == "slide":
-            self._fleet_step = make_fir_fleet_step_sync(
+        elif kind == "slide":
+            self._fleet_step = _synchronized_step(make_fir_fleet_step_sync(
                 self._config, coeffs, n_streams, device=self._device
-            )
+            ), n_streams, ring=False)
             self._state = fir_fleet_init_sync(self._config, n_streams, self._device)
-        elif self._async:
-            self._fleet_step = make_fir_fleet_step_async_tm(
+        elif kind == "async_tm":
+            self._fleet_step = _synchronized_step(make_fir_fleet_step_async_tm(
                 self._config, coeffs, n_streams, max_out=max_out,
                 skew_periods=skew_periods, **kw,
-            )
+            ), n_streams, ring=True)
             self._state = fir_fleet_init_async_tm(
                 self._config, n_streams, pos_num=initial_positions,
                 skew_periods=skew_periods, **kw,
             )
         else:
-            self._fleet_step = make_fir_fleet_step_sync_tm(
+            self._fleet_step = _synchronized_step(make_fir_fleet_step_sync_tm(
                 self._config, coeffs, n_streams, path=path, **kw
-            )
+            ), n_streams, ring=True)
             self._state = fir_fleet_init_sync_tm(self._config, n_streams, **kw)
 
     @property
@@ -178,7 +186,7 @@ class BatchedResamplerFir:
         ``skew_periods * M``."""
         with tracing.span("fir.slew"):
             M = self._config.ratio_den
-            per_stream = self._kind in ("vmapped", "async_tm")
+            per_stream = self._per_stream_phases
             if not per_stream and np.ndim(samples) != 0:
                 raise ValueError(
                     "synchronized fleets share one phase; per-stream slew "
@@ -203,13 +211,12 @@ class BatchedResamplerFir:
                 ceiling = self._config.input_capacity * M
                 applied = np.clip(delta_f.astype(np.int64), -pos, np.maximum(0, ceiling - pos))
             new_pos = pos + applied
-            if self._async:
+            if self._spread_limit is not None:
                 spread = int(new_pos.max() - new_pos.min())
-                limit = self._skew_periods * M
-                if spread >= limit:
+                if spread >= self._spread_limit:
                     raise ValueError(
                         f"per-stream slew would widen the fleet position spread "
-                        f"to {spread} (>= skew_periods*M = {limit}); the async tm "
+                        f"to {spread} (>= skew_periods*M = {self._spread_limit}); the async tm "
                         "fleet only tracks bounded drift: widen skew_periods or "
                         "use the general (vmapped) fleet"
                     )
@@ -228,24 +235,9 @@ class BatchedResamplerFir:
             return applied_s if per_stream else float(applied_s[0])
 
     def _step(self, chunks, n_valid):
-        """One step: ``n_valid`` is the shared count (an int), or on the
-        vmapped fleet one per stream; so are the counts returned."""
-        if self._kind == "vmapped":
-            budget = np.full(self.n_streams, self._config.out_capacity, np.int64)
-            self._state, out, consumed, produced = self._fleet_step(
-                self._state, chunks, n_valid, budget
-            )
-        elif self._kind == "slide":
-            self._state, out, consumed, produced = self._fleet_step(
-                self._state, chunks, n_valid
-            )
-        else:
-            n = chunks.shape[1]
-            with tracing.span("fir.relayout_in"):
-                tm = chunks.permute(1, 0, 2).reshape(n, -1)
-            self._state, out, consumed, produced = self._fleet_step(
-                self._state, tm, n_valid
-            )
+        """One step in the fleet's step contract (``n_valid [B]`` or
+        ``None`` in, ``[B]`` int32 counts out), and the step's peak."""
+        self._state, out, consumed, produced = self._fleet_step(self._state, chunks, n_valid)
         tracing.count("fir.steps")
         with tracing.span("fir.peak"):
             return out, consumed, produced, out.abs().amax()
@@ -262,7 +254,7 @@ class BatchedResamplerFir:
             )
         # the ring fleets size their ring by max_chunk; the end-aligned
         # fleets take any chunk up to input_capacity (their steps check it)
-        if self._kind in ("tm", "async_tm") and chunks.shape[-2] > self.max_chunk:
+        if self._chunk_limit is not None and chunks.shape[-2] > self._chunk_limit:
             raise ValueError(
                 f"chunk of {chunks.shape[-2]} frames exceeds max_chunk="
                 f"{self.max_chunk} (set max_chunk at construction for "
@@ -285,20 +277,7 @@ class BatchedResamplerFir:
         arrays, frames per channel (on the synchronized fleets every
         stream the same)."""
         with tracing.span("fir.step"):
-            chunks = self._chunks(chunks, 3)
-            B, n, _ = chunks.shape
-            if self._kind == "vmapped":
-                nv = np.full(B, n, np.int64) if n_valid is None else n_valid
-                out, consumed, produced, peak = self._step(chunks, nv)
-                return out, consumed.astype(np.int32), produced.astype(np.int32), peak
-            nv = n if n_valid is None else int(np.min(n_valid))
-            out, consumed, produced, peak = self._step(chunks, nv)
-            return (
-                out,
-                np.full((B,), consumed, np.int32),
-                np.full((B,), produced, np.int32),
-                peak,
-            )
+            return self._step(self._chunks(chunks, 3), n_valid)
 
     def resample_many(self, chunks, n_valid=None):
         """Step ``T`` consecutive chunks per stream: ``chunks [T, B, n, C]``
@@ -310,22 +289,15 @@ class BatchedResamplerFir:
         likewise."""
         with tracing.span("fir.step"):
             chunks = self._chunks(chunks, 4)
-            T, B, n, _ = chunks.shape
-            vmapped = self._kind == "vmapped"
-            if n_valid is None:
-                nv = np.full((T, B) if vmapped else (T,), n, np.int64)
-            else:
+            T, B = chunks.shape[:2]
+            if n_valid is not None:
                 nv = np.asarray(n_valid, np.int64)
-                if vmapped and nv.ndim == 1:
-                    nv = np.broadcast_to(nv[:, None], (T, B))
-                elif not vmapped and nv.ndim == 2:
-                    nv = nv.min(axis=1)
-                want = (T, B) if vmapped else (T,)
-                if nv.shape != want:
+                if nv.shape not in ((T,), (T, B)):
                     raise ValueError(f"n_valid must be [T] or [T, B], got {nv.shape}")
+                n_valid = np.broadcast_to(nv.reshape(T, -1), (T, B))
             outs, cs, ps, peaks = [], [], [], []
             for t in range(T):
-                out, c, p, peak = self._step(chunks[t], nv[t] if vmapped else int(nv[t]))
+                out, c, p, peak = self._step(chunks[t], None if n_valid is None else n_valid[t])
                 outs.append(out)
                 cs.append(c)
                 ps.append(p)
@@ -334,7 +306,41 @@ class BatchedResamplerFir:
                 out = torch.stack(outs)
             with tracing.span("fir.peak"):
                 peak = torch.stack(peaks).amax()
-            return out, np.asarray(cs, np.int32), np.asarray(ps, np.int32), peak
+            # [T, B]; one column on the synchronized fleets
+            pick = slice(None) if self._per_stream_counts else 0
+            return out, np.asarray(cs, np.int32)[:, pick], np.asarray(ps, np.int32)[:, pick], peak
+
+
+def _vmapped_step(step, budget: np.ndarray):
+    """The vmapped fleet's step (per-stream counts and output budget) in
+    ``BatchedResamplerFir``'s step contract."""
+
+    def contract(state, chunks, n_valid):
+        state, out, consumed, produced = step(
+            state, chunks, chunks.shape[1] if n_valid is None else n_valid, budget
+        )
+        return state, out, consumed.astype(np.int32), produced.astype(np.int32)
+
+    return contract
+
+
+def _synchronized_step(step, n_streams: int, *, ring: bool):
+    """A synchronized fleet's step, which takes one shared count (an int)
+    and returns one of each count, in ``BatchedResamplerFir``'s step
+    contract: the fleet minimum of ``n_valid [B]`` (``None``: the whole
+    chunk) in, ``[B]`` counts out.  The ring fleets (``ring=True``) take their chunks time-major:
+    ``[B, n, C]`` is relaid to ``[n, B*C]`` (lane ``b*C + c``)."""
+
+    def contract(state, chunks, n_valid):
+        n_valid = chunks.shape[1] if n_valid is None else int(np.min(n_valid))
+        if ring:
+            with tracing.span("fir.relayout_in"):
+                chunks = chunks.permute(1, 0, 2).reshape(chunks.shape[1], -1)
+        state, out, consumed, produced = step(state, chunks, n_valid)
+        return (state, out, np.full(n_streams, consumed, np.int32),
+                np.full(n_streams, produced, np.int32))
+
+    return contract
 
 
 class BatchedResamplerFft:

@@ -236,6 +236,75 @@ def _atlas_window(t: torch.Tensor, c0: int, i0: int, span: int, Mg: int) -> torc
     return t[r, c0 : c0 + span, i0 - r : i0 - r + Mg]
 
 
+class _Ring:
+    """What the tm and async fleet steps share, built once per factory:
+    the ring's geometry, the chunk and ``n_valid`` checks, the NaN-fenced
+    append, the ``"bm"`` output relayout and the consume side's compaction
+    into the new state."""
+
+    def __init__(self, config: FirConfig, n_streams: int, *, max_chunk: int, out_cap: int,
+                 out_layout: str, mesh, device):
+        if mesh is not None:
+            raise NotImplementedError("mesh sharding is not ported yet (ROADMAP A11)")
+        if out_layout not in ("bm", "tm"):
+            raise ValueError(
+                f"out_layout must be 'bm' ([B, out_cap, C]) or 'tm' "
+                f"(time-major [out_cap, B*C]), not {out_layout!r}"
+            )
+        self.B, self.C, self.R = n_streams, config.channels, n_streams * config.channels
+        self.cap, self.out_cap, self.slack = config.input_capacity, out_cap, config.read_slack
+        self.max_chunk, self.out_layout = max_chunk, out_layout
+        self.device = resolve_device(device)
+
+    def append(self, state: dict, chunks_tm, n_valid: int):
+        """Check the chunk and ``n_valid``, then append: ``(buffer, start,
+        fill, avail, to_copy)`` after it.  Only the ``to_copy`` valid rows
+        are written.  That is the NaN fence: the contraction reads rows
+        past ``fill`` against the weights' structural zeros, and 0 * NaN =
+        NaN.  Rows at or past ``fill`` are always zero (init, this append,
+        the compaction's zero tail), as in the JAX ring, whose fixed-shape
+        update writes the masked rows as zeros."""
+        chunks_tm = torch.as_tensor(chunks_tm, dtype=torch.float32, device=self.device)
+        n_in = chunks_tm.shape[0]
+        if chunks_tm.shape != (n_in, self.R) or n_in > self.max_chunk:
+            raise ValueError(
+                f"chunks must be [n <= {self.max_chunk}, {self.R}], got "
+                f"{tuple(chunks_tm.shape)}"
+            )
+        if n_valid < 0:
+            raise ValueError(f"n_valid must be >= 0, got {n_valid}")
+        buffer, start, fill = state["buffer"], state["start"], state["fill"]
+        to_copy = min(int(n_valid), n_in, self.cap - (fill - start))
+        check_window(fill, n_in, buffer.shape[0], "ring append")
+        with tracing.span("fir.append"):
+            buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
+        fill += to_copy
+        return buffer, start, fill, fill - start, to_copy
+
+    def relayout(self, out: torch.Tensor) -> torch.Tensor:
+        """The step's ``out [out_cap, B*C]`` in its ``out_layout``."""
+        if self.out_layout == "bm":
+            with tracing.span("fir.relayout_out"):
+                out = out.reshape(self.out_cap, self.B, self.C).permute(1, 0, 2).contiguous()
+        return out
+
+    def compact(self, buffer, start: int, fill: int, pos_state: dict) -> dict:
+        """The new state once the consume has advanced ``start``.  The
+        amortized compaction first: when the next append could pass the
+        ring, the live window moves to the front (cloned first: the source
+        overlaps the destination)."""
+        ring, cap = buffer.shape[0], self.cap
+        if fill + self.max_chunk + self.slack > ring:
+            ws = min(start, ring - cap)
+            with tracing.span("fir.compact"):
+                buffer[:cap] = buffer[ws : ws + cap].clone()
+                buffer[cap:] = 0.0
+            tracing.count("fir.compactions")
+            start -= ws
+            fill -= ws
+        return dict(buffer=buffer, start=start, fill=fill, **pos_state)
+
+
 def make_fir_fleet_step_sync_tm(
     config: FirConfig,
     coeffs: np.ndarray,
@@ -292,8 +361,8 @@ def make_fir_fleet_step_sync_tm(
       fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring.
       ``precision`` does not apply there (the JAX package's farrow
       contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP A11)")
+    ring = _Ring(config, n_streams, max_chunk=max_chunk, out_cap=config.out_capacity,
+                 out_layout=out_layout, mesh=mesh, device=device)
     if precision not in ("highest", "bf16x4"):
         raise ValueError(f"precision must be 'highest' or 'bf16x4', not {precision!r}")
     if contraction not in ("auto", "xla", "dma", "dma_interpret"):
@@ -306,12 +375,7 @@ def make_fir_fleet_step_sync_tm(
             "lerp convolve paths, not 'gather'"
         )
     path = resolve_path(config, path)
-    if out_layout not in ("bm", "tm"):
-        raise ValueError(
-            f"out_layout must be 'bm' ([B, out_cap, C]) or 'tm' "
-            f"(time-major [out_cap, B*C]), not {out_layout!r}"
-        )
-    device = resolve_device(device)
+    device = ring.device
     if contraction == "dma" and device.type != "cuda":
         raise ValueError(
             f"contraction='dma' launches the CUDA kernels, and the device is {device}; "
@@ -324,12 +388,7 @@ def make_fir_fleet_step_sync_tm(
         precision = "highest"
     plain = contraction in ("xla", "dma_interpret")
     L, M, taps = config.ratio_num, config.ratio_den, config.taps
-    C = config.channels
-    B = n_streams
-    R = B * C
-    cap = config.input_capacity
-    out_cap = config.out_capacity
-    slack = config.read_slack
+    R, out_cap = ring.R, ring.out_cap
     wide = WideSchedule(config) if config.wide else None
 
     if path == "periodic":
@@ -395,37 +454,11 @@ def make_fir_fleet_step_sync_tm(
             out = kernel(buffer, start + base, a_blk, fp["block_base"])  # [K, q, R]
             return out.reshape(fp["n_pad"], R)[:out_cap]
 
-    assert region_rows <= slack, (region_rows, slack)
+    assert region_rows <= ring.slack, (region_rows, ring.slack)
 
     def step(state: dict, chunks_tm, n_valid: int):
-        chunks_tm = torch.as_tensor(chunks_tm, dtype=torch.float32, device=device)
-        n_in = chunks_tm.shape[0]
-        if chunks_tm.shape != (n_in, R) or n_in > max_chunk:
-            raise ValueError(
-                f"chunks must be [n <= {max_chunk}, {R}], got "
-                f"{tuple(chunks_tm.shape)}"
-            )
-        if n_valid < 0:
-            raise ValueError(f"n_valid must be >= 0, got {n_valid}")
-        n_valid = min(int(n_valid), n_in)
-
-        buffer = state["buffer"]
-        start, fill = state["start"], state["fill"]
+        buffer, start, fill, avail, to_copy = ring.append(state, chunks_tm, n_valid)
         pos = (state["pos_hi"], state["pos_lo"]) if wide else state["pos_num"]
-        avail = fill - start
-
-        # ---- append: only the to_copy valid rows are written.  That is
-        # the NaN fence: the contraction reads rows past fill against the
-        # weights' structural zeros, and 0 * NaN = NaN.  Rows at or past
-        # fill are always zero (init, this append, the compaction's zero
-        # tail), as in the JAX ring, whose fixed-shape update writes the
-        # masked rows as zeros ----
-        to_copy = min(n_valid, cap - avail)
-        check_window(fill, n_in, buffer.shape[0], "ring append")
-        with tracing.span("fir.append"):
-            buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
-        fill += to_copy
-        avail += to_copy
 
         # ---- shared schedule; the wide one counts its emission mask ----
         with tracing.span("fir.schedule"):
@@ -445,9 +478,7 @@ def make_fir_fleet_step_sync_tm(
         else:
             with tracing.span("fir.mask"):
                 out = buffer.new_zeros((out_cap, R))
-        if out_layout == "bm":
-            with tracing.span("fir.relayout_out"):
-                out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+        out = ring.relayout(out)
 
         # ---- consume: advance start, no data movement ----
         with tracing.span("fir.schedule"):
@@ -458,28 +489,9 @@ def make_fir_fleet_step_sync_tm(
                 pos_after = pos + n_out * L
                 consumed = min(pos_after // M, avail)
                 pos_state = dict(pos_num=pos_after - consumed * M)
-        start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
-
-        new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)
-        return new_state, out, to_copy, n_out
+        return ring.compact(buffer, start + consumed, fill, pos_state), out, to_copy, n_out
 
     return step
-
-
-def _compact(buffer, start: int, fill: int, cap: int, max_chunk: int, slack: int):
-    """The amortized compaction: when the next append could pass the ring,
-    the live window moves to the front (cloned first: the source overlaps
-    the destination).  Returns ``(start, fill)``."""
-    ring = buffer.shape[0]
-    if fill + max_chunk + slack > ring:
-        ws = min(start, ring - cap)
-        with tracing.span("fir.compact"):
-            buffer[:cap] = buffer[ws : ws + cap].clone()
-            buffer[cap:] = 0.0
-        tracing.count("fir.compactions")
-        start -= ws
-        fill -= ws
-    return start, fill
 
 
 def make_fir_fleet_step_async_tm(
@@ -526,13 +538,11 @@ def make_fir_fleet_step_async_tm(
     ``step(state, chunks_tm [n <= max_chunk, B*C], n_valid) -> (state',
     out, consumed, produced)``, ``out`` ``[B, out_cap, C]`` ("bm") or
     ``[out_cap, B*C]`` ("tm"); every stream produces ``produced``."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP A11)")
-    if out_layout not in ("bm", "tm"):
-        raise ValueError(
-            f"out_layout must be 'bm' ([B, out_cap, C]) or 'tm' "
-            f"(time-major [out_cap, B*C]), not {out_layout!r}"
-        )
+    out_cap = config.out_capacity
+    if max_out is not None:
+        out_cap = min(out_cap, max(int(max_out), 1))
+    ring = _Ring(config, n_streams, max_chunk=max_chunk, out_cap=out_cap,
+                 out_layout=out_layout, mesh=mesh, device=device)
     if skew_periods < 1:
         raise ValueError("skew_periods must be >= 1")
     if kernel not in ("auto", "xla", "pallas", "pallas_highest"):
@@ -541,48 +551,20 @@ def make_fir_fleet_step_async_tm(
             f"('pallas_interpret' is a TPU mode), not {kernel!r}"
         )
     combine = async_combine_reference if kernel == "xla" else async_combine
-    device = resolve_device(device)
-    L, M, taps = config.ratio_num, config.ratio_den, config.taps
-    C = config.channels
-    B = n_streams
-    R = B * C
-    cap = config.input_capacity
-    out_cap = config.out_capacity
-    if max_out is not None:
-        out_cap = min(out_cap, max(int(max_out), 1))
-    slack = config.read_slack
+    device = ring.device
+    L, M = config.ratio_num, config.ratio_den
+    C, B = config.channels, n_streams
     wide = WideSchedule(config, out_cap) if config.wide else None
     A, _ = farrow_matrix(coeffs, FARROW_DEGREE)
     plan = async_combine_plan(
         A=A, L=L, M=M, out_cap=out_cap, skew_periods=skew_periods,
-        clamp_j=cap + 2 if wide else None,
+        clamp_j=ring.cap + 2 if wide else None,
         precision="bf16x4" if kernel == "pallas" else "highest",
     )
-    assert plan.reach <= slack, (plan.reach, slack)
+    assert plan.reach <= ring.slack, (plan.reach, ring.slack)
 
     def step(state: dict, chunks_tm, n_valid: int):
-        chunks_tm = torch.as_tensor(chunks_tm, dtype=torch.float32, device=device)
-        n_in = chunks_tm.shape[0]
-        if chunks_tm.shape != (n_in, R) or n_in > max_chunk:
-            raise ValueError(
-                f"chunks must be [n <= {max_chunk}, {R}], got "
-                f"{tuple(chunks_tm.shape)}"
-            )
-        if n_valid < 0:
-            raise ValueError(f"n_valid must be >= 0, got {n_valid}")
-        n_valid = min(int(n_valid), n_in)
-
-        buffer = state["buffer"]
-        start, fill = state["start"], state["fill"]
-        avail = fill - start
-
-        # ---- append, with the NaN fence of the sync fleet ----
-        to_copy = min(n_valid, cap - avail)
-        check_window(fill, n_in, buffer.shape[0], "ring append")
-        with tracing.span("fir.append"):
-            buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
-        fill += to_copy
-        avail += to_copy
+        buffer, start, fill, avail, to_copy = ring.append(state, chunks_tm, n_valid)
 
         # ---- the per-stream schedule, [B] numpy on the host ----
         with tracing.span("fir.schedule"):
@@ -605,9 +587,7 @@ def make_fir_fleet_step_async_tm(
             lanes = upload(np.stack([np.repeat(res, C), np.repeat(base_rel, C)]), device)
         with tracing.span("fir.contract"):
             out = combine(buffer, start + b0, n_out, lanes, plan)  # [out_cap, R], masked
-        if out_layout == "bm":
-            with tracing.span("fir.relayout_out"):
-                out = out.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+        out = ring.relayout(out)
 
         # ---- consume: the shared scalar, the per-stream rest into pos ----
         with tracing.span("fir.schedule"):
@@ -621,10 +601,7 @@ def make_fir_fleet_step_async_tm(
                 pos_state = dict(pos_num=pos_after - consumed * M)
                 rel = pos_after
         tracing.count("fir.async.spread", int(rel.max() - rel.min()))
-        start, fill = _compact(buffer, start + consumed, fill, cap, max_chunk, slack)
-
-        new_state = dict(buffer=buffer, start=start, fill=fill, **pos_state)
-        return new_state, out, to_copy, n_out
+        return ring.compact(buffer, start + consumed, fill, pos_state), out, to_copy, n_out
 
     return step
 

@@ -16,6 +16,7 @@ from threadpoolctl import threadpool_limits
 import resampler_tpu_torch as rtt
 from perfbench.reference import fir_async as ref
 from resampler_tpu_torch.engine import fir as tfir
+from resampler_tpu_torch.engine.batched import _synchronized_step
 from resampler_tpu_torch.engine.fir_fleets import make_fir_fleet_step_async_tm
 
 # several test workers share the machine's cores: one thread each for
@@ -39,9 +40,10 @@ def _fleet(kernel, phases):
     if kernel != "auto":
         cutoff = tfir.fir_cutoff(128, rtt.Attenuation.Db90, 44100 / 44101)
         coeffs = tfir.fir_coefficients(128, rtt.Attenuation.Db90, cutoff)
-        fleet._fleet_step = make_fir_fleet_step_async_tm(
+        # the same fleet on another kernel: its step through the fleet's step contract
+        fleet._fleet_step = _synchronized_step(make_fir_fleet_step_async_tm(
             fleet.config, coeffs, B, max_chunk=CHUNK, max_out=MAX_OUT, kernel=kernel,
-            device="cpu")
+            device="cpu"), B, ring=True)
     return fleet
 
 

@@ -227,3 +227,52 @@ def test_unported_variants_raise():
         t.slew(np.zeros(4))
     with pytest.raises(ValueError):
         t.resample(np.zeros((4, 257, 2), np.float32))
+
+
+#: each fleet kind's keywords at 44.1 -> 48 kHz, Sample64, Db90
+KINDS = {
+    "vmapped": dict(),
+    "tm": dict(synchronized=True, max_chunk=512, horizon=2),
+    "slide": dict(synchronized=True, sync_variant="slide"),
+    "async": dict(synchronized=True, sync_variant="async_tm", max_chunk=512, horizon=2,
+                  initial_positions=[0, 70, 155]),
+}
+
+
+@pytest.mark.parametrize("n_valid", ["full", "ragged-T", "ragged-TB"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_resample_many_is_t_calls_of_resample(kind, n_valid):
+    """``resample_many`` against ``T`` calls of ``resample`` on a twin
+    fleet, on every kind: outputs bit for bit, counts and the peak equal;
+    ``[B]`` counts per ``resample``, ``[T]`` from ``resample_many`` on the
+    synchronized fleets and ``[T, B]`` on the vmapped one."""
+    B, C, n, T = 3, 2, 512, 3
+
+    def fleet():
+        return trt.BatchedResamplerFir(B, C, 44100, 48000, trt.Latency.Sample64,
+                                       trt.Attenuation.Db90, device="cpu", **KINDS[kind])
+
+    many, twin = fleet(), fleet()
+    rng = np.random.default_rng(19)
+    chunks = rng.uniform(-1, 1, (T, B, n, C)).astype(np.float32)
+    nv = {"full": None, "ragged-T": rng.integers(0, n + 1, T),
+          "ragged-TB": rng.integers(0, n + 1, (T, B))}[n_valid]
+    outs, cs, ps, peaks = [], [], [], []
+    for t in range(T):
+        step_nv = None if nv is None else np.broadcast_to(nv.reshape(T, -1)[t], (B,))
+        out, c, p, peak = twin.resample(chunks[t], step_nv)
+        assert c.shape == p.shape == (B,)
+        outs.append(out.clone())
+        cs.append(c)
+        ps.append(p)
+        peaks.append(float(peak))
+    out, c, p, peak = many.resample_many(chunks, nv)
+    assert torch.equal(out, torch.stack(outs))
+    assert float(peak) == max(peaks) > 0
+    want = (T, B) if kind == "vmapped" else (T,)
+    assert c.shape == p.shape == want
+    if kind != "vmapped":  # the synchronized fleets count every stream alike
+        assert all((x == x[0]).all() for x in cs + ps)
+        cs, ps = [x[0] for x in cs], [x[0] for x in ps]
+    np.testing.assert_array_equal(c, np.asarray(cs))
+    np.testing.assert_array_equal(p, np.asarray(ps))
