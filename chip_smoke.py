@@ -25,7 +25,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    taps, grouped 48 -> 96 kHz, a ragged R of 6 and 48 -> 44.1 kHz, and its
    full span (``band=None``) on the same inputs, timed in turns; ptxas's
    registers and spills (none) and ``cp.async`` (LDGSTS) in its SASS; one
-   fleet call runs the band kernel alone; the bound is the taps-wide work;
+   band call runs the band kernel alone; at the main path its fused
+   epilogue (the tm fleet's call: ``[B, out_cap, C]`` outputs, rows past
+   ``n_out`` zeroed, the peak metered) bit for bit against the time-major
+   form + mask + relayout + ``abs().amax()``, timed in turns against
+   it; the bound is the taps-wide work;
    one PyTorch ``matmul`` over the overlapping window view beside it.  B4
    and B5 at 8192 stereo streams (R 16384) of 1176 -> 1280 and 588 ->
    1280, the ragged 1280 -> 1176 (cols 294) at R 2 and 37, 1280 -> 3528
@@ -168,6 +172,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -380,24 +385,69 @@ def sass_counts(lib_path: str, ops, source: str, source_ops):
 
 def b1_build_report() -> None:
     """B1's kernels as built: ptxas's registers, shared memory and spills
-    of each instantiation (``band_contract_kernel<TY>``: 8 TY rows per
-    tile), none spilling, and ``cp.async`` (``LDGSTS``) in the SASS."""
+    of each instantiation (``band_contract_kernel<TY, BM>``: 8 TY rows per
+    tile, BM the fused epilogue), none spilling, and ``cp.async``
+    (``LDGSTS``) in the SASS."""
     log = _build.build_log()
     section = log[log.find("== fir_banded_contract.cu"):].split("\n== ")[0]
-    ty = None
+    inst = None
     for line in section.splitlines():
         if "Compiling entry" in line:
-            ty = int(line.split("band_contract_kernelILi")[1].split("E")[0]) if "band_contract" in line else None
-        elif ty is not None and ("registers" in line or "spill" in line):
-            print(f"[3] B1 ptxas band_contract_kernel<{ty}> ({8 * ty} rows): {line.strip()}")
+            found = re.search(r"band_contract_kernelILi(\d+)ELb([01])E", line)
+            inst = (int(found[1]), found[2] == "1") if found else None
+        elif inst is not None and ("registers" in line or "spill" in line):
+            ty, bm = inst
+            name = f"band_contract_kernel<{ty}, {'bm' if bm else 'tm'}>"
+            print(f"[3] B1 ptxas {name} ({8 * ty} rows): {line.strip()}")
             check("spill" not in line or " 0 bytes spill stores, 0 bytes spill loads" in line,
-                  f"B1 band_contract_kernel<{ty}> spills: {line.strip()}")
+                  f"B1 {name} spills: {line.strip()}")
     if "band_contract" not in section:
         print("[3] B1 ptxas: not in the build log (cached build)")
     counts, where = sass_counts(_build.build()["fir_banded_contract"]._name, ("LDGSTS",),
                                 SOURCES["dma_banded_contract"][0], ("cp.async.cg",))
     check(all(counts.values()), f"B1's cp.async in {where}: {counts}")
     print(f"[3] B1 in {where}: {counts}")
+
+
+def b1_fused_epilogue(buf, plan, i0, a, geo, rot, out_cap, C=2):
+    """B1's fused epilogue at a case's shapes (``dma_banded_contract_bm``,
+    the tm fleet's call): its ``[R / C, out_cap, C]`` output and peak bit
+    for bit against B1 time-major, then the mask, the relayout and
+    ``abs().amax()``, at ``n_out`` of ``out_cap - 1`` (the steady step's:
+    one masked row, the last period block skipped) and ``out_cap - 300``
+    (masked tiles); timed in turns against that four-op form."""
+    R = buf.shape[1]
+    B = R // C
+
+    def fused(i, n_out=out_cap - 1):
+        out = buf.new_empty((B, out_cap, C))
+        peak = buf.new_zeros(())
+        return kern.dma_banded_contract_bm(buf, rot[i % 8], a, out, peak, n_out=n_out,
+                                           band=(plan, i0), **geo)
+
+    def aten(i, n_out=out_cap - 1):
+        tm = kern.dma_banded_contract(buf, rot[i % 8], a, band=(plan, i0), **geo)
+        tm = tm.reshape(-1, R)[:out_cap]
+        tm[n_out:] = 0.0
+        out = tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+        return out, out.abs().amax()
+
+    for n_out in (out_cap - 1, out_cap - 300):
+        got, peak = fused(3, n_out)
+        want, want_peak = aten(3, n_out)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and torch.equal(peak.view(torch.int32), want_peak.view(torch.int32)),
+              f"B1 fused epilogue at n_out {n_out}: bit for bit the four-op form's")
+    names = device_kernels(lambda: fused(3))
+    check(sum("band_contract" in n for n in names) == 1 and len(names) == 2,
+          f"B1 fused epilogue: the peak's fill and one band kernel: {names}")
+    ms, aten_ms, t = timed_pair(fused, aten)
+    print(f"    fused epilogue ([{B}, {out_cap}, {C}] out, n_out {out_cap - 1}): bit for bit the "
+          f"time-major kernel + mask + relayout + abs().amax() at n_out {out_cap - 1} and "
+          f"{out_cap - 300}; {t[1]:.4f} / {t[2]:.4f} ms per call (the peak's fill included), "
+          f"the four-op form {t[0]:.4f} / {t[3]:.4f} ms ({aten_ms / ms:.2f}x); one call runs {names}")
+    return ms
 
 
 def device_kernels(fn) -> list[str]:
@@ -468,8 +518,13 @@ def phase_banded_kernel(device, cases):
         if entry is None:
             names = device_kernels(lambda: band(3))
             check(len(names) == 1 and "band_contract" in names[0],
-                  f"B1 {name}: the fleet's call runs the band kernel alone: {names}")
-            print(f"    one fleet call runs {names} (the window is read in place, no copy)")
+                  f"B1 {name}: the band form runs the band kernel alone: {names}")
+            print(f"    one band call runs {names} (the window is read in place, no copy)")
+            in_hz, out_hz, taps = args[:3]
+            L_r, M_r = reduce_ratio(in_hz, out_hz)
+            fused_ms = b1_fused_epilogue(
+                buf, plan, i0, a, geo, rot,
+                FirConfig(channels=2, taps=taps, ratio_num=L_r, ratio_den=M_r).out_capacity)
             ac = a.contiguous()
 
             def library(i):
@@ -493,7 +548,8 @@ def phase_banded_kernel(device, cases):
                   f"{extra / 1e6:.1f} MB of scratch beyond the outputs: PyTorch "
                   f"{'COPIED' if copied else 'did not copy'} the overlapping view "
                   f"({K * span * R * 4 / 1e6:.1f} MB)")
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         fused_ms=fused_ms)
         del buf, windows
     entry["max_abs_err"] = worst
     return entry

@@ -121,7 +121,9 @@ class BatchedResamplerFir:
         kw = dict(max_chunk=max_chunk, horizon=horizon, device=self._device)
         # each kind's step in one contract, ``step(state, chunks [B, n, C],
         # n_valid [B] int64 or None for full chunks) -> (state', out [B,
-        # out_cap, C], consumed [B], produced [B])`` with int32 counts, and
+        # out_cap, C], consumed [B], produced [B], peak)`` with int32 counts
+        # and the step's peak ``max |out|`` where it metered it (the tm
+        # kind's fused epilogue), else None, and
         # the facts the other methods read: whether the counts and the
         # phases are per stream, the position spread the async fleet
         # tracks, and the ring fleets' chunk limit
@@ -150,7 +152,7 @@ class BatchedResamplerFir:
             )
         else:
             self._fleet_step = _synchronized_step(make_fir_fleet_step_sync_tm(
-                self._config, coeffs, n_streams, path=path, **kw
+                self._config, coeffs, n_streams, path=path, meter_peak=True, **kw
             ), n_streams, ring=True)
             self._state = fir_fleet_init_sync_tm(self._config, n_streams, **kw)
 
@@ -236,11 +238,14 @@ class BatchedResamplerFir:
 
     def _step(self, chunks, n_valid):
         """One step in the fleet's step contract (``n_valid [B]`` or
-        ``None`` in, ``[B]`` int32 counts out), and the step's peak."""
-        self._state, out, consumed, produced = self._fleet_step(self._state, chunks, n_valid)
+        ``None`` in, ``[B]`` int32 counts out), and the step's peak: the
+        step's own where it metered it, else ``max |out|`` taken here."""
+        self._state, out, consumed, produced, peak = self._fleet_step(self._state, chunks, n_valid)
         tracing.count("fir.steps")
-        with tracing.span("fir.peak"):
-            return out, consumed, produced, out.abs().amax()
+        if peak is None:
+            with tracing.span("fir.peak"):
+                peak = out.abs().amax()
+        return out, consumed, produced, peak
 
     def _chunks(self, chunks, ndim: int):
         with tracing.span("fir.upload"):
@@ -319,7 +324,7 @@ def _vmapped_step(step, budget: np.ndarray):
         state, out, consumed, produced = step(
             state, chunks, chunks.shape[1] if n_valid is None else n_valid, budget
         )
-        return state, out, consumed.astype(np.int32), produced.astype(np.int32)
+        return state, out, consumed.astype(np.int32), produced.astype(np.int32), None
 
     return contract
 
@@ -328,7 +333,8 @@ def _synchronized_step(step, n_streams: int, *, ring: bool):
     """A synchronized fleet's step, which takes one shared count (an int)
     and returns one of each count, in ``BatchedResamplerFir``'s step
     contract: the fleet minimum of ``n_valid [B]`` (``None``: the whole
-    chunk) in, ``[B]`` counts out.  The ring fleets (``ring=True``) take their chunks time-major:
+    chunk) in, ``[B]`` counts out, and the peak a step returns fifth
+    (``meter_peak``), else None.  The ring fleets (``ring=True``) take their chunks time-major:
     ``[B, n, C]`` is relaid to ``[n, B*C]`` (lane ``b*C + c``)."""
 
     def contract(state, chunks, n_valid):
@@ -336,9 +342,9 @@ def _synchronized_step(step, n_streams: int, *, ring: bool):
         if ring:
             with tracing.span("fir.relayout_in"):
                 chunks = chunks.permute(1, 0, 2).reshape(chunks.shape[1], -1)
-        state, out, consumed, produced = step(state, chunks, n_valid)
+        state, out, consumed, produced, *peak = step(state, chunks, n_valid)
         return (state, out, np.full(n_streams, consumed, np.int32),
-                np.full(n_streams, produced, np.int32))
+                np.full(n_streams, produced, np.int32), peak[0] if peak else None)
 
     return contract
 

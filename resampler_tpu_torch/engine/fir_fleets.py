@@ -40,6 +40,7 @@ from ..ops.fir_async_kernel import (
 from ..ops.fir_dma_kernel import (
     BandPlan,
     dma_banded_contract,
+    dma_banded_contract_bm,
     dma_banded_contract_reference,
     dma_farrow_contract,
     dma_farrow_contract_packed,
@@ -317,6 +318,7 @@ def make_fir_fleet_step_sync_tm(
     contraction: str = "auto",
     mesh=None,
     out_layout: str = "bm",
+    meter_peak: bool = False,
     device="cuda",
 ):
     """Time-major synchronized-fleet step.
@@ -325,6 +327,16 @@ def make_fir_fleet_step_sync_tm(
     (state', out, consumed, produced)``; ``out`` is ``[B, out_cap, C]``
     for ``out_layout="bm"`` or the raw time-major ``[out_cap, B*C]`` for
     ``"tm"``.  Per-stream semantics equal ``make_fir_step``.
+
+    The fused epilogue: where the step observes the periodic path in f32
+    through the kernel (``contraction`` ``"auto"`` or ``"dma"``),
+    ``out_layout="bm"``, a CUDA device and ``n_out > 0``, B1 writes ``out``
+    itself (rows past ``n_out`` zeroed) and meters the step's peak
+    ``max |out|`` (counter ``fir.fused_epilogue``); every other step
+    contracts time-major, then zeroes, relays and (in the caller) meters
+    with torch ops.  ``meter_peak=True`` makes the step return that peak
+    (a 0-d f32 tensor on the device) as a fifth item, ``None`` on the
+    steps that did not meter it.
 
     ``contraction`` (the JAX package's keyword, resolved as there):
 
@@ -413,11 +425,21 @@ def make_fir_fleet_step_sync_tm(
             a2_t = torch.from_numpy(np.ascontiguousarray(a2_np.T)).to(device)
             band_plan = BandPlan(Lg, Mg, taps)
 
-        def contract(buffer, start: int, pos_num: int, avail: int):
+        def window(start: int, pos_num: int):
+            """The contraction's first ring row, and the atlas window's
+            start phase and first column."""
             d_min, r = divmod(pos_num, M)
             i0 = (r * l_inv) % M
-            c0 = (i0 * L) // M
-            base = start + d_min
+            return start + d_min, i0, (i0 * L) // M
+
+        def contract_bm(buffer, start: int, pos_num: int, n_out: int, out, peak):
+            base, i0, c0 = window(start, pos_num)
+            a = a2_t[c0 : c0 + span, i0 : i0 + Mg].T  # [Mg, span] view
+            dma_banded_contract_bm(buffer, base, a, out, peak, L=Lg, M=Mg, span=span, K=K,
+                                   n_out=n_out, band=(band_plan, i0))
+
+        def contract(buffer, start: int, pos_num: int, avail: int):
+            base, i0, c0 = window(start, pos_num)
             if precision == "bf16x4":
                 check_window(base, (K - 1) * Lg + span, buffer.shape[0], "contraction window")
                 # the overlapping window [K, R, span] and the time-major
@@ -455,6 +477,8 @@ def make_fir_fleet_step_sync_tm(
             return out.reshape(fp["n_pad"], R)[:out_cap]
 
     assert region_rows <= ring.slack, (region_rows, ring.slack)
+    fused = (path == "periodic" and precision == "highest" and not plain
+             and out_layout == "bm" and device.type == "cuda")
 
     def step(state: dict, chunks_tm, n_valid: int):
         buffer, start, fill, avail, to_copy = ring.append(state, chunks_tm, n_valid)
@@ -470,15 +494,26 @@ def make_fir_fleet_step_sync_tm(
         # ---- fleet-wide contraction; a step that emits nothing skips it
         # (all its lanes are masked, and heavy downsampling carries pos
         # past the buffered frames there) ----
-        if n_out:
+        peak = None
+        if n_out and fused:
+            # B1 stores the [B, out_cap, C] output, zeroes, and meters
+            tracing.count("fir.fused_epilogue")
+            with tracing.span("fir.relayout_out"):
+                out = buffer.new_empty((ring.B, out_cap, ring.C))
+            with tracing.span("fir.peak"):
+                peak = buffer.new_zeros(())
             with tracing.span("fir.contract"):
-                out = contract(buffer, start, pos, avail)
-            with tracing.span("fir.mask"):
-                out[n_out:] = 0.0
+                contract_bm(buffer, start, pos, n_out, out, peak)
         else:
-            with tracing.span("fir.mask"):
-                out = buffer.new_zeros((out_cap, R))
-        out = ring.relayout(out)
+            if n_out:
+                with tracing.span("fir.contract"):
+                    out = contract(buffer, start, pos, avail)
+                with tracing.span("fir.mask"):
+                    out[n_out:] = 0.0
+            else:
+                with tracing.span("fir.mask"):
+                    out = buffer.new_zeros((out_cap, R))
+            out = ring.relayout(out)
 
         # ---- consume: advance start, no data movement ----
         with tracing.span("fir.schedule"):
@@ -489,7 +524,10 @@ def make_fir_fleet_step_sync_tm(
                 pos_after = pos + n_out * L
                 consumed = min(pos_after // M, avail)
                 pos_state = dict(pos_num=pos_after - consumed * M)
-        return ring.compact(buffer, start + consumed, fill, pos_state), out, to_copy, n_out
+        state = ring.compact(buffer, start + consumed, fill, pos_state)
+        if meter_peak:
+            return state, out, to_copy, n_out, peak
+        return state, out, to_copy, n_out
 
     return step
 

@@ -58,8 +58,9 @@ _NVCC_FLAGS = [
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # buffer, a, a strides (j, s), tiles, out, R, base, L, M, span, K, rows,
-    # vec, stream
-    "fir_banded_contract": [_P, _P, _I64, _I64, _P, _P, _I, _I64] + [_I] * 6 + [_P],
+    # vec, out_cap, C, n_out (the fused epilogue's; out_cap 0: none), peak,
+    # stream
+    "fir_banded_contract": [_P, _P, _I64, _I64, _P, _P, _I, _I64] + [_I] * 9 + [_P, _P],
     # buffer, a_blk, block_base, out, R, base, K, q, w, stream
     "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
     # ... the same, then the lanes per thread (4 or 1), stream

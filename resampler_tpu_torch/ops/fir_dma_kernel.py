@@ -9,6 +9,11 @@ Ports of ``resampler_tpu/ops/fir_dma_kernel.py``:
   ``a [M, span]`` at any strides; returns ``[K, M, R]``.  The fleet's
   atlas window is zero outside each row's taps: ``BandPlan`` gives the
   kernel the columns each tile of rows needs, per start phase.
+  ``dma_banded_contract_bm`` is B1 with the tm fleet's output epilogue
+  fused (no TPU counterpart: the JAX fleet leaves it to XLA): rows
+  ``k*M + j`` below ``out_cap`` stored as ``[B, out_cap, C]`` (lane
+  ``b*C + c``), those past ``n_out`` as zeros, and ``max |x|`` of the rest
+  metered into a peak scalar.
 - B2 ``dma_farrow_contract`` (``:225``), the farrow / lerp / wide path
   for Farrow blocks of ``q >= 8`` outputs, and B3
   ``dma_farrow_contract_packed`` (``:170``), the same sum for ``q < 8``
@@ -46,6 +51,8 @@ from ._build import LAUNCHES, SMEM_MAX, device_kind as _device_kind, launch as _
 __all__ = [
     "BandPlan",
     "dma_banded_contract",
+    "dma_banded_contract_bm",
+    "dma_banded_contract_bm_reference",
     "dma_banded_contract_reference",
     "dma_farrow_contract",
     "dma_farrow_contract_packed",
@@ -193,11 +200,19 @@ def dma_banded_contract(buffer, base: int, a, *, L: int, M: int, span: int, K: i
         plan.check(L, M, span, i0)
     if _device_kind(buffer) == "cpu":
         return dma_banded_contract_reference(buffer, base, a, L=L, M=M, span=span, K=K)
+    out = torch.empty((K, M, buffer.shape[1]), dtype=torch.float32, device=buffer.device)
+    _banded_launch(buffer, base, a, out, L, M, span, K, band)
+    return out
+
+
+def _banded_launch(buffer, base, a, out, L, M, span, K, band, out_cap=0, C=1, n_out=0, peak=None):
+    """Launch B1 into ``out``: time-major for ``out_cap`` 0, else with the
+    fused epilogue (``out [R / C, out_cap, C]``, ``peak``)."""
     R = buffer.shape[1]
-    out = torch.empty((K, M, R), dtype=torch.float32, device=buffer.device)
     if band is None:
         tiles, rows = 0, 32
     else:
+        plan, i0 = band
         # row i0 of the [period, n_tiles, 2] int32 table, by address (no
         # indexing op on the host)
         tiles = plan.table(buffer.device).data_ptr() + 8 * plan.n_tiles * i0
@@ -209,10 +224,78 @@ def dma_banded_contract(buffer, base: int, a, *, L: int, M: int, span: int, K: i
         "fir_banded_contract", buffer.device,
         _P(buffer.data_ptr()), _P(a.data_ptr()), _I64(a.stride(0)), _I64(a.stride(1)),
         _P(tiles), _P(out.data_ptr()), _I(R), _I64(base), _I(L), _I(M), _I(span), _I(K),
-        _I(rows), _I(vec),
+        _I(rows), _I(vec), _I(out_cap), _I(C), _I(n_out),
+        _P(0 if peak is None else peak.data_ptr()),
     )
     LAUNCHES["dma_banded_contract"] += 1
-    return out
+
+
+def _check_bm(buffer, out, peak, M: int, K: int, n_out) -> tuple[int, int]:
+    """``(out_cap, C)`` of the fused epilogue's ``out [B, out_cap, C]``."""
+    R = buffer.shape[1]
+    if not isinstance(out, torch.Tensor) or out.dtype != torch.float32 or out.ndim != 3:
+        raise TypeError("out must be a 3-D float32 tensor")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    B, out_cap, C = out.shape
+    if B * C != R or not 1 <= out_cap <= K * M:
+        raise ValueError(
+            f"out must be [B, out_cap <= {K * M}, C] with B*C = {R} lanes, got {tuple(out.shape)}"
+        )
+    if not isinstance(peak, torch.Tensor) or peak.dtype != torch.float32 or peak.ndim != 0:
+        raise TypeError("peak must be a 0-d float32 tensor")
+    for what, t in (("out", out), ("peak", peak)):
+        if t.device != buffer.device:
+            raise ValueError(f"{what} is on {t.device}, buffer on {buffer.device}")
+    if not isinstance(n_out, int) or isinstance(n_out, bool) or not 0 <= n_out <= out_cap:
+        raise ValueError(f"n_out must be an int in [0, {out_cap}], got {n_out!r}")
+    return out_cap, C
+
+
+def dma_banded_contract_bm_reference(
+    buffer, base: int, a, out, peak, *, L: int, M: int, span: int, K: int, n_out: int
+):
+    """Plain PyTorch version of ``dma_banded_contract_bm``: each emitted
+    row ``i < n_out`` (``k, j = divmod(i, M)``) gathers its ``span`` ring
+    rows at ``base + k*L`` and is contracted with ``a[j]`` in f32; ``out``
+    takes them as ``[B, out_cap, C]`` and zeros elsewhere, ``peak`` their
+    largest ``|x|`` (NaN where any is NaN) if that is above it.  Returns
+    ``(out, peak)``."""
+    _check_banded(buffer, base, a, L, M, span, K)
+    out_cap, C = _check_bm(buffer, out, peak, M, K, n_out)
+    out.zero_()
+    if n_out:
+        i = torch.arange(n_out, device=buffer.device)
+        rows = base + (i // M * L)[:, None] + torch.arange(span, device=buffer.device)
+        vals = torch.einsum("is,isr->ir", a[i % M], buffer[rows])  # [n_out, R]
+        out[:, :n_out] = vals.reshape(n_out, -1, C).permute(1, 0, 2)
+        peak.copy_(torch.maximum(peak, vals.abs().amax()))
+    return out, peak
+
+
+def dma_banded_contract_bm(
+    buffer, base: int, a, out, peak, *, L: int, M: int, span: int, K: int, n_out: int, band=None
+):
+    """B1 with the tm fleet's output epilogue fused, in place: the rows
+    ``i = k*M + j < out_cap`` of ``dma_banded_contract``'s output go to
+    ``out [B, out_cap, C]`` f32 (``out[b, i, c]`` is lane ``b*C + c``;
+    ``out_cap <= K*M``), rows ``i >= n_out`` as zeros; ``peak`` (0-d f32,
+    zeroed by the caller) takes ``max |x|`` over the rows below ``n_out``,
+    NaN where any is NaN, as ``torch.amax``.  ``band`` as in
+    ``dma_banded_contract``.  CUDA tensors launch kernel B1 on the current
+    stream (the same sums, in the same order, as its time-major form);
+    CPU tensors run the plain version.  Returns ``(out, peak)``."""
+    _check_banded(buffer, base, a, L, M, span, K)
+    out_cap, C = _check_bm(buffer, out, peak, M, K, n_out)
+    if band is not None:
+        plan, i0 = band
+        plan.check(L, M, span, i0)
+    if _device_kind(buffer) == "cpu":
+        return dma_banded_contract_bm_reference(
+            buffer, base, a, out, peak, L=L, M=M, span=span, K=K, n_out=n_out
+        )
+    _banded_launch(buffer, base, a, out, L, M, span, K, band, out_cap, C, n_out, peak)
+    return out, peak
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,11 @@ The stages, each one span: ``runtime.push``; ``runtime.step`` and in it
 in it ``fir.upload``, ``fir.relayout_in``, ``fir.append``,
 ``fir.schedule``, ``fir.lanes`` (the async fleet's ``[2, R]`` lane
 upload), ``fir.contract``, ``fir.mask``, ``fir.relayout_out``,
-``fir.compact``, ``fir.peak``; ``fir.slew`` (``BatchedResamplerFir.slew``,
+``fir.compact``, ``fir.peak`` (on the tm fleet's fused epilogue
+``fir.contract`` holds kernel B1, which does the mask's, the relayout's
+and the peak's work, ``fir.relayout_out`` the output's allocation and
+``fir.peak`` the peak's reset; no ``fir.mask``);
+``fir.slew`` (``BatchedResamplerFir.slew``,
 a root of its own); ``fft.step`` and in it ``fft.upload``,
 ``fft.contract``, ``fft.keep``.
 
@@ -41,6 +45,9 @@ snapshots them together with the kernel wrappers' launch counts
   queue (a full queue, or a trailing part of a frame);
 - ``fir.steps``: FIR fleet steps (each chunk of ``resample_many`` is one);
 - ``fir.compactions``: ring compactions of the time-major fleets;
+- ``fir.fused_epilogue``: tm fleet steps whose outputs, zeroed rows and
+  peak kernel B1 wrote itself (the fused epilogue; the engaged share is
+  ``fir.fused_epilogue / fir.steps``);
 - ``fir.slews``: streams whose applied slew was non-zero, summed over
   ``BatchedResamplerFir.slew`` calls;
 - ``fir.async.spread``: the async fleet's position spread ``max(pos) -
@@ -63,7 +70,7 @@ PREFIX = "rtt."
 _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
      "runtime.fetch_reuses", "runtime.values_refused", "fir.steps",
-     "fir.compactions", "fir.slews", "fir.async.spread"),
+     "fir.compactions", "fir.fused_epilogue", "fir.slews", "fir.async.spread"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

@@ -187,3 +187,83 @@ def test_wrapper_rejects_a_start_phase_out_of_range(i0):
     buf, a, plan, geo = _main_args()
     with pytest.raises(ValueError, match="i0"):
         kern.dma_banded_contract(buf, 0, a, band=(plan, i0), **geo)
+
+
+def _bm_case(in_hz, out_hz, taps, B, C, seed):
+    """A ring, the fleet's atlas window at a start phase, and the output
+    capacity of a ``[B, n, C]`` fleet at that pair."""
+    a2, plan, (L, M), geo = _fleet_atlas(in_hz, out_hz, taps)
+    cfg = tfir.FirConfig(channels=C, taps=taps, ratio_num=L, ratio_den=M)
+    rng = np.random.default_rng(seed)
+    i0 = int(rng.integers(0, M))
+    a = torch.from_numpy(np.ascontiguousarray(_window(a2, L, M, i0, geo)))
+    rows = (geo["K"] - 1) * geo["L"] + geo["span"] + 5
+    buf = torch.from_numpy(rng.standard_normal((rows, B * C), dtype=np.float32))
+    return buf, a, (plan, i0), geo, cfg.out_capacity
+
+
+def _aten_epilogue(buf, base, a, geo, out_cap, n_out, B, C):
+    """The parent form: the plain contraction, rows past ``n_out`` zeroed,
+    relaid to ``[B, out_cap, C]``, and ``max |x|``."""
+    tm = kern.dma_banded_contract_reference(buf, base, a, **geo).reshape(-1, B * C)[:out_cap]
+    tm[n_out:] = 0.0
+    out = tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+    return out, out.abs().amax()
+
+
+@pytest.mark.parametrize(
+    "pair,B,C,cut,poison",
+    [(PAIRS[0], 3, 2, 0, False), (PAIRS[0], 3, 2, 500, False), (PAIRS[3], 5, 3, 77, False),
+     (PAIRS[4], 2, 1, 0, False), (PAIRS[0], 3, 2, 300, True), (PAIRS[0], 3, 2, None, False)],
+    ids=["full", "masked", "grouped-C3", "rows16-C1", "nan", "no-output"],
+)
+def test_bm_plain_matches_contraction_mask_relayout_amax(pair, B, C, cut, poison):
+    """``dma_banded_contract_bm``'s plain version (through the wrapper, on
+    the CPU) against the plain contraction, then the mask, the relayout and
+    ``abs().amax()``: the same outputs (f32 sums of another gather, within
+    1e-6), zeros past ``n_out`` exactly, the same peak; a NaN in a row the
+    outputs read makes the peak NaN; ``n_out`` 0 (``cut`` None) leaves
+    zeros and the peak as it was."""
+    buf, a, band, geo, out_cap = _bm_case(*pair, B, C, seed=len(IDS) + B)
+    n_out = 0 if cut is None else out_cap - cut
+    base = 3
+    if poison:
+        buf[base + 200, C] = float("nan")  # stream 1, channel 0, a row early outputs read
+    want, want_peak = _aten_epilogue(buf, base, a, geo, out_cap, n_out, B, C)
+    out = torch.full((B, out_cap, C), 7.0)
+    peak = torch.zeros(())
+    got, got_peak = kern.dma_banded_contract_bm(buf, base, a, out, peak, n_out=n_out, band=band, **geo)
+    assert got is out and got_peak is peak
+    assert torch.equal(out[:, n_out:], torch.zeros_like(out[:, n_out:]))
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    if poison:
+        assert torch.isnan(peak) and torch.isnan(want_peak)
+    else:
+        assert abs(peak.item() - want_peak.item()) <= 1e-6
+        assert (peak.item() > 0) == (n_out > 0)
+
+
+@pytest.mark.parametrize(
+    "what,match",
+    [("out_shape", "out must be"), ("out_cap", "out must be"), ("out_dtype", "out must be"),
+     ("n_out", "n_out"), ("peak_shape", "peak"), ("peak_dtype", "peak")],
+)
+def test_bm_wrapper_refuses_what_the_kernel_does_not_take(what, match):
+    buf, a, band, geo, out_cap = _bm_case(*PAIRS[0], 3, 2, seed=1)
+    K, M = geo["K"], geo["M"]
+    out, peak, n_out = torch.zeros((3, out_cap, 2)), torch.zeros(()), out_cap
+    if what == "out_shape":
+        out = torch.zeros((2, out_cap, 2))
+    elif what == "out_cap":
+        out = torch.zeros((3, K * M + 1, 2))
+    elif what == "out_dtype":
+        out = out.double()
+    elif what == "n_out":
+        n_out = out_cap + 1
+    elif what == "peak_shape":
+        peak = torch.zeros((1,))
+    else:
+        peak = peak.double()
+    with pytest.raises((TypeError, ValueError), match=match):
+        kern.dma_banded_contract_bm(buf, 0, a, out, peak, n_out=n_out, band=band, **geo)

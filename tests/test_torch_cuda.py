@@ -126,6 +126,125 @@ def test_band_kernel_matches_plain_on_card(cuda, in_hz, out_hz, taps, R):
     assert n >= 3
 
 
+#: the fused epilogue's card cases: rates, streams, channels, chunk
+#: frames, horizon, each step's valid frames, and whether a valid input row
+#: holds a NaN
+FUSED_CASES = {
+    "main": (44100, 48000, 1024, 2, 4096, 16, [4096] * 3, False),
+    "masked": (44100, 48000, 8, 2, 512, 3, [512, 100, 37, 512, 260, 512, 1], False),
+    # R 303: no 16-byte ring copies (vec 0), and stream 85's lanes 255-257
+    # lie in two lane tiles
+    "ragged-lanes": (44100, 48000, 101, 3, 512, 3, [512] * 4, False),
+    "nan": (44100, 48000, 8, 2, 512, 3, [512] * 4, True),
+    "compaction": (44100, 48000, 8, 2, 512, 1, [512] * 18, False),  # compactions after steps 8, 16
+    # the grouped atlas (g 64) and the 16-row tile, mono
+    "grouped": (48000, 96000, 4, 2, 512, 3, [512] * 3, False),
+    "rows16-mono": (48000, 8000, 5, 1, 2048, 3, [2048] * 3, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_tm_step_matches_aten_epilogue_on_card(cuda, case):
+    """The tm step's fused epilogue (B1 writes ``[B, out_cap, C]``, zeroes
+    the rows past ``n_out`` and meters the peak) against the ATen one on
+    the same feed: B1 time-major (``out_layout="tm"``), then the mask, the
+    relayout and ``abs().amax()``.  Outputs and peak equal bit for bit
+    (the same sums in the same order, stored elsewhere); frames past
+    ``n_valid`` are NaN and reach nothing; a NaN in a valid row makes the
+    peak NaN; the compaction case compares the steps after the ring moved."""
+    in_hz, out_hz, B, C, n, horizon, feeds, poison = FUSED_CASES[case]
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=C, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    kw = dict(max_chunk=n, horizon=horizon, device=cuda)
+    fused = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, meter_peak=True, **kw)
+    aten = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, out_layout="tm", **kw)
+    s_f = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=n, horizon=horizon, device=cuda)
+    s_a = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=n, horizon=horizon, device=cuda)
+    out_cap = cfg.out_capacity
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    tracing.reset_counters()
+    nan_peaks = emitting = 0
+    for k, nv in enumerate(feeds):
+        chunk = torch.randn((n, B * C), generator=gen, device=cuda)
+        chunk[nv:] = float("nan")
+        if poison and k == 1:
+            chunk[100, 3 * C + C - 1] = float("nan")
+        before = kern.LAUNCHES["dma_banded_contract"]
+        s_f, out, c_f, p_f, peak = fused(s_f, chunk, nv)
+        s_a, out_tm, c_a, p_a = aten(s_a, chunk, nv)
+        assert (c_f, p_f) == (c_a, p_a)
+        assert kern.LAUNCHES["dma_banded_contract"] == before + 2 * (p_f > 0)
+        want = out_tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+        want_peak = want.abs().amax()
+        if peak is None:  # a step that emits nothing keeps the ATen epilogue
+            assert p_f == 0
+            peak = out.abs().amax()
+        emitting += p_f > 0
+        torch.cuda.synchronize()
+        assert out.shape == (B, out_cap, C)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), f"step {k}"
+        assert torch.equal(peak.view(torch.int32), want_peak.view(torch.int32)), f"step {k}"
+        assert not out[:, p_f:].any()
+        nan_peaks += bool(torch.isnan(peak))
+        assert all(s_f[key] == s_a[key] for key in ("start", "fill", "pos_num"))
+    counts = tracing.counters()
+    assert counts["fir.fused_epilogue"] == emitting >= len(feeds) - 1
+    assert (nan_peaks > 0) == poison
+    if case == "compaction":
+        assert counts["fir.compactions"] >= 2
+    assert torch.equal(s_f["buffer"].view(torch.int32), s_a["buffer"].view(torch.int32))
+
+
+#: ``fir.fused_epilogue / fir.steps`` by fleet on the card: the tm fleet
+#: alone fuses (on the CPU every fleet reads 0)
+SHARES = {"tm": 1, "tm-layout-tm": 0, "coprime": 0, "async": 0, "vmapped": 0}
+
+
+@pytest.mark.parametrize(
+    "dev,fleet",
+    [("cpu", name) for name in SHARES]
+    + [pytest.param("cuda", name, marks=pytest.mark.cuda) for name in SHARES],
+)
+def test_fused_epilogue_share(request, dev, fleet):
+    """The share of steps the fused epilogue served: 1 on the tm periodic
+    fleet with ``"bm"`` outputs on the card, 0 for ``out_layout="tm"``, the
+    coprime tm fleet, the async fleet and the vmapped fleet, and 0 for
+    every fleet on the CPU."""
+    device = torch.device("cpu") if dev == "cpu" else request.getfixturevalue("cuda")
+    B, C, n, steps = 4, 2, 512, 5
+    out_hz = 44101 if fleet == "coprime" else 48000
+    rng = np.random.default_rng(17)
+    tracing.reset_counters()
+    if fleet == "tm-layout-tm":
+        L, M = rt.types.reduce_ratio(44100, out_hz)
+        cfg = tfir.FirConfig(channels=C, taps=128, ratio_num=L, ratio_den=M)
+        coeffs = tfir.fir_coefficients(
+            128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, 44100 / out_hz)
+        )
+        step = fir_fleets.make_fir_fleet_step_sync_tm(
+            cfg, coeffs, B, max_chunk=n, out_layout="tm", meter_peak=True, device=device)
+        state = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=n, device=device)
+        for _ in range(steps):
+            chunk = torch.from_numpy(rng.standard_normal((n, B * C), dtype=np.float32)).to(device)
+            state, _, _, produced, peak = step(state, chunk, n)
+            assert produced > 0 and peak is None
+    else:
+        kw = {"tm": dict(synchronized=True), "coprime": dict(synchronized=True),
+              "async": dict(synchronized=True, sync_variant="async_tm"), "vmapped": {}}[fleet]
+        f = rt.BatchedResamplerFir(B, C, 44100, out_hz, rt.Latency.Sample64, rt.Attenuation.Db90,
+                                   max_chunk=n, device=device, **kw)
+        for _ in range(steps):
+            _, _, produced, peak = f.resample(rng.standard_normal((B, n, C), dtype=np.float32))
+            assert int(produced[0]) > 0 and peak.shape == ()
+        assert tracing.counters()["fir.steps"] == steps
+    share = SHARES[fleet] if dev == "cuda" else 0
+    assert tracing.counters()["fir.fused_epilogue"] == share * steps
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("horizon", [3, 1])
 def test_fleet_on_card_matches_cpu(cuda, horizon):
