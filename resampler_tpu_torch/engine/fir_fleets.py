@@ -370,7 +370,9 @@ def make_fir_fleet_step_sync_tm(
     - ``path="farrow"`` / ``"lerp"`` (every ratio the periodic path does
       not take, and selectable on any): ``farrow_weights`` builds every
       output's banded weights ``a_blk [K, q, w]`` once for the whole
-      fleet, and B2 (q >= 8) or B3 (q < 8) contracts them with the ring.
+      fleet (span ``fir.weights``, nested in ``fir.contract``), and B2
+      (q >= 8) or B3 (q < 8) contracts them with the ring (counter
+      ``fir.farrow_steps``).
       ``precision`` does not apply there (the JAX package's farrow
       contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3."""
     ring = _Ring(config, n_streams, max_chunk=max_chunk, out_cap=config.out_capacity,
@@ -472,7 +474,9 @@ def make_fir_fleet_step_sync_tm(
             # one is not (as in the JAX package); both are < avail on an
             # emitting step, the only steps that contract
             base = min(pos[0], avail) if wide else pos // M
-            a_blk = farrow_weights(fp, M, pos, ashift2)
+            tracing.count("fir.farrow_steps")
+            with tracing.span("fir.weights"):
+                a_blk = farrow_weights(fp, M, pos, ashift2)
             out = kernel(buffer, start + base, a_blk, fp["block_base"])  # [K, q, R]
             return out.reshape(fp["n_pad"], R)[:out_cap]
 

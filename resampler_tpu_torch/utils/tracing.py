@@ -13,7 +13,10 @@ The stages, each one span: ``runtime.push``; ``runtime.step`` and in it
 ``fir.step`` (``BatchedResamplerFir.resample`` and ``resample_many``) and
 in it ``fir.upload``, ``fir.relayout_in``, ``fir.append``,
 ``fir.schedule``, ``fir.lanes`` (the async fleet's ``[2, R]`` lane
-upload), ``fir.contract``, ``fir.mask``, ``fir.relayout_out``,
+upload), ``fir.contract`` (on the tm fleet's farrow and lerp paths with
+``fir.weights`` nested in it: ``farrow_weights``' host residues and
+basis values, their uploads and the positioning matmul, so that
+``fir.contract``'s own launch is the contraction's), ``fir.mask``, ``fir.relayout_out``,
 ``fir.compact``, ``fir.peak`` (on the tm fleet's fused epilogue
 ``fir.contract`` holds kernel B1, which does the mask's, the relayout's
 and the peak's work, ``fir.relayout_out`` the output's allocation and
@@ -48,6 +51,9 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fir.fused_epilogue``: tm fleet steps whose outputs, zeroed rows and
   peak kernel B1 wrote itself (the fused epilogue; the engaged share is
   ``fir.fused_epilogue / fir.steps``);
+- ``fir.farrow_steps``: tm fleet steps that ran the Farrow contraction
+  (B2 or B3 on the card, their plain version off it; the farrow, lerp
+  and wide paths; over ``fir.steps``, 1 where every step emits);
 - ``fir.slews``: streams whose applied slew was non-zero, summed over
   ``BatchedResamplerFir.slew`` calls;
 - ``fir.async.spread``: the async fleet's position spread ``max(pos) -
@@ -70,7 +76,8 @@ PREFIX = "rtt."
 _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
      "runtime.fetch_reuses", "runtime.values_refused", "fir.steps",
-     "fir.compactions", "fir.fused_epilogue", "fir.slews", "fir.async.spread"),
+     "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps", "fir.slews",
+     "fir.async.spread"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

@@ -343,6 +343,46 @@ def test_coprime_fleet_on_card_matches_cpu(cuda, in_hz, out_hz, path, name):
 
 
 @pytest.mark.cuda
+def test_farrow_contract_span_launches_b2_alone(cuda):
+    """The farrow tm step under the profiler on the card: the device work
+    launched in ``fir.contract`` outside ``fir.weights`` is kernel B2
+    (``tiled_contract_kernel``), once a step; ``fir.weights`` launches the
+    weights' work; no B1, B3 or B6 runs; ``fir.farrow_steps / fir.steps``
+    is 1."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from perfbench import spans, trace
+
+    B, C, n, steps = 8, 2, 4096, 4
+    fleet = rt.BatchedResamplerFir(B, C, 44100, 44101, rt.Latency.Sample64, rt.Attenuation.Db90,
+                                   synchronized=True, max_chunk=n, device=cuda)
+    x = torch.rand((B, n, C), device=cuda) * 2 - 1
+    fleet.resample(x)
+    torch.cuda.synchronize()
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            with record_function(trace.STEP_LABEL):
+                fleet.resample(x)
+                torch.cuda.synchronize()
+    tr = trace.from_profiler(prof, steps)
+    launches = sorted((s, k) for name, s, _ in tr.host if (k := spans.launch_kind(name)))
+    work = sorted((s, name, spans.device_kind(name)) for name, s, _ in tr.device)
+    assert [k for _, k in launches] == [k for _, _, k in work]
+    every = spans.spans(tr)
+    by_stage = {}
+    for (ls, _), (_, name, _) in zip(launches, work):
+        by_stage.setdefault(spans.innermost(every, ls), []).append(name)
+    assert len(by_stage["fir.contract"]) == steps
+    assert all("tiled_contract_kernel" in name for name in by_stage["fir.contract"])
+    assert len(by_stage["fir.weights"]) >= steps
+    others = ("band_contract_kernel", "farrow_packed_kernel", "combine_kernel")
+    assert not any(o in name for name, _, _ in tr.device for o in others)
+    c = tracing.counters()
+    assert c["fir.farrow_steps"] == c["fir.steps"] == steps
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "n_in,n_out,R",
     [(1176, 1280, 256), (588, 1280, 64), (1280, 1176, 37), (1176, 1280, 2), (1280, 3528, 131),

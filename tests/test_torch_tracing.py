@@ -21,6 +21,8 @@ threadpool_limits(1, user_api="blas")
 B, C = 3, 2
 #: input and output rates, latency, attenuation
 FIR = (44100, 48000, rtt.Latency.Sample64, rtt.Attenuation.Db90)
+#: the same at a coprime pair (M 44101): the tm fleet takes the farrow path
+COPRIME = (44100, 44101, rtt.Latency.Sample64, rtt.Attenuation.Db90)
 #: aten ops that move no data: the only ones a root span may run outside
 #: its leaf spans (``aten::to`` too, where it returns its input uncopied)
 VIEWS = {"aten::select", "aten::slice", "aten::view", "aten::reshape", "aten::as_strided",
@@ -40,10 +42,12 @@ def _chunks(seed, n=4096, T=None):
 
 def _fir(kind):
     kw = {"tm": dict(synchronized=True, max_chunk=4096, horizon=16),
+          "farrow": dict(synchronized=True, max_chunk=4096, horizon=16),
           "vmapped": dict(),
           "async": dict(synchronized=True, sync_variant="async_tm", max_chunk=4096),
           "slide": dict(synchronized=True, sync_variant="slide")}[kind]
-    return rtt.BatchedResamplerFir(B, C, *FIR, device="cpu", **kw)
+    rates = COPRIME if kind == "farrow" else FIR
+    return rtt.BatchedResamplerFir(B, C, *rates, device="cpu", **kw)
 
 
 def _drive(kind):
@@ -78,6 +82,9 @@ def _drive(kind):
 #: each fleet's spans and the span each one nests in (``None``: a root)
 NESTING = {
     "tm": {"fir.step": None, **dict.fromkeys(
+        ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.contract",
+         "fir.mask", "fir.relayout_out", "fir.peak"), "fir.step")},
+    "farrow": {"fir.step": None, "fir.weights": "fir.contract", **dict.fromkeys(
         ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.contract",
          "fir.mask", "fir.relayout_out", "fir.peak"), "fir.step")},
     "async": {"fir.step": None, **dict.fromkeys(
@@ -169,6 +176,69 @@ def test_compactions_counted_as_they_happen(kind):
     assert moved >= 2
     assert c["fir.compactions"] == moved
     assert c["fir.steps"] == 40
+
+
+def _ops_under(events, parent: str) -> list[str]:
+    """The data-moving ops, and the spans, opened directly in the span
+    ``parent``, in order."""
+    return [ev.name for ev in sorted(events, key=lambda ev: ev.time_range.start)
+            if ev.cpu_parent is not None and ev.cpu_parent.name == tracing.PREFIX + parent
+            and (ev.name.startswith(tracing.PREFIX) or _moves_data(ev))]
+
+
+def test_farrow_weights_span_opens_once_per_emitting_step():
+    """On the farrow path ``fir.weights`` opens inside ``fir.contract`` on
+    every step that emits and on no other (a first chunk shorter than the
+    taps emits nothing), and ``fir.farrow_steps`` counts those steps."""
+    fleet = _fir("farrow")
+    tracing.reset_counters()
+    feeds = [64, 4096, 4096, 4096]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        produced = [int(fleet.resample(_chunks(k), n_valid=[n] * B)[2][0])
+                    for k, n in enumerate(feeds)]
+    names = [ev.name for ev in prof.events()]
+    emitting = sum(p > 0 for p in produced)
+    assert produced[0] == 0 and emitting == len(feeds) - 1
+    assert names.count(tracing.PREFIX + "fir.weights") == emitting
+    assert names.count(tracing.PREFIX + "fir.contract") == emitting
+    c = tracing.counters()
+    assert c["fir.farrow_steps"] == emitting and c["fir.steps"] == len(feeds)
+
+
+def test_farrow_contract_span_holds_the_contraction_alone():
+    """What ``fir.contract`` runs outside ``fir.weights`` on the farrow
+    path is the contraction's own ops, as a bare call of it records them;
+    the positioning matmul runs in ``fir.weights``."""
+    fleet = _fir("farrow")
+    fleet.resample(_chunks(0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fleet.resample(_chunks(1))
+    events = list(prof.events())
+    own = _ops_under(events, "fir.contract")
+    assert own.count(tracing.PREFIX + "fir.weights") == 1
+    own.remove(tracing.PREFIX + "fir.weights")
+    assert "aten::matmul" in _ops_under(events, "fir.weights")
+
+    from resampler_tpu_torch.ops import fir_dma_kernel as kern
+
+    buffer, a_blk = torch.zeros((40, B * C)), torch.zeros((2, 8, 16))
+    with profile(activities=[ProfilerActivity.CPU]) as bare:
+        with tracing.span("fir.contract"):
+            kern.dma_farrow_contract(buffer, 0, a_blk, np.array([0, 8]))
+    assert own == _ops_under(list(bare.events()), "fir.contract") != []
+    assert "aten::matmul" not in own
+
+
+@pytest.mark.parametrize("kind", ["tm", "async", "vmapped"])
+def test_farrow_steps_read_zero_off_the_farrow_path(kind):
+    """The periodic tm fleet, the async fleet and the vmapped fleet run no
+    Farrow contraction."""
+    fleet = _fir(kind)
+    tracing.reset_counters()
+    for k in range(3):
+        fleet.resample(_chunks(k))
+    c = tracing.counters()
+    assert c["fir.steps"] == 3 and c["fir.farrow_steps"] == 0
 
 
 @pytest.mark.parametrize("kind", ["async", "vmapped", "tm"])
