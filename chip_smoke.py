@@ -48,7 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    44.1 -> 44.101 kHz farrow and lerp (B2), 600011 -> 600013 Hz wide u32
    (B2), 367500 -> 1601 Hz heavy downsampling (B3).  Each checks the
    exact schedule, one kernel launch per emitting step (counts set to 0
-   just before the path, read just after), >= 2 compactions, and streams
+   just before the path, read just after; the coprime paths also one
+   launch of the weights kernel), >= 2 compactions, and streams
    0-3 against a CPU fleet of those streams; then profiles 10 more steps;
 5. card against CPU: small periodic, farrow and wide fleets, ragged feeds
    with NaN junk past the valid frames: ints equal, ring bit-equal,
@@ -265,6 +266,26 @@ def elapsed_ms(fn, reps: int) -> float:
     for i in range(reps):
         fn(i)
     end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, backlog_cycles: int = 40_000_000) -> float:
+    """Mean device milliseconds per call of ``fn(i)``: the calls are
+    issued behind a ~20 ms spin kernel, so the card runs them back to back
+    whatever the host's issue time (checked: the host must finish issuing
+    before the spin ends)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spun = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(backlog_cycles)
+    spun.record()
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    check(not spun.query(), f"the spin ended before the host issued {reps} calls")
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -556,8 +577,9 @@ def phase_banded_kernel(device, cases):
 
 
 def farrow_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
-    """The ring, per-block weights (the fleet's own positioning matmul at
-    three positions) and block table the fleet hands B2 / B3."""
+    """The ring, per-block weights (the plain version's positioning matmul
+    at three positions, those positions and their residue words), block
+    table and bases the fleet hands B2 / B3."""
     L, M = reduce_ratio(in_hz, out_hz)
     cfg = FirConfig(channels=1, taps=taps, ratio_num=L, ratio_den=M)
     fp = fir_fleets._farrow_tm_plan(cfg, coeffs_for(in_hz, out_hz, taps))
@@ -570,21 +592,43 @@ def farrow_case(in_hz, out_hz, taps, lanes, max_chunk, horizon, device, seed):
     else:
         positions = [0, int(rng.integers(1, M)), M - 1]
     weights = [fir_fleets.farrow_weights(fp, M, pos, ashift2) for pos in positions]
+    words = [pos[1] if cfg.wide else pos % M for pos in positions]
     top = ring - (int(fp["block_base"].max()) + fp["w_blk"])
     bases = [1, 3, 4097, 2 * (ring // 4) + 1, top]
-    return buf, weights, bases, fp
+    return buf, weights, positions, words, bases, fp
 
 
 def phase_farrow_kernels(device, cases):
     """B2 and B3 against their plain version over every case, weight set
     and base; times and bounds at each kernel's main case (the first of
     its cases).  No single PyTorch call computes them (``block_base`` is
-    no uniform stride), so they have no library time."""
+    no uniform stride), so they have no library time.  Before them, the
+    weights kernel against its plain version at each case's weight sets."""
     entries = {}
     for n, (name, args) in enumerate(cases):
-        buf, weights, bases, fp = farrow_case(*args, device=device, seed=10 + n)
+        buf, weights, positions, words, bases, fp = farrow_case(*args, device=device, seed=10 + n)
         K, q, w = fp["K"], fp["q"], fp["w_blk"]
         bb = fp["block_base"]
+        M = reduce_ratio(*args[:2])[1]
+        weigh = kern.FarrowWeightsKernel(*fir_fleets.farrow_weight_tables(fp, device), M=M, w=w)
+        w_err = max(float((weigh(word) - a_blk).abs().max()) for word, a_blk in zip(words, weights))
+        torch.cuda.synchronize()
+        check(w_err <= KERNEL_ATOL, f"weights kernel vs plain {name}: {w_err:.3e} > {KERNEL_ATOL}")
+        # a call's wall time (the plain version's host residues, uploads and
+        # GEMM; the kernel's wrapper and launch), the kernel's device time,
+        # and the bound of its stores of a_blk
+        ashift2 = torch.from_numpy(fp["ashift2"]).to(device)
+        wall_ms, plain_ms, _ = timed_pair(
+            lambda i: weigh(words[i % 3]),
+            lambda i: fir_fleets.farrow_weights(fp, M, positions[i % 3], ashift2), reps=60,
+        )
+        ms = device_ms(lambda i: weigh(words[i % 3]), 200)
+        b_ms, b_by = bound_ms(0.0, 4 * K * q * w)
+        print(f"[3] weights kernel {name}: K {K} q {q} w {w}: max |kernel - plain| = {w_err:.3e} "
+              f"at {len(words)} residue words; kernel {1e3 * ms:.2f} us on the device "
+              f"({1e3 * wall_ms:.2f} us of wall time a call), plain {1e3 * plain_ms:.2f} us of wall "
+              f"time a call; bound {1e3 * b_ms:.3f} us ({b_by}: {4 * K * q * w / 1e6:.3f} MB of "
+              f"stores at {HBM_TBPS} TB/s)")
         kname = "dma_farrow_contract" if q >= 8 else "dma_farrow_contract_packed"
         fn = getattr(kern, kname)
         err = 0.0
@@ -729,7 +773,12 @@ def phase_fleet(device, smi, label, in_hz, out_hz, kernel_name, path="auto", B=1
     check(emitting > 0, f"{label}: steps emit")
     check(launches[kernel_name] == emitting,
           f"{label}: {kernel_name} launches {launches[kernel_name]} == emitting steps {emitting}")
-    check(sum(launches.values()) == emitting, f"{label}: no other kernel launched {launches}")
+    # the coprime paths build each emitting step's weights with one launch
+    weights = emitting if kernel_name.startswith("dma_farrow") else 0
+    check(launches["farrow_weights"] == weights,
+          f"{label}: farrow_weights launches {launches['farrow_weights']} == {weights}")
+    check(sum(launches.values()) == emitting + weights,
+          f"{label}: no other kernel launched {launches}")
     compactions = sum(b < a for a, b in zip(fills, fills[1:]))
     check(compactions >= 2, f"{label}: {compactions} compactions >= 2")
     out_cap = fleet.config.out_capacity

@@ -5,7 +5,7 @@
 //   out[k, l, r] = sum_{s < w} a_blk[k, l, s] * buffer[base + block_base[k] + s, r]
 //
 // buffer [ring, R] f32, a_blk [K, q, w] f32 (each Farrow block's banded
-// weights, built per step by the positioning matmul), block_base [K] int64
+// weights, built per step by the weights kernel below), block_base [K] int64
 // (static), out [K, q, R] f32.  f32 FMA and accumulation, as B1.
 //
 // B2 replaces resampler_tpu/ops/fir_dma_kernel.py:225 dma_farrow_contract
@@ -32,6 +32,35 @@
 // are added in a fixed order in shared memory (deterministic).  No tensor
 // cores: the 100 dB gate needs f32, and the work is bytes, not FMAs.  Ragged
 // lane counts (R % 4 != 0) take the one-lane-per-thread instantiation.
+//
+// The weights kernel (fir_farrow_weights) builds B2's and B3's a_blk, every
+// output row r = k*q + l, on the card from the step's residue word alone.  It
+// replaces no TPU kernel: the JAX package forms a_blk with XLA ops
+// (resampler_tpu/engine/fir_fleets.py:641-697: residues, basis values, a
+// one-hot and one positioning einsum), which the port ran as host numpy, two
+// uploads, a one-hot and a GEMM each step.  Per row, from static tables:
+//
+//   t = word + s_pad[r] (u32), wrap = t < word || t >= M, rem = wrap ? t - M : t
+//   jl = j_loc[r] + wrap
+//   a_blk[r, s] = sum_d coef_d(rem) * A[d, s - jl]  for 0 <= s - jl < taps, else 0.0f
+//
+// word is pos % M (narrow) or pos_lo (wide): for word < M < 2^31 the u32 rule
+// is the narrow one.  coef_d are the Chebyshev values T_d(2 rem/M - 1) or
+// (lerp) the blend of rows p1, p2 of U, in combine_basis' f32 operations and
+// order (rounded intrinsics, so nvcc contracts none of them into an FMA).  The
+// zeros outside each row's band are exact: the contraction multiplies ring
+// rows past the step's end by them.  Bound: the store, 3.1 MB at 44.1 ->
+// 44.101 kHz (4032 rows x 192 f32; 8.3 MFLOP in the bands), ~0.9 us at
+// 3.35 TB/s; a launch that stores zeros alone takes 1.7 us on an H100.
+// Design: a warp takes one row, a block 16; each lane forms the row's offset
+// and coefficients in registers while the block stages the basis A in shared
+// memory, then the lanes take the row's columns s = lane + 32k, each value's
+// d1 products summed by fmaf in the order d = 0, 1, ...  All of a row's loads
+// are in flight before the block's one barrier, and a value's 8 basis reads
+// go out together: the forms that read them one per product behind a d < d1
+// test, or formed a block's coefficients in shared memory first, waited on
+// each load in turn (6.5-9.5 us a call against 3.6 us, on an H100 at 44.1 ->
+// 44.101 kHz).
 
 #include "tiled_contract.cuh"
 
@@ -157,6 +186,101 @@ int dispatch_q(int q, const float* buffer, const float* a_blk,
   }
 }
 
+constexpr int kWWarps = 16;              // rows per block, one a warp
+constexpr int kWThreads = kWWarps * 32;
+constexpr int kWStage = 4;               // basis values a thread loads before the barrier
+constexpr int kD1Max = 16;               // basis rows (the wrapper's _WEIGHTS_D1_MAX)
+
+// The combine coefficients of residue rem, c[d] for d < d1 (the rest are
+// never read), in combine_basis' f32 operations and order.
+template <bool kLerp>
+__device__ __forceinline__ void weights_coefs(uint32_t rem, uint32_t M, const float* __restrict__ U,
+                                              int phases, int d1, float (&c)[kD1Max]) {
+  const float m_f = __uint2float_rn(M);
+  if constexpr (kLerp) {
+    // pf = rem * phases in int64, p1 = pf // M, p2 = min(p1 + 1, phases - 1)
+    const int64_t pf = static_cast<int64_t>(rem) * phases;
+    const int64_t p1 = pf / M;
+    const int64_t p2 = p1 + 1 < phases ? p1 + 1 : phases - 1;
+    const float f = __fdiv_rn(__ll2float_rn(pf - p1 * M), m_f);
+    const float* u1 = U + p1 * d1;
+    const float* u2 = U + p2 * d1;
+#pragma unroll
+    for (int d = 0; d < kD1Max; ++d) {
+      if (d < d1) c[d] = __fadd_rn(u1[d], __fmul_rn(f, __fsub_rn(u2[d], u1[d])));
+    }
+  } else {
+    // u = 2 (rem / M) - 1; T_{d+1} = (2u) T_d - T_{d-1}
+    const float u = __fsub_rn(__fmul_rn(2.0f, __fdiv_rn(__uint2float_rn(rem), m_f)), 1.0f);
+    const float u2 = __fmul_rn(2.0f, u);
+    c[0] = 1.0f;
+    c[1] = u;
+#pragma unroll
+    for (int d = 2; d < kD1Max; ++d) c[d] = __fsub_rn(__fmul_rn(u2, c[d - 1]), c[d - 2]);
+  }
+}
+
+template <bool kLerp>
+__global__ void __launch_bounds__(kWThreads)
+farrow_weights_kernel(uint32_t word, uint32_t M, const uint32_t* __restrict__ s_pad,
+                      const int* __restrict__ j_loc, const float* __restrict__ basis,
+                      const float* __restrict__ U, int phases, int n_rows, int d1,
+                      int taps, int w, float* __restrict__ a_blk) {
+  extern __shared__ float4 a_s4[];       // [d1, taps] basis rows
+  float* a_s = reinterpret_cast<float*>(a_s4);
+  const int n = d1 * taps;
+  const int r = blockIdx.x * kWWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+
+  // the basis loads, the row's tables and its coefficients all in flight
+  // before the one barrier
+  float stage[kWStage];
+#pragma unroll
+  for (int k = 0; k < kWStage; ++k) {
+    const int i = threadIdx.x + k * kWThreads;
+    stage[k] = i < n ? basis[i] : 0.0f;
+  }
+  const bool live = r < n_rows;
+  const uint32_t t = word + (live ? s_pad[r] : 0u);
+  const bool wrap = t < word || t >= M;
+  const int jl = (live ? j_loc[r] : 0) + (wrap ? 1 : 0);
+  float c[kD1Max];
+  weights_coefs<kLerp>(wrap ? t - M : t, M, U, phases, d1, c);
+#pragma unroll
+  for (int k = 0; k < kWStage; ++k) {
+    const int i = threadIdx.x + k * kWThreads;
+    if (i < n) a_s[i] = stage[k];
+  }
+  for (int i = threadIdx.x + kWStage * kWThreads; i < n; i += kWThreads) a_s[i] = basis[i];
+  __syncthreads();
+  if (!live) return;
+
+  // the row's columns s = lane + 32k: a warp's basis reads fall in distinct
+  // banks, its stores on 128 contiguous bytes
+  float* out = a_blk + static_cast<int64_t>(r) * w;
+  for (int s = lane; s < w; s += 32) {
+    const int ts = s - jl;
+    float acc = 0.0f;
+    if (ts >= 0 && ts < taps) {
+      // the basis rows 8 at a time, all 8 read (rows past d1 clamped, their
+      // products skipped) so that a group's reads overlap
+#pragma unroll
+      for (int d0 = 0; d0 < kD1Max; d0 += 8) {
+        if (d0 < d1) {
+          float a[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) a[k] = a_s[min(d0 + k, d1 - 1) * taps + ts];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            if (d0 + k < d1) acc = fmaf(c[d0 + k], a[k], acc);
+          }
+        }
+      }
+    }
+    out[s] = acc;
+  }
+}
+
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success).  The
@@ -181,4 +305,31 @@ extern "C" int fir_farrow_contract_packed(const float* buffer,
   return vec == 4
              ? dispatch_q<4>(q, buffer, a_blk, block_base, out, R, base, K, w, s)
              : dispatch_q<1>(q, buffer, a_blk, block_base, out, R, base, K, w, s);
+}
+
+// The step's weights a_blk [n_rows, w] (n_rows = K*q) for the residue word
+// `word`: s_pad [n_rows] u32, j_loc [n_rows] int32, basis [d1, taps] f32,
+// U [phases, d1] f32 for the lerp basis or nullptr for Chebyshev.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).  The caller checks
+// shapes, contiguity and d1 <= 16; a band that runs past w is cut there.
+extern "C" int fir_farrow_weights(unsigned int word, unsigned int M, const uint32_t* s_pad,
+                                  const int* j_loc, const float* basis, const float* U,
+                                  int phases, int n_rows, int d1, int taps, int w,
+                                  float* a_blk, void* stream) {
+  // the basis in dynamic shared memory
+  const size_t smem = static_cast<size_t>(d1) * taps * sizeof(float);
+  if (n_rows < 1 || d1 < 1 || d1 > kD1Max || taps < 1 || w < 1 || smem > kSmemMax ||
+      (U != nullptr && phases < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_rows + kWWarps - 1) / kWWarps);
+  if (U != nullptr) {
+    farrow_weights_kernel<true><<<grid, kWThreads, smem, s>>>(
+        word, M, s_pad, j_loc, basis, U, phases, n_rows, d1, taps, w, a_blk);
+  } else {
+    farrow_weights_kernel<false><<<grid, kWThreads, smem, s>>>(
+        word, M, s_pad, j_loc, basis, U, phases, n_rows, d1, taps, w, a_blk);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

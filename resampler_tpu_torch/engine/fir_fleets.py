@@ -13,14 +13,17 @@ consume that only advances ``start``.  Every ~``horizon`` steps the live
 window is compacted to the front of the ring.  The contraction is kernel
 B1 on periodic ratios (kernel B7 in four bf16 passes for
 ``precision="bf16x4"``, ``ops/matmul3.py``), and on coprime ones the
-Farrow positioning matmul followed by kernel B2 (blocks of q >= 8 outputs)
-or B3 (q < 8) (``ops/fir_dma_kernel.py``).
+Farrow weights (one launch of the weights kernel on the card, the
+positioning matmul off it) followed by kernel B2 (blocks of q >= 8
+outputs) or B3 (q < 8) (``ops/fir_dma_kernel.py``).
 
 The schedule scalars (``start``, ``fill``, ``pos_num`` or the wide
 ``pos_hi``/``pos_lo``, and per step ``to_copy``, ``n_out``, ``consumed``)
-are Python ints computed with the JAX package's integer formulas, and the
-per-lane residues, Chebyshev or lerp coefficients and wide emission mask
-come from static host tables, so a step needs no device-to-host sync.
+are Python ints computed with the JAX package's integer formulas; the
+per-lane residues and Chebyshev or lerp coefficients come from the one
+residue word and static tables (on the card in the weights kernel), and
+the wide emission mask from static host tables, so a step needs no
+device-to-host sync.
 The ring is updated IN PLACE (the JAX wrappers donate their state for the
 same reason): a 1024-stream stereo fleet's ring is ~600 MB.
 """
@@ -39,6 +42,7 @@ from ..ops.fir_async_kernel import (
 )
 from ..ops.fir_dma_kernel import (
     BandPlan,
+    FarrowWeightsKernel,
     dma_banded_contract,
     dma_banded_contract_bm,
     dma_banded_contract_reference,
@@ -186,7 +190,9 @@ def _farrow_tm_plan(config: FirConfig, coeffs, basis: str = "cheb") -> dict:
 
 def farrow_weights(fp: dict, M: int, pos, ashift2: torch.Tensor) -> torch.Tensor:
     """Every output's banded weight row for the shared position ``pos``,
-    ``a_blk [K, q, w_blk]`` on ``ashift2``'s device.  The host turns
+    ``a_blk [K, q, w_blk]`` on ``ashift2``'s device: the plain version of
+    the weights kernel (``ops/fir_dma_kernel.py FarrowWeightsKernel``),
+    which the tm step launches in its place on the card.  The host turns
     ``pos`` into per-output residues, combine coefficients (Chebyshev
     values, or lerped rows of the SVD factor) and local offsets
     ``j_loc + wrap``, uploaded without a stream sync (``upload``); on
@@ -201,6 +207,20 @@ def farrow_weights(fp: dict, M: int, pos, ashift2: torch.Tensor) -> torch.Tensor
     onehot = (jl[..., None] == torch.arange(n_jl, device=device)).to(torch.float32)
     p_mat = (coef[..., :, None] * onehot[..., None, :]).reshape(K * q, d1 * n_jl)
     return (p_mat @ ashift2).reshape(K, q, fp["w_blk"])
+
+
+def farrow_weight_tables(fp: dict, device) -> list:
+    """The weights kernel's static tables of the plan ``fp`` on ``device``,
+    ``FarrowWeightsKernel``'s ``s_pad, j_loc, basis, U``: the splits' u32
+    bits as int32, the offsets, the basis ``A`` (the rows ``ashift2[(d,
+    0)]``, whose first ``taps`` columns are ``A[d]``) and (lerp) its factor
+    ``U``, or ``None``."""
+    d1, n_jl = fp["d1"], fp["n_jl"]
+    basis = fp["ashift2"].reshape(d1, n_jl, -1)[:, 0, : fp["w_blk"] - n_jl + 1]
+    return [
+        None if t is None else torch.from_numpy(np.ascontiguousarray(t)).to(device)
+        for t in (fp["s_pad"].astype(np.uint32).view(np.int32), fp["j_loc"], basis, fp["U"])
+    ]
 
 
 def _ring_rows(config: FirConfig, max_chunk: int, horizon: int) -> int:
@@ -368,11 +388,16 @@ def make_fir_fleet_step_sync_tm(
       view in four bf16 passes (the JAX form's four products,
       ``resampler_tpu/engine/fir_fleets.py:594-617``).
     - ``path="farrow"`` / ``"lerp"`` (every ratio the periodic path does
-      not take, and selectable on any): ``farrow_weights`` builds every
-      output's banded weights ``a_blk [K, q, w]`` once for the whole
-      fleet (span ``fir.weights``, nested in ``fir.contract``), and B2
-      (q >= 8) or B3 (q < 8) contracts them with the ring (counter
-      ``fir.farrow_steps``).
+      not take, and selectable on any): every output's banded weights
+      ``a_blk [K, q, w]`` are built once for the whole fleet (span
+      ``fir.weights``, nested in ``fir.contract``), and B2 (q >= 8) or B3
+      (q < 8) contracts them with the ring (counter ``fir.farrow_steps``).
+      Where the contraction launches kernels (a CUDA device, ``contraction``
+      ``"auto"`` or ``"dma"``), the weights are one launch of the weights
+      kernel from the step's residue word, its tables uploaded at build
+      (counter ``fir.weights_kernel``; a basis it cannot take raises
+      there); elsewhere ``farrow_weights``, their plain version, forms
+      them from host residues.
       ``precision`` does not apply there (the JAX package's farrow
       contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3."""
     ring = _Ring(config, n_streams, max_chunk=max_chunk, out_cap=config.out_capacity,
@@ -463,11 +488,22 @@ def make_fir_fleet_step_sync_tm(
     else:
         fp = _farrow_tm_plan(config, coeffs, basis="lerp" if path == "lerp" else "cheb")
         region_rows = fp["region_rows"]
-        ashift2 = torch.from_numpy(fp["ashift2"]).to(device)  # [d1*n_jl, w_blk]
         if plain:
             kernel = dma_farrow_contract_reference
         else:
             kernel = dma_farrow_contract if fp["q"] >= 8 else dma_farrow_contract_packed
+        if not plain and device.type == "cuda":
+            weights_kernel = FarrowWeightsKernel(*farrow_weight_tables(fp, device), M=M,
+                                                 w=fp["w_blk"])
+
+            def weights(pos):
+                tracing.count("fir.weights_kernel")
+                return weights_kernel(pos[1] if wide else pos % M)
+        else:
+            ashift2 = torch.from_numpy(fp["ashift2"]).to(device)  # [d1*n_jl, w_blk]
+
+            def weights(pos):
+                return farrow_weights(fp, M, pos, ashift2)
 
         def contract(buffer, start: int, pos, avail: int):
             # the wide base is clamped to the buffered frames, the narrow
@@ -476,7 +512,7 @@ def make_fir_fleet_step_sync_tm(
             base = min(pos[0], avail) if wide else pos // M
             tracing.count("fir.farrow_steps")
             with tracing.span("fir.weights"):
-                a_blk = farrow_weights(fp, M, pos, ashift2)
+                a_blk = weights(pos)
             out = kernel(buffer, start + base, a_blk, fp["block_base"])  # [K, q, R]
             return out.reshape(fp["n_pad"], R)[:out_cap]
 

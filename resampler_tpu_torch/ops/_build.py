@@ -28,6 +28,7 @@ LAUNCHES = {
     "dma_banded_contract": 0,
     "dma_farrow_contract": 0,
     "dma_farrow_contract_packed": 0,
+    "farrow_weights": 0,
     "magsplit_projector": 0,
     "magsplit_projector_pool": 0,
     "async_combine": 0,
@@ -55,7 +56,7 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
 _SIGNATURES = {
     # buffer, a, a strides (j, s), tiles, out, R, base, L, M, span, K, rows,
     # vec, out_cap, C, n_out (the fused epilogue's; out_cap 0: none), peak,
@@ -65,6 +66,9 @@ _SIGNATURES = {
     "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
     # ... the same, then the lanes per thread (4 or 1), stream
     "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
+    # word, M, s_pad, j_loc, basis, U (lerp; null: Chebyshev), phases, rows,
+    # d1, taps, w, a_blk, stream
+    "fir_farrow_weights": [_U32, _U32] + [_P] * 4 + [_I] * 5 + [_P, _P],
     # prev, cur and weight maps, tiles, starts, out, R, M, s, cols, cols_pad,
     # stream
     "fft_magsplit_projector": [_P] * 6 + [_I] * 5 + [_P],

@@ -23,6 +23,11 @@ Ports of ``resampler_tpu/ops/fir_dma_kernel.py``:
 
   ``a_blk [K, q, w]``, ``block_base [K]`` host ints (the plan's static
   table); returns ``[K, q, R]``.
+- ``FarrowWeightsKernel`` builds B2/B3's ``a_blk`` for one step on the
+  card from the step's residue word and static tables (no TPU
+  counterpart: the JAX fleet forms it with XLA ops).  Its plain version is
+  ``engine/fir_fleets.py farrow_weights``, which the step runs off the
+  card; this wrapper takes CUDA tensors only.
 
 ``buffer [ring, R]`` f32, ``base`` a Python int.  The TPU kernels' Mosaic
 workarounds do not carry over: no 8-row aligned DMA, so neither B1's
@@ -57,14 +62,17 @@ __all__ = [
     "dma_farrow_contract",
     "dma_farrow_contract_packed",
     "dma_farrow_contract_reference",
+    "FarrowWeightsKernel",
 ]
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
 #: B3 keeps a thread block's weights in shared memory: the 48 KB default
 #: less its 4 KB reduction buffer
 _PACKED_SMEM_MAX = 44 * 1024
 #: per-device copies of B2/B3's ``block_base`` tables, uploaded once
 _block_base_cache: dict[tuple, torch.Tensor] = {}
+#: the most basis rows ``d1`` the weights kernel takes (``kD1Max``)
+_WEIGHTS_D1_MAX = 16
 #: B1's tile (``csrc/fir_banded_contract.cu``): lanes per block, band
 #: columns per pipeline slice, slices in flight
 BAND_LANES, BAND_DEPTH, BAND_STAGES = 256, 16, 3
@@ -376,3 +384,78 @@ def dma_farrow_contract_packed(buffer, base: int, a_blk, block_base):
         "dma_farrow_contract_packed", "fir_farrow_contract_packed",
         buffer, base, a_blk, bb, _I(vec),
     )
+
+
+# --------------------------------------------------------------------------
+# The Farrow weights of B2 / B3
+# --------------------------------------------------------------------------
+
+
+class FarrowWeightsKernel:
+    """The Farrow blocks' banded weights ``a_blk [K, q, w]`` f32 of one
+    plan, built on the card for a step's residue word by one launch of the
+    weights kernel on the current stream.
+
+    ``kernel(word)``, ``word`` the step's ``pos % M`` or wide ``pos_lo``
+    (an int in ``[0, 2^32)``; below ``M`` for the lerp basis): each output
+    ``r`` of the ``[K, q]`` tables takes ``t = word + s_pad[r]`` in u32,
+    ``wrap = t < word or t >= M``, ``rem = t - M`` if ``wrap`` else ``t``,
+    and the row ``sum_d coef_d(rem) * basis[d, s - jl]`` over ``0 <= s -
+    jl < taps`` (``jl = j_loc[r] + wrap``), exactly 0 elsewhere; ``coef`` is
+    ``combine_basis(rem, M, U)`` in the same f32 operations.
+
+    The tables, checked once here: ``s_pad`` ``[K, q]`` int32 holding the
+    splits' u32 bits; ``j_loc`` ``[K, q]`` int32; ``basis`` ``[d1, taps]``
+    f32, ``d1`` at most 16; ``U`` the lerp basis's ``[phases, d1]``
+    f32 factor, or ``None`` for the Chebyshev values.  All on one CUDA
+    device and contiguous; anything else raises (the plain version is
+    ``engine/fir_fleets.py farrow_weights``)."""
+
+    def __init__(self, s_pad, j_loc, basis, U, *, M: int, w: int):
+        for what, t, dtype in (("s_pad", s_pad, torch.int32), ("j_loc", j_loc, torch.int32),
+                               ("basis", basis, torch.float32), ("U", U, torch.float32)):
+            if t is None and what == "U":
+                continue
+            if not isinstance(t, torch.Tensor) or t.dtype != dtype or t.ndim != 2:
+                raise TypeError(f"{what} must be a 2-D {dtype} tensor")
+            if not t.is_contiguous():
+                raise ValueError(f"{what} must be contiguous")
+        K, q = s_pad.shape
+        d1, taps = basis.shape
+        if tuple(j_loc.shape) != (K, q) or K * q < 1:
+            raise ValueError(f"s_pad and j_loc must be one non-empty [K, q], got "
+                             f"{tuple(s_pad.shape)} and {tuple(j_loc.shape)}")
+        if not 1 <= d1 <= _WEIGHTS_D1_MAX:
+            raise ValueError(f"the weights kernel takes 1 to {_WEIGHTS_D1_MAX} basis rows d1, "
+                             f"got {d1}")
+        if U is not None and (U.shape[1] != d1 or U.shape[0] < 1):
+            raise ValueError(f"U must be [phases, {d1}], got {tuple(U.shape)}")
+        if not isinstance(M, int) or isinstance(M, bool) or not 1 <= M < 1 << 32:
+            raise ValueError(f"M must be an int in [1, 2^32), got {M!r}")
+        if not isinstance(w, int) or not taps <= w < 1 << 31 or K * q * w >= 1 << 31:
+            raise ValueError(f"w must be an int >= taps = {taps} with K*q*w < 2^31, got {w!r}")
+        device = s_pad.device
+        for what, t in (("j_loc", j_loc), ("basis", basis), ("U", U)):
+            if t is not None and t.device != device:
+                raise ValueError(f"{what} is on {t.device}, s_pad on {device}")
+        if _device_kind(s_pad) != "cuda":
+            raise ValueError(
+                f"the weights kernel runs on a CUDA device, not {device}; "
+                "farrow_weights is its plain version"
+            )
+        self.shape, self.device = (K, q, w), device
+        self._tables = (s_pad, j_loc, basis, U)  # kept alive for the pointers below
+        self._words = M if U is not None else 1 << 32
+        self._args = (
+            _U32(M), _P(s_pad.data_ptr()), _P(j_loc.data_ptr()), _P(basis.data_ptr()),
+            _P(0 if U is None else U.data_ptr()), _I(0 if U is None else U.shape[0]),
+            _I(K * q), _I(d1), _I(taps), _I(w),
+        )
+
+    def __call__(self, word: int) -> torch.Tensor:
+        if not isinstance(word, int) or isinstance(word, bool) or not 0 <= word < self._words:
+            raise ValueError(f"word must be an int in [0, {self._words}), got {word!r}")
+        a_blk = torch.empty(self.shape, dtype=torch.float32, device=self.device)
+        _launch("fir_farrow_weights", self.device, _U32(word), *self._args, _P(a_blk.data_ptr()))
+        LAUNCHES["farrow_weights"] += 1
+        return a_blk

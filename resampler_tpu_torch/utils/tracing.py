@@ -14,9 +14,11 @@ The stages, each one span: ``runtime.push``; ``runtime.step`` and in it
 in it ``fir.upload``, ``fir.relayout_in``, ``fir.append``,
 ``fir.schedule``, ``fir.lanes`` (the async fleet's ``[2, R]`` lane
 upload), ``fir.contract`` (on the tm fleet's farrow and lerp paths with
-``fir.weights`` nested in it: ``farrow_weights``' host residues and
-basis values, their uploads and the positioning matmul, so that
-``fir.contract``'s own launch is the contraction's), ``fir.mask``, ``fir.relayout_out``,
+``fir.weights`` nested in it, the step's Farrow weights: on the card one
+launch of the weights kernel and its output's allocation, elsewhere
+``farrow_weights``' host residues and basis values, their uploads and the
+positioning matmul; so ``fir.contract``'s own launch is the
+contraction's), ``fir.mask``, ``fir.relayout_out``,
 ``fir.compact``, ``fir.peak`` (on the tm fleet's fused epilogue
 ``fir.contract`` holds kernel B1, which does the mask's, the relayout's
 and the peak's work, ``fir.relayout_out`` the output's allocation and
@@ -54,6 +56,9 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fir.farrow_steps``: tm fleet steps that ran the Farrow contraction
   (B2 or B3 on the card, their plain version off it; the farrow, lerp
   and wide paths; over ``fir.steps``, 1 where every step emits);
+- ``fir.weights_kernel``: those of them whose weights the weights kernel
+  built (the engaged share ``fir.weights_kernel / fir.farrow_steps`` is 1
+  on the card, 0 on the CPU and under the plain ``contraction`` modes);
 - ``fir.slews``: streams whose applied slew was non-zero, summed over
   ``BatchedResamplerFir.slew`` calls;
 - ``fir.async.spread``: the async fleet's position spread ``max(pos) -
@@ -76,8 +81,8 @@ PREFIX = "rtt."
 _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
      "runtime.fetch_reuses", "runtime.values_refused", "fir.steps",
-     "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps", "fir.slews",
-     "fir.async.spread"),
+     "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps", "fir.weights_kernel",
+     "fir.slews", "fir.async.spread"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

@@ -324,6 +324,7 @@ def test_coprime_fleet_on_card_matches_cpu(cuda, in_hz, out_hz, path, name):
     cpu = rt.BatchedResamplerFir(*args, device="cpu", **kw)
     rng = np.random.default_rng(3)
     before = kern.LAUNCHES[name]
+    weights_before = kern.LAUNCHES["farrow_weights"]
     produced_steps = 0
     for i in range(30):
         nv = 512 if i % 2 else int(rng.integers(0, 513))
@@ -340,6 +341,104 @@ def test_coprime_fleet_on_card_matches_cpu(cuda, in_hz, out_hz, path, name):
         produced_steps += int(pd[0]) > 0
     assert produced_steps > 0
     assert kern.LAUNCHES[name] == before + produced_steps
+    assert kern.LAUNCHES["farrow_weights"] == weights_before + produced_steps
+
+
+U32 = (1 << 32) - 1
+
+
+def _weights_words(fp, M: int, wide: bool) -> list[int]:
+    """Residue words: 0, 1, 43 (outputs past branch 1023), M - 1, each word
+    at which some split wraps and the word below it, 200 seeded random
+    words; when wide, each ``pos_lo`` at which some split's u32 sum wraps
+    past 2^32 and the word below it."""
+    s = np.unique(fp["s_pad"])
+    s = s[s > 0].astype(np.int64)
+    words = {0, 1, 43, M - 1, *(M - s).tolist(), *(M - s - 1).tolist()}
+    words |= set(np.random.default_rng(22).integers(0, M, 200).tolist())
+    if wide:
+        words |= {*(U32 + 1 - s).tolist(), *(U32 - s).tolist()}
+    return sorted(words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "in_hz,out_hz,basis",
+    [(44100, 44101, "cheb"), (44100, 44101, "lerp"), (48000, 1601, "cheb"),
+     (600011, 600013, "cheb")],
+    ids=["farrow", "lerp", "packed", "wide"],
+)
+def test_farrow_weights_kernel_matches_plain_on_card(cuda, in_hz, out_hz, basis):
+    """The weights kernel against ``farrow_weights`` on the card at every
+    residue word of ``_weights_words``:
+
+    - the offsets ``jl = j_loc + wrap`` agree exactly: on an indicator
+      basis (1 in its row 0, 0 elsewhere) the kernel gives each row's band;
+    - every column outside the plain version's band is exactly 0;
+    - at every tenth word the kernel's coefficients are ``combine_basis``'
+      bit for bit (a basis that is 1 in its row ``d`` alone gives
+      ``coef_d``);
+    - in the band the kernel lies within ``8 * 2^-24 * sum_d |coef_d *
+      A[d, s - jl]|`` (an 8-term f32 sum's worst case) of the f64 sum of
+      the same f32 products, and within twice that of the plain version,
+      whose GEMM adds them in another order (measured: 5.5 and 7.1 of
+      those units; each side alone reaches 5.5)."""
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=2, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(128, rt.Attenuation.Db90,
+                                   tfir.fir_cutoff(128, rt.Attenuation.Db90, in_hz / out_hz))
+    fp = _farrow_tm_plan(cfg, coeffs, basis=basis)
+    K, q, w, d1, n_jl, taps = fp["K"], fp["q"], fp["w_blk"], fp["d1"], fp["n_jl"], cfg.taps
+    s_pad, j_loc, A, U = fir_fleets.farrow_weight_tables(fp, cuda)
+    kernel = kern.FarrowWeightsKernel(s_pad, j_loc, A, U, M=M, w=w)
+    # a basis that is 1 in its row d alone (and, lerp, a factor that is 1 in
+    # its column 0 alone: coef_0 = 1 exactly)
+    units = [torch.zeros_like(A) for _ in range(d1)]
+    for d, e in enumerate(units):
+        e[d] = 1.0
+    u_ind = None if U is None else torch.zeros_like(U)
+    if u_ind is not None:
+        u_ind[:, 0] = 1.0
+    shown = kern.FarrowWeightsKernel(s_pad, j_loc, units[0], u_ind, M=M, w=w)
+    coef_of = [kern.FarrowWeightsKernel(s_pad, j_loc, e, U, M=M, w=w) for e in units]
+    ashift2 = torch.from_numpy(fp["ashift2"]).to(cuda)
+    a64 = ashift2.double()
+    band_shift = torch.zeros((n_jl, w), device=cuda)
+    for j in range(n_jl):
+        band_shift[j, j : j + taps] = 1.0
+    cols = torch.arange(n_jl, device=cuda)
+    bad_band = torch.zeros((), dtype=torch.int64, device=cuda)
+    bad_zero = torch.zeros((), dtype=torch.int64, device=cuda)
+    bad_coef = torch.zeros((), dtype=torch.int64, device=cuda)
+    worst = torch.zeros((2,), dtype=torch.float64, device=cuda)  # in units of 2^-24 sum|t|
+    before = kern.LAUNCHES["farrow_weights"]
+    words = _weights_words(fp, M, cfg.wide)
+    for i, word in enumerate(words):
+        pos = (3, word) if cfg.wide else 7 * M + word
+        got = kernel(word)
+        plain = fir_fleets.farrow_weights(fp, M, pos, ashift2)
+        wrap, rem = tfir.lane_residues(fp["s_pad"], M, pos)
+        coef = tfir.combine_basis(rem, M, fp["U"])
+        jl = torch.from_numpy(fp["j_loc"] + wrap).to(cuda)
+        onehot = (jl[..., None] == cols).to(torch.float32).reshape(K * q, 1, n_jl)
+        band = (onehot[:, 0] @ band_shift).reshape(K, q, w)
+        c64 = torch.from_numpy(coef.astype(np.float64)).to(cuda).reshape(K * q, d1, 1)
+        exact = ((c64 * onehot).reshape(K * q, -1) @ a64).reshape(K, q, w)
+        unit = 2.0**-24 * ((c64.abs() * onehot).reshape(K * q, -1) @ a64.abs()).reshape(K, q, w)
+        bad_band += (shown(word) != band).sum()
+        bad_zero += ((band == 0) & (got != 0)).sum()
+        inside = unit > 0
+        for k, other in enumerate((exact, plain.double())):
+            worst[k] = torch.maximum(worst[k], ((got - other).abs()[inside] / unit[inside]).max())
+        if i % 10 == 0:
+            for d in range(d1):
+                want = torch.from_numpy(coef[..., d]).to(cuda)[..., None]
+                bad_coef += ((band != 0) & (coef_of[d](word) != want)).sum()
+    torch.cuda.synchronize()
+    n_coef = len(range(0, len(words), 10))
+    assert kern.LAUNCHES["farrow_weights"] == before + 2 * len(words) + d1 * n_coef
+    assert int(bad_band) == 0 and int(bad_zero) == 0 and int(bad_coef) == 0
+    assert worst[0] <= 8 and worst[1] <= 16, worst.tolist()
 
 
 @pytest.mark.cuda
@@ -347,8 +446,9 @@ def test_farrow_contract_span_launches_b2_alone(cuda):
     """The farrow tm step under the profiler on the card: the device work
     launched in ``fir.contract`` outside ``fir.weights`` is kernel B2
     (``tiled_contract_kernel``), once a step; ``fir.weights`` launches the
-    weights' work; no B1, B3 or B6 runs; ``fir.farrow_steps / fir.steps``
-    is 1."""
+    weights kernel (``farrow_weights_kernel``) alone, once a step; no B1,
+    B3 or B6 runs; ``fir.weights_kernel``, ``fir.farrow_steps`` and
+    ``fir.steps`` each count every step."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from perfbench import spans, trace
@@ -375,11 +475,13 @@ def test_farrow_contract_span_launches_b2_alone(cuda):
         by_stage.setdefault(spans.innermost(every, ls), []).append(name)
     assert len(by_stage["fir.contract"]) == steps
     assert all("tiled_contract_kernel" in name for name in by_stage["fir.contract"])
-    assert len(by_stage["fir.weights"]) >= steps
+    assert len(by_stage["fir.weights"]) == steps
+    assert all("farrow_weights_kernel" in name for name in by_stage["fir.weights"])
     others = ("band_contract_kernel", "farrow_packed_kernel", "combine_kernel")
     assert not any(o in name for name, _, _ in tr.device for o in others)
     c = tracing.counters()
-    assert c["fir.farrow_steps"] == c["fir.steps"] == steps
+    assert c["launches.farrow_weights"] == steps
+    assert c["fir.weights_kernel"] == c["fir.farrow_steps"] == c["fir.steps"] == steps
 
 
 @pytest.mark.cuda
@@ -985,9 +1087,10 @@ def test_fft_matmul_fleet_on_card_through_b7(cuda):
                                                 (44100, 44101, "dma_farrow_contract")])
 def test_tm_contraction_keyword_on_card(cuda, in_hz, out_hz, kname):
     """The tm step's ``contraction=`` on the card: ``"dma"`` launches the f32
-    kernel (B1, B2) whatever the precision, ``"xla"`` and ``"dma_interpret"``
-    run the plain versions on the card's tensors (no launch); the same ints,
-    and samples within the kernel tolerance of ``"dma"``."""
+    kernel (B1, B2 with the weights kernel before it) whatever the
+    precision, ``"xla"`` and ``"dma_interpret"`` run the plain versions on
+    the card's tensors (no launch); the same ints, and samples within the
+    kernel tolerance of ``"dma"``."""
     L, M = rt.types.reduce_ratio(in_hz, out_hz)
     cfg = tfir.FirConfig(channels=2, taps=64, ratio_num=L, ratio_den=M)
     coeffs = tfir.fir_coefficients(64, rt.Attenuation.Db90, tfir.fir_cutoff(64, rt.Attenuation.Db90, in_hz / out_hz))
@@ -1000,6 +1103,7 @@ def test_tm_contraction_keyword_on_card(cuda, in_hz, out_hz, kname):
     }
     rng = np.random.default_rng(13)
     launched = 0
+    kinds = {kname, "farrow_weights"} if kname == "dma_farrow_contract" else {kname}
     for _ in range(6):
         chunk = torch.from_numpy(rng.standard_normal((512, B * 2), dtype=np.float32)).to(cuda)
         outs = {}
@@ -1009,7 +1113,7 @@ def test_tm_contraction_keyword_on_card(cuda, in_hz, out_hz, kname):
             fleets[name] = (step, state)
             outs[name] = (out, c, p)
             grew = {k for k in kern.LAUNCHES if kern.LAUNCHES[k] != before[k]}
-            assert grew == ({kname} if name == "dma" and p else set())
+            assert grew == (kinds if name == "dma" and p else set())
             launched += name == "dma" and p > 0
         torch.cuda.synchronize()
         assert outs["dma"][1:] == outs["xla"][1:] == outs["dma_interpret"][1:]
