@@ -456,6 +456,7 @@ class BatchedResamplerFft:
         tensor on the device."""
         with tracing.span("fft.step"):
             chunks, callers = self._chunks(chunks, 3)
+            tracing.count("fft.chunks")
             with tracing.span("fft.contract"):
                 state, out = self._step(self._state, chunks)
             self._state = self._keep(state, callers)
@@ -470,11 +471,14 @@ class BatchedResamplerFft:
         zero-copy pool step (kernel B5): it reads its previous chunk
         straight from slot ``t-1`` of the caller's stack, the ``[T, B*C,
         N]`` view of ``chunks``.  Only chunk 0, whose ``prev`` is the
-        carry, takes the fleet step (kernel B4).  Other backends loop the
-        fleet step."""
+        carry, takes the fleet step (kernel B4), under ``fft.contract``;
+        the B5 steps run under ``fft.pool`` and the outputs' assembly
+        under ``fft.stack``.  Other backends, and ``T < 2``, loop the
+        fleet step under ``fft.contract``."""
         with tracing.span("fft.step"):
             chunks, callers = self._chunks(chunks, 4)
             T = chunks.shape[0]
+            tracing.count("fft.chunks", T)
             if self._resolved_backend != "magsplit" or T < 2:
                 state, outs = self._state, []
                 with tracing.span("fft.contract"):
@@ -484,19 +488,22 @@ class BatchedResamplerFft:
                     outs = torch.stack(outs)
                 self._state = self._keep(state, callers)
                 return outs
-            if self._pool_step is None:
-                self._pool_step = fft_engine.make_fft_fleet_step_pool(
-                    self._config, self.n_streams, backend=self._backend,
-                    device=self._device,
-                )
             C, N = self._config.channels, self._config.fft_size_input
             pool = chunks.reshape(T, self.n_streams * C, N)
             with tracing.span("fft.contract"):
                 _, out0 = self._step(self._state, chunks[0])
+            with tracing.span("fft.pool"):
+                if self._pool_step is None:
+                    self._pool_step = fft_engine.make_fft_fleet_step_pool(
+                        self._config, self.n_streams, backend=self._backend,
+                        device=self._device,
+                    )
                 outs = [out0]
                 for t in range(1, T):
                     _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
                     outs.append(out)
+            tracing.count("fft.pool_steps", T - 1)
+            with tracing.span("fft.stack"):
                 outs = torch.stack(outs)
             self._state = self._keep({"prev": chunks[T - 1]}, callers)
             return outs

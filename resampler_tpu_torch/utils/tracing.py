@@ -25,7 +25,9 @@ and the peak's work, ``fir.relayout_out`` the output's allocation and
 ``fir.peak`` the peak's reset; no ``fir.mask``);
 ``fir.slew`` (``BatchedResamplerFir.slew``,
 a root of its own); ``fft.step`` and in it ``fft.upload``,
-``fft.contract``, ``fft.keep``.
+``fft.contract``, ``fft.keep`` (on ``resample_many``'s pool path
+``fft.contract`` holds chunk 0's fleet step alone, ``fft.pool`` the other
+chunks' pool steps, kernel B5, and ``fft.stack`` the outputs' assembly).
 
 The ranges are recorded as operator-scope events
 (``torch._C._profiler._RecordFunctionFast``), not as user annotations
@@ -62,7 +64,13 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fir.slews``: streams whose applied slew was non-zero, summed over
   ``BatchedResamplerFir.slew`` calls;
 - ``fir.async.spread``: the async fleet's position spread ``max(pos) -
-  min(pos)`` in 1/M frames after each step, summed over steps.
+  min(pos)`` in 1/M frames after each step, summed over steps;
+- ``fft.chunks``: chunks stepped by the FFT fleet, 1 per ``resample`` and
+  ``T`` per ``resample_many``;
+- ``fft.pool_steps``: those of them that took the pool step (kernel B5 on
+  the card, its plain version off it; the engaged share ``fft.pool_steps /
+  fft.chunks`` is ``(T - 1) / T`` where ``resample_many`` pools, 0 where
+  it loops the fleet step).
 """
 
 from __future__ import annotations
@@ -82,7 +90,7 @@ _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
      "runtime.fetch_reuses", "runtime.values_refused", "fir.steps",
      "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps", "fir.weights_kernel",
-     "fir.slews", "fir.async.spread"),
+     "fir.slews", "fir.async.spread", "fft.chunks", "fft.pool_steps"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

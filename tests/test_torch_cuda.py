@@ -606,6 +606,42 @@ def b7_fft_plain(backend, chunks, n_in, n_out):
 
 
 @pytest.mark.cuda
+def test_fft_pool_step_at_the_transcoders_width_on_card(cuda):
+    """The batch transcoder's call (the ``fft.pool`` cell's shapes): 8192
+    stereo streams at 48000 -> 44100 Hz (cols 294: the last of a group's
+    two 160-column tiles is ragged), T 8, two calls chained through the
+    carry.  ``auto`` is magsplit; ``resample_many`` runs chunk 0 on B4
+    and chunks 1-7 on B5, B4's kernel on two slots of the stack, so it
+    equals eight ``resample`` calls bit for bit.  B5's output rows near
+    both ends match the plain version."""
+    B, C, T, n_in = 8192, 2, 8, 1280
+    many = rt.BatchedResamplerFft(B, C, 48000, 44100, device=cuda)
+    one = rt.BatchedResamplerFft(B, C, 48000, 44100, device=cuda)
+    assert many._resolved_backend == "magsplit"
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2**31 + 23)
+    tracing.reset_counters()
+    for call in range(2):
+        x = torch.rand((T, B, C, n_in), generator=g, device=cuda).mul_(2.0).sub_(1.0)
+        got = many.resample_many(x)
+        for t in range(T):
+            assert torch.equal(got[t], one.resample(x[t])), (call, t)
+        c = tracing.counters()
+        assert (c["fft.pool_steps"], c["fft.chunks"]) == (7 * (call + 1), 16 * (call + 1))
+        assert c["launches.magsplit_projector_pool"] == 7 * (call + 1)
+        assert c["launches.magsplit_projector"] == 9 * (call + 1)
+    plan = mag.plan_magsplit(n_in, 1176)
+    assert (plan.rows, plan.wc, plan.cols, plan.s) == (1600, 960, 294, 4)
+    wh, wcorr = mag.magsplit_weights(plan, cuda)
+    R = B * C
+    for rows in (slice(0, 1000), slice(R - 1000, R)):
+        ref = mag.magsplit_projector_reference(
+            x[0].reshape(R, n_in)[rows].contiguous(), x[1].reshape(R, n_in)[rows].contiguous(),
+            wh, wcorr, plan=plan)
+        assert (got[1].reshape(R, -1)[rows] - ref).abs().max().item() <= KERNEL_ATOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["magsplit", "matmul", "conv", "fft", "rfft"])
 def test_fft_backends_on_card_match_cpu(cuda, backend):
     """Every FFT backend on the card against the same backend on the CPU

@@ -69,6 +69,15 @@ def _drive(kind):
         def run(fleet, k):
             x = torch.from_numpy(_chunks(k, n=fleet.config.fft_size_input).transpose(0, 2, 1).copy())
             return [fleet.resample(x).numpy()]
+    elif kind == "fft_many":
+        # the magsplit backend's plain version: resample_many takes the
+        # pool step for chunks 1..T-1
+        def make():
+            return rtt.BatchedResamplerFft(B, C, 48000, 44100, backend="magsplit", device="cpu")
+
+        def run(fleet, k):
+            x = _chunks(k, n=fleet.config.fft_size_input, T=3).transpose(0, 1, 3, 2).copy()
+            return [fleet.resample_many(torch.from_numpy(x)).numpy()]
     else:
         def make():
             return _fir(kind)
@@ -101,6 +110,8 @@ NESTING = {
                                   "fir.step")},
     "fft": {"fft.step": None, **dict.fromkeys(("fft.upload", "fft.contract", "fft.keep"),
                                               "fft.step")},
+    "fft_many": {"fft.step": None, **dict.fromkeys(
+        ("fft.upload", "fft.contract", "fft.pool", "fft.stack", "fft.keep"), "fft.step")},
 }
 
 
