@@ -30,7 +30,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``n_out`` zeroed, the peak metered) bit for bit against the time-major
    form + mask + relayout + ``abs().amax()``, timed in turns against
    it; the bound is the taps-wide work;
-   one PyTorch ``matmul`` over the overlapping window view beside it.  B4
+   one PyTorch ``matmul`` over the overlapping window view beside it.  B2
+   and B3 against their plain version at five cases; ptxas's registers,
+   shared memory and spills (none) of B2's two forms; at B2's main case
+   (44.1 -> 44.101 kHz, 1024 x 2) its fused epilogue (the farrow / lerp /
+   wide tm step's call) bit for bit against the time-major form + mask +
+   relayout + ``abs().amax()`` and timed in turns against it, as B1's.  B4
    and B5 at 8192 stereo streams (R 16384) of 1176 -> 1280 and 588 ->
    1280, the ragged 1280 -> 1176 (cols 294) at R 2 and 37, 1280 -> 3528
    (cols 882) at R 4099, 2560 -> 2352 (s 8) at R 1027 and 3528 -> 1280
@@ -471,6 +476,64 @@ def b1_fused_epilogue(buf, plan, i0, a, geo, rot, out_cap, C=2):
     return ms
 
 
+def b2_build_report() -> None:
+    """B2's kernels as built: ptxas's registers, shared memory and spills of
+    each form (``tiled_contract_kernel<BM>``, BM the fused epilogue), none
+    spilling."""
+    log = _build.build_log()
+    section = log[log.find("== fir_farrow_contract.cu"):].split("\n== ")[0]
+    form = None
+    for line in section.splitlines():
+        if "Compiling entry" in line:
+            found = re.search(r"tiled_contract_kernelILb([01])E", line)
+            form = ("bm" if found[1] == "1" else "tm") if found else None
+        elif form is not None and ("registers" in line or "spill" in line):
+            print(f"[3] B2 ptxas tiled_contract_kernel<{form}>: {line.strip()}")
+            check("spill" not in line or " 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"B2 tiled_contract_kernel<{form}> spills: {line.strip()}")
+    if "tiled_contract" not in section:
+        print("[3] B2 ptxas: not in the build log (cached build)")
+
+
+def b2_fused_epilogue(buf, a_blk, bb, rot, out_cap, C=2):
+    """B2's fused epilogue at a case's shapes (``dma_farrow_contract_bm``,
+    the farrow / lerp / wide tm step's call): its ``[R / C, out_cap, C]``
+    output and peak bit for bit against B2 time-major, then the cut to
+    ``out_cap``, the mask, the relayout and ``abs().amax()``, at ``n_out``
+    of ``out_cap - 2`` (a steady step's) and ``out_cap - 300`` (masked
+    tiles); timed in turns against that four-op form."""
+    R = buf.shape[1]
+    B = R // C
+
+    def fused(i, n_out=out_cap - 2):
+        out = buf.new_empty((B, out_cap, C))
+        peak = buf.new_zeros(())
+        return kern.dma_farrow_contract_bm(buf, rot[i % 8], a_blk, bb, out, peak, n_out=n_out)
+
+    def aten(i, n_out=out_cap - 2):
+        tm = kern.dma_farrow_contract(buf, rot[i % 8], a_blk, bb).reshape(-1, R)[:out_cap]
+        tm[n_out:] = 0.0
+        out = tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+        return out, out.abs().amax()
+
+    for n_out in (out_cap - 2, out_cap - 300):
+        got, peak = fused(3, n_out)
+        want, want_peak = aten(3, n_out)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and torch.equal(peak.view(torch.int32), want_peak.view(torch.int32)),
+              f"B2 fused epilogue at n_out {n_out}: bit for bit the four-op form's")
+    names = device_kernels(lambda: fused(3))
+    check(sum("tiled_contract_kernel" in n for n in names) == 1 and len(names) == 2,
+          f"B2 fused epilogue: the peak's fill and one B2 kernel: {names}")
+    ms, aten_ms, t = timed_pair(fused, aten)
+    print(f"    fused epilogue ([{B}, {out_cap}, {C}] out, n_out {out_cap - 2}): bit for bit the "
+          f"time-major kernel + mask + relayout + abs().amax() at n_out {out_cap - 2} and "
+          f"{out_cap - 300}; {t[1]:.4f} / {t[2]:.4f} ms per call (the peak's fill included), "
+          f"the four-op form {t[0]:.4f} / {t[3]:.4f} ms ({aten_ms / ms:.2f}x); one call runs {names}")
+    return ms
+
+
 def device_kernels(fn) -> list[str]:
     """The device kernels one call of ``fn`` runs (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -604,6 +667,7 @@ def phase_farrow_kernels(device, cases):
     its cases).  No single PyTorch call computes them (``block_base`` is
     no uniform stride), so they have no library time.  Before them, the
     weights kernel against its plain version at each case's weight sets."""
+    b2_build_report()
     entries = {}
     for n, (name, args) in enumerate(cases):
         buf, weights, positions, words, bases, fp = farrow_case(*args, device=device, seed=10 + n)
@@ -658,6 +722,11 @@ def phase_farrow_kernels(device, cases):
               f"kernel {flop / ms / 1e9:.3f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s; bound "
               f"{b_ms:.4f} ms ({b_by}: {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
               f"{100 * b_ms / ms:.1f}% of it reached)")
+        if kname not in entries and q >= 8:
+            in_hz, out_hz, taps = args[:3]
+            L_r, M_r = reduce_ratio(in_hz, out_hz)
+            b2_fused_epilogue(buf, a_blk, bb, rot, FirConfig(
+                channels=2, taps=taps, ratio_num=L_r, ratio_den=M_r).out_capacity)
         entry = entries.setdefault(kname, dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
         ))

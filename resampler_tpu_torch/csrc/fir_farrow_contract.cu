@@ -16,7 +16,10 @@
 // cover, read once, plus the 33 MB output), ~20 us at 3.35 TB/s.  Design: the
 // tiled kernel of tiled_contract.cuh with a weight block and a row base per
 // block k; the 48 KB [64, 192] weight block is staged through
-// shared memory 16 columns at a time.
+// shared memory 16 columns at a time.  The tm fleet's farrow, lerp and wide
+// step with "bm" outputs launches its fused epilogue (tiled_contract.cuh):
+// the [B, out_cap, C] output, its rows past n_out zeroed and its peak
+// metered by B2's own store.
 //
 // B3 replaces :170 dma_farrow_contract_packed (body _farrow_packed_kernel
 // :127) for blocks of q < 8 rows (heavy coprime downsampling).  Bound: bytes.
@@ -286,13 +289,18 @@ farrow_weights_kernel(uint32_t word, uint32_t M, const uint32_t* __restrict__ s_
 // Both launch on `stream` and return cudaGetLastError() (0 on success).  The
 // caller checks shapes and contiguity, that rows [base + block_base[k],
 // + w) lie inside the ring for every k, and (B3, vec 4) that R % 4 == 0 and
-// the buffer is 16-byte aligned.
+// the buffer is 16-byte aligned.  B2's out_cap 0: out is the time-major
+// [K, q, R]; out_cap > 0: the fused epilogue (tiled_contract.cuh), out the
+// [R / C, out_cap, C] output (out_cap <= K q) with rows past n_out zeroed,
+// and peak the zeroed f32 peak of the rows below n_out.
 extern "C" int fir_farrow_contract(const float* buffer, const float* a_blk,
                                    const int64_t* block_base, float* out,
                                    int R, int64_t base, int K, int q, int w,
+                                   int out_cap, int C, int n_out, float* peak,
                                    void* stream) {
+  const tiled::Epilogue ep{out_cap, C, n_out, reinterpret_cast<unsigned*>(peak)};
   return tiled::launch_tiled_contract(buffer, a_blk, block_base, out, R, base,
-                                      0, q, w, K, stream);
+                                      0, q, w, K, ep, stream);
 }
 
 extern "C" int fir_farrow_contract_packed(const float* buffer,

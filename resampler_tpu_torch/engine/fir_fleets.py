@@ -47,6 +47,7 @@ from ..ops.fir_dma_kernel import (
     dma_banded_contract_bm,
     dma_banded_contract_reference,
     dma_farrow_contract,
+    dma_farrow_contract_bm,
     dma_farrow_contract_packed,
     dma_farrow_contract_reference,
 )
@@ -348,11 +349,13 @@ def make_fir_fleet_step_sync_tm(
     for ``out_layout="bm"`` or the raw time-major ``[out_cap, B*C]`` for
     ``"tm"``.  Per-stream semantics equal ``make_fir_step``.
 
-    The fused epilogue: where the step observes the periodic path in f32
-    through the kernel (``contraction`` ``"auto"`` or ``"dma"``),
-    ``out_layout="bm"``, a CUDA device and ``n_out > 0``, B1 writes ``out``
-    itself (rows past ``n_out`` zeroed) and meters the step's peak
-    ``max |out|`` (counter ``fir.fused_epilogue``); every other step
+    The fused epilogue: where the step observes a contraction kernel
+    (``contraction`` ``"auto"`` or ``"dma"``) that stores it -- B1 on the
+    periodic path in f32, B2 on the farrow / lerp / wide paths (blocks of
+    ``q >= 8`` outputs) --, ``out_layout="bm"``, a CUDA device and ``n_out
+    > 0``, the kernel writes ``out`` itself (rows past ``n_out`` zeroed)
+    and meters the step's peak ``max |out|`` (counter
+    ``fir.fused_epilogue``); every other step (B3, B7, the plain versions)
     contracts time-major, then zeroes, relays and (in the caller) meters
     with torch ops.  ``meter_peak=True`` makes the step return that peak
     (a 0-d f32 tensor on the device) as a fifth item, ``None`` on the
@@ -505,20 +508,31 @@ def make_fir_fleet_step_sync_tm(
             def weights(pos):
                 return farrow_weights(fp, M, pos, ashift2)
 
-        def contract(buffer, start: int, pos, avail: int):
-            # the wide base is clamped to the buffered frames, the narrow
-            # one is not (as in the JAX package); both are < avail on an
-            # emitting step, the only steps that contract
-            base = min(pos[0], avail) if wide else pos // M
+        def blocks(start: int, pos):
+            """The blocks' first ring row and the step's weights.  The JAX
+            package clamps the wide base to the buffered frames; on an
+            emitting step, the only steps that contract, the frame word is
+            below them already (the emission mask asks pos_hi + taps <=
+            avail), so the clamp changes nothing."""
+            base = pos[0] if wide else pos // M
             tracing.count("fir.farrow_steps")
             with tracing.span("fir.weights"):
-                a_blk = weights(pos)
-            out = kernel(buffer, start + base, a_blk, fp["block_base"])  # [K, q, R]
+                return start + base, weights(pos)
+
+        def contract_bm(buffer, start: int, pos, n_out: int, out, peak):
+            row, a_blk = blocks(start, pos)
+            dma_farrow_contract_bm(buffer, row, a_blk, fp["block_base"], out, peak, n_out=n_out)
+
+        def contract(buffer, start: int, pos, avail: int):
+            row, a_blk = blocks(start, pos)
+            out = kernel(buffer, row, a_blk, fp["block_base"])  # [K, q, R]
             return out.reshape(fp["n_pad"], R)[:out_cap]
 
     assert region_rows <= ring.slack, (region_rows, ring.slack)
-    fused = (path == "periodic" and precision == "highest" and not plain
-             and out_layout == "bm" and device.type == "cuda")
+    # the fused epilogue's kernels: B1 in f32 on the periodic path, B2 on the
+    # Farrow paths (B3 keeps the ATen epilogue)
+    fused = (not plain and out_layout == "bm" and device.type == "cuda"
+             and (precision == "highest" if path == "periodic" else fp["q"] >= 8))
 
     def step(state: dict, chunks_tm, n_valid: int):
         buffer, start, fill, avail, to_copy = ring.append(state, chunks_tm, n_valid)
@@ -536,7 +550,7 @@ def make_fir_fleet_step_sync_tm(
         # past the buffered frames there) ----
         peak = None
         if n_out and fused:
-            # B1 stores the [B, out_cap, C] output, zeroes, and meters
+            # B1 or B2 stores the [B, out_cap, C] output, zeroes, and meters
             tracing.count("fir.fused_epilogue")
             with tracing.span("fir.relayout_out"):
                 out = buffer.new_empty((ring.B, out_cap, ring.C))

@@ -62,9 +62,11 @@ _SIGNATURES = {
     # vec, out_cap, C, n_out (the fused epilogue's; out_cap 0: none), peak,
     # stream
     "fir_banded_contract": [_P, _P, _I64, _I64, _P, _P, _I, _I64] + [_I] * 9 + [_P, _P],
-    # buffer, a_blk, block_base, out, R, base, K, q, w, stream
-    "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
-    # ... the same, then the lanes per thread (4 or 1), stream
+    # buffer, a_blk, block_base, out, R, base, K, q, w, out_cap, C, n_out
+    # (the fused epilogue's; out_cap 0: none), peak, stream
+    "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64] + [_I] * 6 + [_P, _P],
+    # buffer, a_blk, block_base, out, R, base, K, q, w, the lanes per thread
+    # (4 or 1), stream
     "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
     # word, M, s_pad, j_loc, basis, U (lerp; null: Chebyshev), phases, rows,
     # d1, taps, w, a_blk, stream

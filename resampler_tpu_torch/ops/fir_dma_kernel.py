@@ -22,7 +22,10 @@ Ports of ``resampler_tpu/ops/fir_dma_kernel.py``:
       out[k, l, r] = sum_{s < w} a_blk[k, l, s] * buffer[base + block_base[k] + s, r]
 
   ``a_blk [K, q, w]``, ``block_base [K]`` host ints (the plan's static
-  table); returns ``[K, q, R]``.
+  table); returns ``[K, q, R]``.  ``dma_farrow_contract_bm`` is B2 with
+  the tm fleet's output epilogue fused, as ``dma_banded_contract_bm`` is
+  B1's: output rows ``k*q + l`` below ``out_cap`` stored as ``[B,
+  out_cap, C]``, those past ``n_out`` as zeros, the peak metered.
 - ``FarrowWeightsKernel`` builds B2/B3's ``a_blk`` for one step on the
   card from the step's residue word and static tables (no TPU
   counterpart: the JAX fleet forms it with XLA ops).  Its plain version is
@@ -60,6 +63,8 @@ __all__ = [
     "dma_banded_contract_bm_reference",
     "dma_banded_contract_reference",
     "dma_farrow_contract",
+    "dma_farrow_contract_bm",
+    "dma_farrow_contract_bm_reference",
     "dma_farrow_contract_packed",
     "dma_farrow_contract_reference",
     "FarrowWeightsKernel",
@@ -336,14 +341,26 @@ def dma_farrow_contract_reference(buffer, base: int, a_blk, block_base):
     return torch.einsum("kqw,kwr->kqr", a_blk, buffer[rows])
 
 
-def _farrow_launch(name: str, fn_name: str, buffer, base: int, a_blk, bb: np.ndarray, *extra):
+def _check_b2(buffer, base, a_blk, block_base) -> np.ndarray:
+    bb = _check_farrow(buffer, base, a_blk, block_base)
+    if a_blk.shape[1] < 8:
+        raise ValueError(f"B2 takes blocks of q >= 8 rows (q < 8: B3), got q={a_blk.shape[1]}")
+    return bb
+
+
+def _farrow_launch(name: str, fn_name: str, buffer, base: int, a_blk, bb: np.ndarray, *extra,
+                   out=None):
+    """Launch ``fn_name``, the kernel's own arguments ``extra`` after the
+    shared ones, into ``out`` (``None``: a new time-major ``[K, q, R]``);
+    returns ``out``."""
     K, q, w = a_blk.shape
     R = buffer.shape[1]
     key = (buffer.device, bb.tobytes())
     bb_dev = _block_base_cache.get(key)
     if bb_dev is None:
         bb_dev = _block_base_cache[key] = torch.from_numpy(bb).to(buffer.device)
-    out = torch.empty((K, q, R), dtype=torch.float32, device=buffer.device)
+    if out is None:
+        out = torch.empty((K, q, R), dtype=torch.float32, device=buffer.device)
     _launch(
         fn_name, buffer.device,
         _P(buffer.data_ptr()), _P(a_blk.data_ptr()), _P(bb_dev.data_ptr()),
@@ -357,12 +374,54 @@ def dma_farrow_contract(buffer, base: int, a_blk, block_base):
     """``out[k, l, r] = sum_s a_blk[k, l, s] * buffer[base + block_base[k]
     + s, r]``, ``[K, q, R]`` f32, for Farrow blocks of ``q >= 8`` rows.
     CUDA tensors launch kernel B2; CPU tensors run the plain version."""
-    bb = _check_farrow(buffer, base, a_blk, block_base)
-    if a_blk.shape[1] < 8:
-        raise ValueError(f"B2 takes blocks of q >= 8 rows (q < 8: B3), got q={a_blk.shape[1]}")
+    bb = _check_b2(buffer, base, a_blk, block_base)
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_reference(buffer, base, a_blk, bb)
-    return _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb)
+    # out_cap 0: the time-major form
+    return _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb,
+                          _I(0), _I(1), _I(0), _P(0))
+
+
+def dma_farrow_contract_bm_reference(buffer, base: int, a_blk, block_base, out, peak, *,
+                                     n_out: int):
+    """Plain PyTorch version of ``dma_farrow_contract_bm``: each emitted
+    row ``i < n_out`` (``k, l = divmod(i, q)``) gathers its ``w`` ring rows
+    at ``base + block_base[k]`` and is contracted with ``a_blk[k, l]`` in
+    f32; ``out`` takes them as ``[B, out_cap, C]`` and zeros elsewhere,
+    ``peak`` their largest ``|x|`` (NaN where any is NaN) if that is above
+    it.  Returns ``(out, peak)``."""
+    bb = _check_farrow(buffer, base, a_blk, block_base)
+    K, q, w = a_blk.shape
+    _, C = _check_bm(buffer, out, peak, q, K, n_out)
+    out.zero_()
+    if n_out:
+        i = torch.arange(n_out, device=buffer.device)
+        first = torch.from_numpy(base + bb).to(buffer.device)[i // q]
+        rows = first[:, None] + torch.arange(w, device=buffer.device)
+        vals = torch.einsum("is,isr->ir", a_blk.reshape(K * q, w)[:n_out], buffer[rows])
+        out[:, :n_out] = vals.reshape(n_out, -1, C).permute(1, 0, 2)
+        peak.copy_(torch.maximum(peak, vals.abs().amax()))
+    return out, peak
+
+
+def dma_farrow_contract_bm(buffer, base: int, a_blk, block_base, out, peak, *, n_out: int):
+    """B2 with the tm fleet's output epilogue fused, in place: the rows
+    ``i = k*q + l < out_cap`` of ``dma_farrow_contract``'s output go to
+    ``out [B, out_cap, C]`` f32 (``out[b, i, c]`` is lane ``b*C + c``;
+    ``out_cap <= K*q``), rows ``i >= n_out`` as zeros; ``peak`` (0-d f32,
+    zeroed by the caller) takes ``max |x|`` over the rows below ``n_out``,
+    NaN where any is NaN, as ``torch.amax``.  CUDA tensors launch kernel
+    B2 on the current stream (the same sums, in the same order, as its
+    time-major form); CPU tensors run the plain version.  Returns ``(out,
+    peak)``."""
+    bb = _check_b2(buffer, base, a_blk, block_base)
+    K, q, _ = a_blk.shape
+    out_cap, C = _check_bm(buffer, out, peak, q, K, n_out)
+    if _device_kind(buffer) == "cpu":
+        return dma_farrow_contract_bm_reference(buffer, base, a_blk, bb, out, peak, n_out=n_out)
+    _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb,
+                   _I(out_cap), _I(C), _I(n_out), _P(peak.data_ptr()), out=out)
+    return out, peak
 
 
 def dma_farrow_contract_packed(buffer, base: int, a_blk, block_base):

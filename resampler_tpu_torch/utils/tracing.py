@@ -53,7 +53,8 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fir.steps``: FIR fleet steps (each chunk of ``resample_many`` is one);
 - ``fir.compactions``: ring compactions of the time-major fleets;
 - ``fir.fused_epilogue``: tm fleet steps whose outputs, zeroed rows and
-  peak kernel B1 wrote itself (the fused epilogue; the engaged share is
+  peak the contraction kernel wrote itself, B1 on the periodic path or B2
+  on the farrow / lerp / wide paths (the fused epilogue; the engaged share is
   ``fir.fused_epilogue / fir.steps``);
 - ``fir.farrow_steps``: tm fleet steps that ran the Farrow contraction
   (B2 or B3 on the card, their plain version off it; the farrow, lerp

@@ -199,9 +199,88 @@ def test_fused_tm_step_matches_aten_epilogue_on_card(cuda, case):
     assert torch.equal(s_f["buffer"].view(torch.int32), s_a["buffer"].view(torch.int32))
 
 
-#: ``fir.fused_epilogue / fir.steps`` by fleet on the card: the tm fleet
-#: alone fuses (on the CPU every fleet reads 0)
-SHARES = {"tm": 1, "tm-layout-tm": 0, "coprime": 0, "async": 0, "vmapped": 0}
+#: the farrow / lerp / wide fused epilogue's card cases: rates, path,
+#: streams, channels, chunk frames, horizon, each step's valid frames, and
+#: whether a valid input row holds a NaN
+FUSED_FARROW_CASES = {
+    # the cell's width
+    "farrow": (44100, 44101, "auto", 1024, 2, 4096, 16, [4096] * 3, False),
+    "lerp-masked": (44100, 44101, "lerp", 8, 2, 512, 3, [512, 100, 37, 512, 260, 512, 1], False),
+    "wide": (600011, 600013, "auto", 8, 2, 512, 3, [512, 300, 512, 512], False),
+    # R 301 (mono) and R 262 (stereo): lanes past the last 256-lane tile
+    "ragged-mono": (44100, 44101, "auto", 301, 1, 512, 3, [512] * 4, False),
+    "ragged-wide-stereo": (600011, 600013, "auto", 131, 2, 512, 3, [512] * 4, False),
+    "nan": (44100, 44101, "auto", 8, 2, 512, 3, [512] * 4, True),
+    "compaction": (44100, 44101, "lerp", 8, 2, 512, 1, [512] * 18, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FUSED_FARROW_CASES))
+def test_fused_farrow_step_matches_aten_epilogue_on_card(cuda, case):
+    """The farrow / lerp / wide tm step's fused epilogue (B2 writes ``[B,
+    out_cap, C]``, zeroes the rows past ``n_out`` and meters the peak)
+    against the ATen one on the same feed: B2 time-major
+    (``out_layout="tm"``), then the mask, the relayout and
+    ``abs().amax()``.  Outputs and peak equal bit for bit (the same sums in
+    the same order, stored elsewhere), and so do the counts, the state's
+    ints and the ring; frames past ``n_valid`` are NaN and reach nothing; a
+    NaN in a valid row makes the peak NaN; the compaction case compares the
+    steps after the ring moved.  B2 launches once per emitting step of
+    each step function."""
+    in_hz, out_hz, path, B, C, n, horizon, feeds, poison = FUSED_FARROW_CASES[case]
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=C, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    kw = dict(max_chunk=n, horizon=horizon, path=path, device=cuda)
+    fused = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, meter_peak=True, **kw)
+    aten = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, out_layout="tm", **kw)
+    s_f = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=n, horizon=horizon, device=cuda)
+    s_a = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=n, horizon=horizon, device=cuda)
+    out_cap = cfg.out_capacity
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    tracing.reset_counters()
+    nan_peaks = emitting = 0
+    for k, nv in enumerate(feeds):
+        chunk = torch.randn((n, B * C), generator=gen, device=cuda)
+        chunk[nv:] = float("nan")
+        if poison and k == 1:
+            chunk[100, 3 * C + C - 1] = float("nan")
+        before = kern.LAUNCHES["dma_farrow_contract"]
+        s_f, out, c_f, p_f, peak = fused(s_f, chunk, nv)
+        s_a, out_tm, c_a, p_a = aten(s_a, chunk, nv)
+        assert (c_f, p_f) == (c_a, p_a)
+        assert kern.LAUNCHES["dma_farrow_contract"] == before + 2 * (p_f > 0)
+        want = out_tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+        want_peak = want.abs().amax()
+        if peak is None:  # a step that emits nothing keeps the ATen epilogue
+            assert p_f == 0
+            peak = out.abs().amax()
+        emitting += p_f > 0
+        torch.cuda.synchronize()
+        assert out.shape == (B, out_cap, C)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), f"step {k}"
+        assert torch.equal(peak.view(torch.int32), want_peak.view(torch.int32)), f"step {k}"
+        assert not out[:, p_f:].any()
+        nan_peaks += bool(torch.isnan(peak))
+        assert all(s_f[key] == s_a[key] for key in s_a if key != "buffer")
+    counts = tracing.counters()
+    assert counts["fir.fused_epilogue"] == emitting >= len(feeds) - 1
+    assert counts["fir.farrow_steps"] == 2 * emitting
+    assert (nan_peaks > 0) == poison
+    if case == "compaction":
+        assert counts["fir.compactions"] >= 2
+    assert torch.equal(s_f["buffer"].view(torch.int32), s_a["buffer"].view(torch.int32))
+
+
+#: ``fir.fused_epilogue / fir.steps`` by fleet on the card: the tm fleet on
+#: the periodic path (B1) and on the coprime path (B2) fuse; the coprime
+#: fleet whose blocks are B3's does not (on the CPU every fleet reads 0)
+SHARES = {"tm": 1, "tm-layout-tm": 0, "coprime": 1, "async": 0, "vmapped": 0, "packed": 0}
+#: the rate pair of each fleet of ``SHARES`` that is not 44.1 -> 48 kHz
+SHARE_RATES = {"coprime": (44100, 44101), "packed": (48000, 1601)}
 
 
 @pytest.mark.parametrize(
@@ -210,13 +289,13 @@ SHARES = {"tm": 1, "tm-layout-tm": 0, "coprime": 0, "async": 0, "vmapped": 0}
     + [pytest.param("cuda", name, marks=pytest.mark.cuda) for name in SHARES],
 )
 def test_fused_epilogue_share(request, dev, fleet):
-    """The share of steps the fused epilogue served: 1 on the tm periodic
-    fleet with ``"bm"`` outputs on the card, 0 for ``out_layout="tm"``, the
-    coprime tm fleet, the async fleet and the vmapped fleet, and 0 for
-    every fleet on the CPU."""
+    """The share of steps the fused epilogue served: 1 on the tm fleet
+    with ``"bm"`` outputs on the card, periodic (B1) or coprime (B2); 0 for
+    ``out_layout="tm"``, the coprime tm fleet on B3 (48 -> 1.601 kHz), the
+    async fleet and the vmapped fleet, and 0 for every fleet on the CPU."""
     device = torch.device("cpu") if dev == "cpu" else request.getfixturevalue("cuda")
     B, C, n, steps = 4, 2, 512, 5
-    out_hz = 44101 if fleet == "coprime" else 48000
+    in_hz, out_hz = SHARE_RATES.get(fleet, (44100, 48000))
     rng = np.random.default_rng(17)
     tracing.reset_counters()
     if fleet == "tm-layout-tm":
@@ -234,8 +313,9 @@ def test_fused_epilogue_share(request, dev, fleet):
             assert produced > 0 and peak is None
     else:
         kw = {"tm": dict(synchronized=True), "coprime": dict(synchronized=True),
+              "packed": dict(synchronized=True),
               "async": dict(synchronized=True, sync_variant="async_tm"), "vmapped": {}}[fleet]
-        f = rt.BatchedResamplerFir(B, C, 44100, out_hz, rt.Latency.Sample64, rt.Attenuation.Db90,
+        f = rt.BatchedResamplerFir(B, C, in_hz, out_hz, rt.Latency.Sample64, rt.Attenuation.Db90,
                                    max_chunk=n, device=device, **kw)
         for _ in range(steps):
             _, _, produced, peak = f.resample(rng.standard_normal((B, n, C), dtype=np.float32))
@@ -447,8 +527,10 @@ def test_farrow_contract_span_launches_b2_alone(cuda):
     launched in ``fir.contract`` outside ``fir.weights`` is kernel B2
     (``tiled_contract_kernel``), once a step; ``fir.weights`` launches the
     weights kernel (``farrow_weights_kernel``) alone, once a step; no B1,
-    B3 or B6 runs; ``fir.weights_kernel``, ``fir.farrow_steps`` and
-    ``fir.steps`` each count every step."""
+    B3 or B6 runs, and none of the ATen epilogue's ``abs`` or ``amax``
+    (B2 stores the output and meters the peak); ``fir.weights_kernel``,
+    ``fir.farrow_steps``, ``fir.fused_epilogue`` and ``fir.steps`` each
+    count every step."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from perfbench import spans, trace
@@ -477,11 +559,13 @@ def test_farrow_contract_span_launches_b2_alone(cuda):
     assert all("tiled_contract_kernel" in name for name in by_stage["fir.contract"])
     assert len(by_stage["fir.weights"]) == steps
     assert all("farrow_weights_kernel" in name for name in by_stage["fir.weights"])
-    others = ("band_contract_kernel", "farrow_packed_kernel", "combine_kernel")
+    others = ("band_contract_kernel", "farrow_packed_kernel", "combine_kernel", "AbsFunctor",
+              "reduce_kernel")
     assert not any(o in name for name, _, _ in tr.device for o in others)
     c = tracing.counters()
     assert c["launches.farrow_weights"] == steps
     assert c["fir.weights_kernel"] == c["fir.farrow_steps"] == c["fir.steps"] == steps
+    assert c["fir.fused_epilogue"] == steps
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """Kernels B2 and B3 (blocked Farrow contraction): the port's plain version
 against the JAX package's Pallas kernels (interpret mode) and a direct
-numpy sum, and the wrappers' argument and bounds checks.  The CUDA kernels
+numpy sum, and the wrappers' argument and bounds checks; B2's fused
+epilogue (``dma_farrow_contract_bm``) against the time-major form followed
+by the mask, the relayout and ``abs().amax()``.  The CUDA kernels
 themselves are held against the plain version in tests/test_torch_cuda.py
 and chip_smoke.py.
 
@@ -154,3 +156,108 @@ def test_wrappers_check_arguments():
     # neither CPU nor CUDA: raises, never runs the plain version
     with pytest.raises(ValueError):
         b2(buf.to("meta"), 1, a_blk.to("meta"), bb)
+
+
+def _bm_case(C: int, B: int = 3, seed: int = 0):
+    """The whole plan of a ``[B, n, C]`` fleet at 44.1 -> 44.101 kHz, 32
+    taps (K 64 blocks of q 64; out_cap 4067 < K*q 4096), random weights and
+    a ring of ``B*C`` lanes with 9 rows to spare."""
+    L, M = reduce_ratio(44100, 44101)
+    cfg = tfir.FirConfig(channels=C, taps=32, ratio_num=L, ratio_den=M)
+    plan = tfleets._farrow_tm_plan(cfg, np.zeros((tfir.PHASES, 32), np.float32))
+    K, q, w, bb = plan["K"], plan["q"], plan["w_blk"], plan["block_base"]
+    rng = np.random.default_rng(seed)
+    a_blk = torch.from_numpy((rng.standard_normal((K, q, w)) / np.sqrt(w)).astype(np.float32))
+    buf = torch.from_numpy(rng.standard_normal((int(bb.max()) + w + 9, B * C), dtype=np.float32))
+    return buf, a_blk, bb, cfg.out_capacity
+
+
+def _aten_epilogue(buf, base, a_blk, bb, out_cap, n_out, B, C):
+    """The parent form: the plain contraction, rows past ``n_out`` zeroed,
+    relaid to ``[B, out_cap, C]``, and ``max |x|``."""
+    tm = kern.dma_farrow_contract_reference(buf, base, a_blk, bb).reshape(-1, B * C)[:out_cap]
+    tm[n_out:] = 0.0
+    out = tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
+    return out, out.abs().amax()
+
+
+@pytest.mark.parametrize(
+    "C,cut,poison",
+    [(2, 0, False), (2, 700, False), (1, 33, False), (1, 0, False), (2, 300, True),
+     (2, None, False)],
+    ids=["stereo-full", "stereo-masked", "mono-masked", "mono-full", "nan", "no-output"],
+)
+def test_bm_plain_matches_contraction_mask_relayout_amax(C, cut, poison):
+    """``dma_farrow_contract_bm``'s plain version (through the wrapper, on
+    the CPU) against the plain contraction cut to ``out_cap``, then the
+    mask, the relayout and ``abs().amax()``: the same outputs (f32 sums of
+    another gather, within 1e-6), zeros past ``n_out`` exactly, the same
+    peak; a NaN in a ring row that kept outputs read makes the peak NaN;
+    ``n_out`` 0 (``cut`` None) leaves zeros and the peak as it was."""
+    B = 3
+    buf, a_blk, bb, out_cap = _bm_case(C, B, seed=C)
+    K, q, _ = a_blk.shape
+    assert out_cap < K * q
+    n_out = 0 if cut is None else out_cap - cut
+    base = 5
+    if poison:
+        buf[base + 10, C] = float("nan")  # stream 1, channel 0, a row block 0 reads
+    want, want_peak = _aten_epilogue(buf, base, a_blk, bb, out_cap, n_out, B, C)
+    out = torch.full((B, out_cap, C), 7.0)
+    peak = torch.zeros(())
+    before = dict(kern.LAUNCHES)
+    got, got_peak = kern.dma_farrow_contract_bm(buf, base, a_blk, bb, out, peak, n_out=n_out)
+    assert kern.LAUNCHES == before  # the CPU path launches nothing
+    assert got is out and got_peak is peak
+    assert torch.equal(out[:, n_out:], torch.zeros_like(out[:, n_out:]))
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    if poison:
+        assert torch.isnan(peak) and torch.isnan(want_peak)
+    else:
+        assert abs(peak.item() - want_peak.item()) <= 1e-6
+        assert (peak.item() > 0) == (n_out > 0)
+
+
+@pytest.mark.parametrize(
+    "what,match",
+    [("out_shape", "out must be"), ("out_cap", "out must be"), ("out_dtype", "out must be"),
+     ("out_strided", "contiguous"), ("out_device", "out is on"), ("n_out_high", "n_out"),
+     ("n_out_negative", "n_out"), ("n_out_bool", "n_out"), ("peak_shape", "peak"),
+     ("peak_dtype", "peak"), ("peak_device", "peak is on"), ("q_b3", "q >= 8")],
+)
+def test_bm_wrapper_refuses_what_the_kernel_does_not_take(what, match):
+    """``dma_farrow_contract_bm`` refuses, on any device, what its kernel
+    does not take: an output that is not a contiguous f32 ``[B, out_cap <=
+    K*q, C]`` with ``B*C`` the ring's lanes, on the ring's device; a peak
+    that is not a 0-d f32 there; ``n_out`` outside ``[0, out_cap]``; B3's
+    blocks of ``q < 8``."""
+    buf, a_blk, bb, out_cap = _bm_case(2)
+    K, q, _ = a_blk.shape
+    out, peak, n_out = torch.zeros((3, out_cap, 2)), torch.zeros(()), out_cap
+    if what == "out_shape":
+        out = torch.zeros((2, out_cap, 2))
+    elif what == "out_cap":
+        out = torch.zeros((3, K * q + 1, 2))
+    elif what == "out_dtype":
+        out = out.double()
+    elif what == "out_strided":
+        out = torch.zeros((3, 2, out_cap)).transpose(1, 2)
+    elif what == "out_device":
+        out = out.to("meta")
+    elif what == "n_out_high":
+        n_out = out_cap + 1
+    elif what == "n_out_negative":
+        n_out = -1
+    elif what == "n_out_bool":
+        n_out = True
+    elif what == "peak_shape":
+        peak = torch.zeros((1,))
+    elif what == "peak_dtype":
+        peak = peak.double()
+    elif what == "peak_device":
+        peak = peak.to("meta")
+    else:
+        a_blk = a_blk[:, :4].contiguous()
+    with pytest.raises((TypeError, ValueError), match=match):
+        kern.dma_farrow_contract_bm(buf, 0, a_blk, bb, out, peak, n_out=n_out)
