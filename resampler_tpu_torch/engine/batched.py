@@ -18,6 +18,8 @@ that ports it; none falls back to another engine.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -250,21 +252,22 @@ class BatchedResamplerFir:
     def _chunks(self, chunks, ndim: int):
         with tracing.span("fir.upload"):
             chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self._device)
-        if chunks.ndim != ndim or chunks.shape[-3] != self.n_streams or (
-            chunks.shape[-1] != self._config.channels
-        ):
-            raise ValueError(
-                f"chunks must be [..., {self.n_streams}, n, "
-                f"{self._config.channels}], got {tuple(chunks.shape)}"
-            )
-        # the ring fleets size their ring by max_chunk; the end-aligned
-        # fleets take any chunk up to input_capacity (their steps check it)
-        if self._chunk_limit is not None and chunks.shape[-2] > self._chunk_limit:
-            raise ValueError(
-                f"chunk of {chunks.shape[-2]} frames exceeds max_chunk="
-                f"{self.max_chunk} (set max_chunk at construction for "
-                "larger feeds)"
-            )
+        with tracing.span("fir.check"):
+            if chunks.ndim != ndim or chunks.shape[-3] != self.n_streams or (
+                chunks.shape[-1] != self._config.channels
+            ):
+                raise ValueError(
+                    f"chunks must be [..., {self.n_streams}, n, "
+                    f"{self._config.channels}], got {tuple(chunks.shape)}"
+                )
+            # the ring fleets size their ring by max_chunk; the end-aligned
+            # fleets take any chunk up to input_capacity (their steps check it)
+            if self._chunk_limit is not None and chunks.shape[-2] > self._chunk_limit:
+                raise ValueError(
+                    f"chunk of {chunks.shape[-2]} frames exceeds max_chunk="
+                    f"{self.max_chunk} (set max_chunk at construction for "
+                    "larger feeds)"
+                )
         return chunks
 
     def resample(self, chunks, n_valid=None):
@@ -281,8 +284,11 @@ class BatchedResamplerFir:
         stay on the device; ``consumed``/``produced`` are int32 numpy
         arrays, frames per channel (on the synchronized fleets every
         stream the same)."""
+        t0 = time.perf_counter_ns()
         with tracing.span("fir.step"):
-            return self._step(self._chunks(chunks, 3), n_valid)
+            got = self._step(self._chunks(chunks, 3), n_valid)
+        tracing.count("fir.host_ns", time.perf_counter_ns() - t0)
+        return got
 
     def resample_many(self, chunks, n_valid=None):
         """Step ``T`` consecutive chunks per stream: ``chunks [T, B, n, C]``
@@ -292,6 +298,7 @@ class BatchedResamplerFir:
         fleets, ``[T, B]`` (``[T]`` broadcasts) on the vmapped fleet;
         ``consumed`` / ``produced`` come back ``[T]`` and ``[T, B]``
         likewise."""
+        t0 = time.perf_counter_ns()
         with tracing.span("fir.step"):
             chunks = self._chunks(chunks, 4)
             T, B = chunks.shape[:2]
@@ -313,7 +320,9 @@ class BatchedResamplerFir:
                 peak = torch.stack(peaks).amax()
             # [T, B]; one column on the synchronized fleets
             pick = slice(None) if self._per_stream_counts else 0
-            return out, np.asarray(cs, np.int32)[:, pick], np.asarray(ps, np.int32)[:, pick], peak
+            got = out, np.asarray(cs, np.int32)[:, pick], np.asarray(ps, np.int32)[:, pick], peak
+        tracing.count("fir.host_ns", time.perf_counter_ns() - t0)
+        return got
 
 
 def _vmapped_step(step, budget: np.ndarray):
@@ -454,13 +463,15 @@ class BatchedResamplerFft:
         """Step all streams: ``chunks [B, C, N]`` (numpy, or a tensor,
         ideally already on the fleet's device) -> ``out [B, C, M]``, a
         tensor on the device."""
+        t0 = time.perf_counter_ns()
         with tracing.span("fft.step"):
             chunks, callers = self._chunks(chunks, 3)
             tracing.count("fft.chunks")
             with tracing.span("fft.contract"):
                 state, out = self._step(self._state, chunks)
             self._state = self._keep(state, callers)
-            return out
+        tracing.count("fft.host_ns", time.perf_counter_ns() - t0)
+        return out
 
     def resample_many(self, chunks):
         """Step ``T`` consecutive chunks per stream: ``chunks [T, B, C, N]
@@ -475,6 +486,7 @@ class BatchedResamplerFft:
         the B5 steps run under ``fft.pool`` and the outputs' assembly
         under ``fft.stack``.  Other backends, and ``T < 2``, loop the
         fleet step under ``fft.contract``."""
+        t0 = time.perf_counter_ns()
         with tracing.span("fft.step"):
             chunks, callers = self._chunks(chunks, 4)
             T = chunks.shape[0]
@@ -487,23 +499,24 @@ class BatchedResamplerFft:
                         outs.append(out)
                     outs = torch.stack(outs)
                 self._state = self._keep(state, callers)
-                return outs
-            C, N = self._config.channels, self._config.fft_size_input
-            pool = chunks.reshape(T, self.n_streams * C, N)
-            with tracing.span("fft.contract"):
-                _, out0 = self._step(self._state, chunks[0])
-            with tracing.span("fft.pool"):
-                if self._pool_step is None:
-                    self._pool_step = fft_engine.make_fft_fleet_step_pool(
-                        self._config, self.n_streams, backend=self._backend,
-                        device=self._device,
-                    )
-                outs = [out0]
-                for t in range(1, T):
-                    _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
-                    outs.append(out)
-            tracing.count("fft.pool_steps", T - 1)
-            with tracing.span("fft.stack"):
-                outs = torch.stack(outs)
-            self._state = self._keep({"prev": chunks[T - 1]}, callers)
-            return outs
+            else:
+                C, N = self._config.channels, self._config.fft_size_input
+                pool = chunks.reshape(T, self.n_streams * C, N)
+                with tracing.span("fft.contract"):
+                    _, out0 = self._step(self._state, chunks[0])
+                with tracing.span("fft.pool"):
+                    if self._pool_step is None:
+                        self._pool_step = fft_engine.make_fft_fleet_step_pool(
+                            self._config, self.n_streams, backend=self._backend,
+                            device=self._device,
+                        )
+                    outs = [out0]
+                    for t in range(1, T):
+                        _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
+                        outs.append(out)
+                tracing.count("fft.pool_steps", T - 1)
+                with tracing.span("fft.stack"):
+                    outs = torch.stack(outs)
+                self._state = self._keep({"prev": chunks[T - 1]}, callers)
+        tracing.count("fft.host_ns", time.perf_counter_ns() - t0)
+        return outs

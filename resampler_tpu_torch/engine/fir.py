@@ -860,16 +860,17 @@ def make_fir_step_batched(
 
     def checked(state, chunks, n_valid, out_budget):
         chunks = torch.as_tensor(chunks, dtype=torch.float32, device=device)
-        if chunks.ndim != 3 or chunks.shape[0] != B or chunks.shape[2] != C or (
-            chunks.shape[1] > valid_end
-        ):
-            raise ValueError(
-                f"chunks must be [{B}, n <= {valid_end}, {C}], got {tuple(chunks.shape)}"
-            )
-        if tuple(state["buffer"].shape) != (B, C, config.buffer_alloc):
-            raise ValueError(f"state buffer must be [{B}, {C}, {config.buffer_alloc}]")
-        n_valid = np.minimum(stream_ints(n_valid, B, "n_valid"), chunks.shape[1])
-        return chunks, n_valid, stream_ints(out_budget, B, "out_budget")
+        with tracing.span("fir.check"):
+            if chunks.ndim != 3 or chunks.shape[0] != B or chunks.shape[2] != C or (
+                chunks.shape[1] > valid_end
+            ):
+                raise ValueError(
+                    f"chunks must be [{B}, n <= {valid_end}, {C}], got {tuple(chunks.shape)}"
+                )
+            if tuple(state["buffer"].shape) != (B, C, config.buffer_alloc):
+                raise ValueError(f"state buffer must be [{B}, {C}, {config.buffer_alloc}]")
+            n_valid = np.minimum(stream_ints(n_valid, B, "n_valid"), chunks.shape[1])
+            return chunks, n_valid, stream_ints(out_budget, B, "out_budget")
 
     if path == "periodic":
         from ..ops.fir_kernel import FleetStepPlan, SpareBuffer, fir_fleet_step

@@ -287,17 +287,18 @@ class _Ring:
         the compaction's zero tail), as in the JAX ring, whose fixed-shape
         update writes the masked rows as zeros."""
         chunks_tm = torch.as_tensor(chunks_tm, dtype=torch.float32, device=self.device)
-        n_in = chunks_tm.shape[0]
-        if chunks_tm.shape != (n_in, self.R) or n_in > self.max_chunk:
-            raise ValueError(
-                f"chunks must be [n <= {self.max_chunk}, {self.R}], got "
-                f"{tuple(chunks_tm.shape)}"
-            )
-        if n_valid < 0:
-            raise ValueError(f"n_valid must be >= 0, got {n_valid}")
         buffer, start, fill = state["buffer"], state["start"], state["fill"]
-        to_copy = min(int(n_valid), n_in, self.cap - (fill - start))
-        check_window(fill, n_in, buffer.shape[0], "ring append")
+        with tracing.span("fir.check"):
+            n_in = chunks_tm.shape[0]
+            if chunks_tm.shape != (n_in, self.R) or n_in > self.max_chunk:
+                raise ValueError(
+                    f"chunks must be [n <= {self.max_chunk}, {self.R}], got "
+                    f"{tuple(chunks_tm.shape)}"
+                )
+            if n_valid < 0:
+                raise ValueError(f"n_valid must be >= 0, got {n_valid}")
+            to_copy = min(int(n_valid), n_in, self.cap - (fill - start))
+            check_window(fill, n_in, buffer.shape[0], "ring append")
         with tracing.span("fir.append"):
             buffer[fill : fill + to_copy] = chunks_tm[:to_copy]
         fill += to_copy
@@ -398,7 +399,7 @@ def make_fir_fleet_step_sync_tm(
       Where the contraction launches kernels (a CUDA device, ``contraction``
       ``"auto"`` or ``"dma"``), the weights are one launch of the weights
       kernel from the step's residue word, its tables uploaded at build
-      (counter ``fir.weights_kernel``; a basis it cannot take raises
+      (``LAUNCHES["farrow_weights"]``; a basis it cannot take raises
       there); elsewhere ``farrow_weights``, their plain version, forms
       them from host residues.
       ``precision`` does not apply there (the JAX package's farrow
@@ -500,7 +501,6 @@ def make_fir_fleet_step_sync_tm(
                                                  w=fp["w_blk"])
 
             def weights(pos):
-                tracing.count("fir.weights_kernel")
                 return weights_kernel(pos[1] if wide else pos % M)
         else:
             ashift2 = torch.from_numpy(fp["ashift2"]).to(device)  # [d1*n_jl, w_blk]

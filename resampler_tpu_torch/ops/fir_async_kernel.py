@@ -73,6 +73,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ._build import LAUNCHES, SMEM_MAX, device_kind, launch
 from .matmul3 import bf16_bits_np, bf16_round_np, split_hi_lo
 
@@ -523,7 +524,8 @@ def async_combine(buffer, base0: int, n_out: int, lanes, plan: AsyncCombinePlan,
     current stream; CPU tensors run the plain version.  Anything else
     raises.  ``_form`` forces B6's form (``"positions"`` or ``"outputs"``,
     to check and time both on one shape)."""
-    _check(buffer, base0, n_out, lanes, plan)
+    with tracing.span("fir.check"):
+        _check(buffer, base0, n_out, lanes, plan)
     if device_kind(buffer) == "cpu":
         return async_combine_reference(buffer, base0, n_out, lanes, plan)
     R = buffer.shape[1]

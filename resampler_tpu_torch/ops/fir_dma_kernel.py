@@ -54,6 +54,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ._build import LAUNCHES, SMEM_MAX, device_kind as _device_kind, launch as _launch
 
 __all__ = [
@@ -207,10 +208,11 @@ def dma_banded_contract(buffer, base: int, a, *, L: int, M: int, span: int, K: i
     span.  CUDA tensors launch kernel B1 on the current stream; CPU
     tensors run the plain version, which ignores ``band``.  Anything else
     raises."""
-    _check_banded(buffer, base, a, L, M, span, K)
-    if band is not None:
-        plan, i0 = band
-        plan.check(L, M, span, i0)
+    with tracing.span("fir.check"):
+        _check_banded(buffer, base, a, L, M, span, K)
+        if band is not None:
+            plan, i0 = band
+            plan.check(L, M, span, i0)
     if _device_kind(buffer) == "cpu":
         return dma_banded_contract_reference(buffer, base, a, L=L, M=M, span=span, K=K)
     out = torch.empty((K, M, buffer.shape[1]), dtype=torch.float32, device=buffer.device)
@@ -298,11 +300,12 @@ def dma_banded_contract_bm(
     ``dma_banded_contract``.  CUDA tensors launch kernel B1 on the current
     stream (the same sums, in the same order, as its time-major form);
     CPU tensors run the plain version.  Returns ``(out, peak)``."""
-    _check_banded(buffer, base, a, L, M, span, K)
-    out_cap, C = _check_bm(buffer, out, peak, M, K, n_out)
-    if band is not None:
-        plan, i0 = band
-        plan.check(L, M, span, i0)
+    with tracing.span("fir.check"):
+        _check_banded(buffer, base, a, L, M, span, K)
+        out_cap, C = _check_bm(buffer, out, peak, M, K, n_out)
+        if band is not None:
+            plan, i0 = band
+            plan.check(L, M, span, i0)
     if _device_kind(buffer) == "cpu":
         return dma_banded_contract_bm_reference(
             buffer, base, a, out, peak, L=L, M=M, span=span, K=K, n_out=n_out
@@ -374,7 +377,8 @@ def dma_farrow_contract(buffer, base: int, a_blk, block_base):
     """``out[k, l, r] = sum_s a_blk[k, l, s] * buffer[base + block_base[k]
     + s, r]``, ``[K, q, R]`` f32, for Farrow blocks of ``q >= 8`` rows.
     CUDA tensors launch kernel B2; CPU tensors run the plain version."""
-    bb = _check_b2(buffer, base, a_blk, block_base)
+    with tracing.span("fir.check"):
+        bb = _check_b2(buffer, base, a_blk, block_base)
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_reference(buffer, base, a_blk, bb)
     # out_cap 0: the time-major form
@@ -414,9 +418,10 @@ def dma_farrow_contract_bm(buffer, base: int, a_blk, block_base, out, peak, *, n
     B2 on the current stream (the same sums, in the same order, as its
     time-major form); CPU tensors run the plain version.  Returns ``(out,
     peak)``."""
-    bb = _check_b2(buffer, base, a_blk, block_base)
-    K, q, _ = a_blk.shape
-    out_cap, C = _check_bm(buffer, out, peak, q, K, n_out)
+    with tracing.span("fir.check"):
+        bb = _check_b2(buffer, base, a_blk, block_base)
+        K, q, _ = a_blk.shape
+        out_cap, C = _check_bm(buffer, out, peak, q, K, n_out)
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_bm_reference(buffer, base, a_blk, bb, out, peak, n_out=n_out)
     _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb,
@@ -429,12 +434,13 @@ def dma_farrow_contract_packed(buffer, base: int, a_blk, block_base):
     downsampling), ``[K, q, R]`` f32.  CUDA tensors launch kernel B3,
     which groups ``ceil(8/q)`` blocks per thread block; CPU tensors run
     the plain version."""
-    bb = _check_farrow(buffer, base, a_blk, block_base)
-    K, q, w = a_blk.shape
-    if q >= 8:
-        raise ValueError(f"B3 takes blocks of q < 8 rows (q >= 8: B2), got q={q}")
-    if -(-8 // q) * q * w * 4 > _PACKED_SMEM_MAX:  # the group's weights
-        raise ValueError(f"B3's group weights ({-(-8 // q) * q} x {w}) exceed shared memory")
+    with tracing.span("fir.check"):
+        bb = _check_farrow(buffer, base, a_blk, block_base)
+        K, q, w = a_blk.shape
+        if q >= 8:
+            raise ValueError(f"B3 takes blocks of q < 8 rows (q >= 8: B2), got q={q}")
+        if -(-8 // q) * q * w * 4 > _PACKED_SMEM_MAX:  # the group's weights
+            raise ValueError(f"B3's group weights ({-(-8 // q) * q} x {w}) exceed shared memory")
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_reference(buffer, base, a_blk, bb)
     # 16-byte lane loads need a lane count and row pitch that keep them aligned

@@ -380,7 +380,8 @@ def launch_step(plan: FleetStepPlan, buffers, view, sched_dev, out_buffers, coun
 
 
 def _fleet_step(plan, buffers, chunks, avail, pos_num, n_valid, budget, out_buffers, plain):
-    check_step(plan, buffers, chunks, out_buffers)
+    with tracing.span("fir.check"):
+        check_step(plan, buffers, chunks, out_buffers)
     with tracing.span("fir.schedule"):
         sched = schedule(plan, avail, pos_num, n_valid, budget, chunks.shape[1])
     with tracing.span("fir.contract"):

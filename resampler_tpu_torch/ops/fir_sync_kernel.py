@@ -31,11 +31,14 @@ __all__ = ["fir_fleet_step_sync", "fir_fleet_step_sync_reference"]
 
 
 def _sync_step(plan, buffers, chunks, avail, pos_num, n_valid, channel_major, out_buffers, plain):
-    for what, v in (("available_frames", avail), ("pos_num", pos_num), ("n_valid", n_valid)):
-        if not isinstance(v, (int, np.integer)) or isinstance(v, bool):
-            raise TypeError(f"{what} must be an int (one shared schedule), got {type(v).__name__}")
-    view = chunks.transpose(1, 2) if channel_major and chunks.ndim == 3 else chunks
-    check_step(plan, buffers, view, out_buffers)
+    with tracing.span("fir.check"):  # the transpose is a view: no data moves
+        for what, v in (("available_frames", avail), ("pos_num", pos_num), ("n_valid", n_valid)):
+            if not isinstance(v, (int, np.integer)) or isinstance(v, bool):
+                raise TypeError(
+                    f"{what} must be an int (one shared schedule), got {type(v).__name__}"
+                )
+        view = chunks.transpose(1, 2) if channel_major and chunks.ndim == 3 else chunks
+        check_step(plan, buffers, view, out_buffers)
     with tracing.span("fir.schedule"):
         sched = schedule(plan, [avail], [pos_num], [n_valid], [plan.config.out_capacity],
                          view.shape[1])

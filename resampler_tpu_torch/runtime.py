@@ -192,7 +192,6 @@ class StreamingFleet:
         carry_len = self._carry_len
         n_valid = np.minimum(carry_len + pool_valid, n).astype(np.int32)
         carrying = np.flatnonzero(carry_len)
-        tracing.count("runtime.staged_streams", carrying.size)
         rest = {}
         lens, valid = carry_len.tolist(), pool_valid.tolist()
         for s in carrying.tolist():

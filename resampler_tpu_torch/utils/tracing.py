@@ -18,7 +18,11 @@ upload), ``fir.contract`` (on the tm fleet's farrow and lerp paths with
 launch of the weights kernel and its output's allocation, elsewhere
 ``farrow_weights``' host residues and basis values, their uploads and the
 positioning matmul; so ``fir.contract``'s own launch is the
-contraction's), ``fir.mask``, ``fir.relayout_out``,
+contraction's), ``fir.check`` (the step's argument and geometry checks:
+the chunks' shape in ``fir.step``, the ring append's in ``fir.step``, the
+contraction wrappers' in ``fir.contract``; it holds no launch and no op
+that moves data, so ``fir.contract``'s self time is the launch path's),
+``fir.mask``, ``fir.relayout_out``,
 ``fir.compact``, ``fir.peak`` (on the tm fleet's fused epilogue
 ``fir.contract`` holds kernel B1, which does the mask's, the relayout's
 and the peak's work, ``fir.relayout_out`` the output's allocation and
@@ -43,14 +47,16 @@ snapshots them together with the kernel wrappers' launch counts
 - ``runtime.steps``: ``StreamingFleet.step`` calls;
 - ``runtime.carried_frames``: frames per stream left in the host carry
   after each step, summed over streams and steps;
-- ``runtime.staged_streams``: streams whose batch row a step packed from
-  the host carry, summed over steps (the rest pass through as drained);
 - ``runtime.fetch_reuses``: ``StreamingFleet`` fetches of a card fleet's
   output that landed in the fleet's pinned host buffer without allocating
   it (0 on the CPU, where the output is read in place);
 - ``runtime.values_refused``: values ``StreamingFleet.push`` did not
   queue (a full queue, or a trailing part of a frame);
 - ``fir.steps``: FIR fleet steps (each chunk of ``resample_many`` is one);
+- ``fir.host_ns``: host nanoseconds inside ``BatchedResamplerFir.resample``
+  and ``resample_many`` (the ``fir.step`` root; ``slew`` is not in it),
+  summed over the calls that returned: ``fir.host_ns / fir.steps / 1e3``
+  is the host us a step costs, with no profiler running;
 - ``fir.compactions``: ring compactions of the time-major fleets;
 - ``fir.fused_epilogue``: tm fleet steps whose outputs, zeroed rows and
   peak the contraction kernel wrote itself, B1 on the periodic path or B2
@@ -59,15 +65,15 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fir.farrow_steps``: tm fleet steps that ran the Farrow contraction
   (B2 or B3 on the card, their plain version off it; the farrow, lerp
   and wide paths; over ``fir.steps``, 1 where every step emits);
-- ``fir.weights_kernel``: those of them whose weights the weights kernel
-  built (the engaged share ``fir.weights_kernel / fir.farrow_steps`` is 1
-  on the card, 0 on the CPU and under the plain ``contraction`` modes);
 - ``fir.slews``: streams whose applied slew was non-zero, summed over
   ``BatchedResamplerFir.slew`` calls;
 - ``fir.async.spread``: the async fleet's position spread ``max(pos) -
   min(pos)`` in 1/M frames after each step, summed over steps;
 - ``fft.chunks``: chunks stepped by the FFT fleet, 1 per ``resample`` and
   ``T`` per ``resample_many``;
+- ``fft.host_ns``: the same as ``fir.host_ns`` inside
+  ``BatchedResamplerFft.resample`` and ``resample_many`` (``fft.host_ns /
+  fft.chunks / 1e3``: host us a chunk);
 - ``fft.pool_steps``: those of them that took the pool step (kernel B5 on
   the card, its plain version off it; the engaged share ``fft.pool_steps /
   fft.chunks`` is ``(T - 1) / T`` where ``resample_many`` pools, 0 where
@@ -88,10 +94,10 @@ __all__ = ["PREFIX", "count", "counters", "reset_counters", "span"]
 PREFIX = "rtt."
 
 _COUNTS = dict.fromkeys(
-    ("runtime.steps", "runtime.carried_frames", "runtime.staged_streams",
-     "runtime.fetch_reuses", "runtime.values_refused", "fir.steps",
-     "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps", "fir.weights_kernel",
-     "fir.slews", "fir.async.spread", "fft.chunks", "fft.pool_steps"),
+    ("runtime.steps", "runtime.carried_frames", "runtime.fetch_reuses",
+     "runtime.values_refused", "fir.steps", "fir.host_ns", "fir.compactions",
+     "fir.fused_epilogue", "fir.farrow_steps", "fir.slews", "fir.async.spread",
+     "fft.chunks", "fft.host_ns", "fft.pool_steps"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

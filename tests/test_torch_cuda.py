@@ -521,24 +521,15 @@ def test_farrow_weights_kernel_matches_plain_on_card(cuda, in_hz, out_hz, basis)
     assert worst[0] <= 8 and worst[1] <= 16, worst.tolist()
 
 
-@pytest.mark.cuda
-def test_farrow_contract_span_launches_b2_alone(cuda):
-    """The farrow tm step under the profiler on the card: the device work
-    launched in ``fir.contract`` outside ``fir.weights`` is kernel B2
-    (``tiled_contract_kernel``), once a step; ``fir.weights`` launches the
-    weights kernel (``farrow_weights_kernel``) alone, once a step; no B1,
-    B3 or B6 runs, and none of the ATen epilogue's ``abs`` or ``amax``
-    (B2 stores the output and meters the peak); ``fir.weights_kernel``,
-    ``fir.farrow_steps``, ``fir.fused_epilogue`` and ``fir.steps`` each
-    count every step."""
+def _launches_by_stage(fleet, x, steps: int) -> tuple[dict, list]:
+    """``steps`` traced steps of ``fleet`` on ``x`` after a warm one:
+    ``({stage: [device event names]}, every device event name)``, each
+    event given to the innermost span around the launch that made it
+    (``perfbench/spans.py``); the counters reset before the traced steps."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from perfbench import spans, trace
 
-    B, C, n, steps = 8, 2, 4096, 4
-    fleet = rt.BatchedResamplerFir(B, C, 44100, 44101, rt.Latency.Sample64, rt.Attenuation.Db90,
-                                   synchronized=True, max_chunk=n, device=cuda)
-    x = torch.rand((B, n, C), device=cuda) * 2 - 1
     fleet.resample(x)
     torch.cuda.synchronize()
     tracing.reset_counters()
@@ -552,20 +543,58 @@ def test_farrow_contract_span_launches_b2_alone(cuda):
     work = sorted((s, name, spans.device_kind(name)) for name, s, _ in tr.device)
     assert [k for _, k in launches] == [k for _, _, k in work]
     every = spans.spans(tr)
+    assert "fir.check" in {sp[0] for sp in every}
     by_stage = {}
     for (ls, _), (_, name, _) in zip(launches, work):
         by_stage.setdefault(spans.innermost(every, ls), []).append(name)
+    return by_stage, [name for name, _, _ in tr.device]
+
+
+@pytest.mark.cuda
+def test_farrow_contract_span_launches_b2_alone(cuda):
+    """The farrow tm step under the profiler on the card: the device work
+    launched in ``fir.contract`` outside ``fir.weights`` and ``fir.check``
+    is kernel B2 (``tiled_contract_kernel``), once a step; ``fir.weights``
+    launches the weights kernel (``farrow_weights_kernel``) alone, once a
+    step; ``fir.check`` launches nothing; no B1, B3 or B6 runs, and none
+    of the ATen epilogue's ``abs`` or ``amax`` (B2 stores the output and
+    meters the peak); ``launches.farrow_weights``, ``fir.farrow_steps``,
+    ``fir.fused_epilogue`` and ``fir.steps`` each count every step."""
+    B, C, n, steps = 8, 2, 4096, 4
+    fleet = rt.BatchedResamplerFir(B, C, 44100, 44101, rt.Latency.Sample64, rt.Attenuation.Db90,
+                                   synchronized=True, max_chunk=n, device=cuda)
+    x = torch.rand((B, n, C), device=cuda) * 2 - 1
+    by_stage, device = _launches_by_stage(fleet, x, steps)
+    assert "fir.check" not in by_stage
     assert len(by_stage["fir.contract"]) == steps
     assert all("tiled_contract_kernel" in name for name in by_stage["fir.contract"])
     assert len(by_stage["fir.weights"]) == steps
     assert all("farrow_weights_kernel" in name for name in by_stage["fir.weights"])
     others = ("band_contract_kernel", "farrow_packed_kernel", "combine_kernel", "AbsFunctor",
               "reduce_kernel")
-    assert not any(o in name for name, _, _ in tr.device for o in others)
+    assert not any(o in name for name in device for o in others)
     c = tracing.counters()
-    assert c["launches.farrow_weights"] == steps
-    assert c["fir.weights_kernel"] == c["fir.farrow_steps"] == c["fir.steps"] == steps
+    assert c["launches.farrow_weights"] == c["fir.farrow_steps"] == c["fir.steps"] == steps
     assert c["fir.fused_epilogue"] == steps
+
+
+@pytest.mark.cuda
+def test_lockstep_contract_span_launches_b1_alone(cuda):
+    """The periodic tm step (``fir.lockstep``'s) under the profiler on the
+    card: ``fir.contract`` launches kernel B1 (``band_contract_kernel``)
+    alone, once a step, ``fir.check`` launches nothing, and no
+    ``fir.weights`` opens; ``fir.host_ns`` grew over the traced steps."""
+    B, C, n, steps = 8, 2, 4096, 4
+    fleet = rt.BatchedResamplerFir(B, C, 44100, 48000, rt.Latency.Sample64, rt.Attenuation.Db90,
+                                   synchronized=True, max_chunk=n, device=cuda)
+    x = torch.rand((B, n, C), device=cuda) * 2 - 1
+    by_stage, device = _launches_by_stage(fleet, x, steps)
+    assert "fir.check" not in by_stage and "fir.weights" not in by_stage
+    assert len(by_stage["fir.contract"]) == steps
+    assert all("band_contract_kernel" in name for name in by_stage["fir.contract"])
+    assert not any(o in name for name in device for o in ("tiled_contract_kernel", "AbsFunctor"))
+    c = tracing.counters()
+    assert c["fir.fused_epilogue"] == c["fir.steps"] == steps and c["fir.host_ns"] > 0
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 (``resampler_tpu_torch.ops.fir_dma_kernel.FarrowWeightsKernel``, its C
 entry ``fir_farrow_weights``): the wrapper's checks; the tm step's dispatch,
 which off the card builds the weights with ``farrow_weights``, bit for bit,
-and leaves the counter ``fir.weights_kernel`` at 0; and a torch-ops
-emulation of the kernel's rule per output row (the u32 residue, the offset
+and launches no weights kernel (``launches.farrow_weights`` stays 0); and a
+torch-ops emulation of the kernel's rule per output row (the u32 residue, the offset
 ``jl = j_loc + wrap``, the band columns) against ``lane_residues``,
 ``j_loc`` and the plain weights, for the farrow, lerp, wide and packed
 (B3) plans.  The kernel itself is held against the plain version on the card
@@ -132,7 +132,7 @@ def _step(cfg, coeffs, path, contraction, B=2, chunk=512):
 @pytest.mark.parametrize("plan", PLANS, ids=PLAN_IDS)
 def test_cpu_step_contracts_farrow_weights_bit_for_bit(plan, contraction, monkeypatch):
     """Off the card the tm step's weights are ``farrow_weights``' own, bit
-    for bit, on every emitting step, and ``fir.weights_kernel`` stays 0
+    for bit, on every emitting step, and ``launches.farrow_weights`` stays 0
     while ``fir.farrow_steps`` counts; nothing launches."""
     cfg, coeffs, fp = _plan(*plan)
     path = "lerp" if plan[2] == "lerp" else "farrow"
@@ -160,7 +160,7 @@ def test_cpu_step_contracts_farrow_weights_bit_for_bit(plan, contraction, monkey
             assert torch.equal(seen[-1], fir_fleets.farrow_weights(fp, cfg.ratio_den, pos, ashift2))
     assert emitted >= 2
     c = tracing.counters()
-    assert c["fir.farrow_steps"] == emitted and c["fir.weights_kernel"] == 0
+    assert c["fir.farrow_steps"] == emitted and c["launches.farrow_weights"] == 0
     assert _build.LAUNCHES == before
 
 

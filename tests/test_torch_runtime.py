@@ -332,9 +332,7 @@ def test_staging_matches_the_whole_batch_regather(case):
             drained[s, : pool_valid[s]] = rng.standard_normal((pool_valid[s], C))
         want_batch, want_valid, rest, rest_len = _stage_plain(carry, carry_len, drained.copy(),
                                                               pool_valid, n)
-        staged = tracing.counters()["runtime.staged_streams"]
         batch, n_valid, got_rest = fleet._stage(drained, pool_valid)
-        assert tracing.counters()["runtime.staged_streams"] - staged == np.count_nonzero(carry_len)
         if not carry_len.any():
             assert batch is drained and not got_rest
         assert batch.dtype == want_batch.dtype and n_valid.dtype == want_valid.dtype

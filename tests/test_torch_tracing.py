@@ -88,26 +88,32 @@ def _drive(kind):
     return make, run
 
 
-#: each fleet's spans and the span each one nests in (``None``: a root)
+#: where ``fir.check`` opens: in ``fir.step`` (the chunks' and the ring
+#: append's checks, the end-aligned steps' own) and in ``fir.contract``
+#: (the ring fleets' contraction wrappers)
+CHECK_IN_STEP_AND_CONTRACT = ("fir.step", "fir.contract")
+#: each fleet's spans and the span each one nests in (``None``: a root; a
+#: tuple: each of those spans, every one seen)
 NESTING = {
-    "tm": {"fir.step": None, **dict.fromkeys(
+    "tm": {"fir.step": None, "fir.check": CHECK_IN_STEP_AND_CONTRACT, **dict.fromkeys(
         ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.contract",
          "fir.mask", "fir.relayout_out", "fir.peak"), "fir.step")},
-    "farrow": {"fir.step": None, "fir.weights": "fir.contract", **dict.fromkeys(
+    "farrow": {"fir.step": None, "fir.weights": "fir.contract",
+               "fir.check": CHECK_IN_STEP_AND_CONTRACT, **dict.fromkeys(
         ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.contract",
          "fir.mask", "fir.relayout_out", "fir.peak"), "fir.step")},
-    "async": {"fir.step": None, **dict.fromkeys(
+    "async": {"fir.step": None, "fir.check": CHECK_IN_STEP_AND_CONTRACT, **dict.fromkeys(
         ("fir.upload", "fir.relayout_in", "fir.append", "fir.schedule", "fir.lanes",
          "fir.contract", "fir.relayout_out", "fir.peak"), "fir.step")},
     "vmapped": {"fir.step": None, **dict.fromkeys(
-        ("fir.upload", "fir.schedule", "fir.contract", "fir.peak"), "fir.step")},
+        ("fir.upload", "fir.check", "fir.schedule", "fir.contract", "fir.peak"), "fir.step")},
     "slide": {"fir.step": None, **dict.fromkeys(
-        ("fir.upload", "fir.schedule", "fir.contract", "fir.peak"), "fir.step")},
+        ("fir.upload", "fir.check", "fir.schedule", "fir.contract", "fir.peak"), "fir.step")},
     "streaming": {"runtime.push": None, "runtime.step": None, "fir.step": "runtime.step",
                   **dict.fromkeys(("runtime.drain", "runtime.stage", "runtime.fetch",
                                    "runtime.recarry", "runtime.deliver"), "runtime.step"),
-                  **dict.fromkeys(("fir.upload", "fir.schedule", "fir.contract", "fir.peak"),
-                                  "fir.step")},
+                  **dict.fromkeys(("fir.upload", "fir.check", "fir.schedule", "fir.contract",
+                                   "fir.peak"), "fir.step")},
     "fft": {"fft.step": None, **dict.fromkeys(("fft.upload", "fft.contract", "fft.keep"),
                                               "fft.step")},
     "fft_many": {"fft.step": None, **dict.fromkeys(
@@ -134,7 +140,7 @@ def test_spans_nest_as_the_stages_do(kind):
     for ev in events:
         if ev.name.startswith(tracing.PREFIX):
             seen.setdefault(ev.name[len(tracing.PREFIX):], set()).add(_rtt_parent(ev))
-    assert seen == {k: {v} for k, v in NESTING[kind].items()}
+    assert seen == {k: set(v) if isinstance(v, tuple) else {v} for k, v in NESTING[kind].items()}
     # a root span runs no op that moves data outside its leaf spans
     roots = {k for k, v in NESTING[kind].items() if v is None or k in ("fir.step", "fft.step")}
     loose = {ev.name for ev in events if not ev.name.startswith(tracing.PREFIX)
@@ -156,7 +162,36 @@ def test_outputs_are_the_same_under_the_profiler(kind):
             np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
-@pytest.mark.parametrize("name", ["a", "fir.step", "runtime.push"])
+@pytest.mark.parametrize("kind", sorted(k for k in NESTING if "fir.check" in NESTING[k]))
+def test_check_span_moves_no_data_and_launches_nothing(kind):
+    """``fir.check`` holds the step's checks alone: no op that moves data
+    and no host call that launches device work runs anywhere inside it,
+    so no device event can be attributed to it."""
+    from perfbench.spans import launch_kind
+
+    make, run = _drive(kind)
+    fleet = make()
+    run(fleet, 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(fleet, 1)
+    opened, inside = 0, []
+    for ev in prof.events():
+        if ev.name == tracing.PREFIX + "fir.check":
+            opened += 1
+            continue
+        p = ev.cpu_parent
+        while p is not None and p.name != tracing.PREFIX + "fir.check":
+            p = p.cpu_parent
+        if p is not None:
+            inside.append(ev)
+    names = [ev.name for ev in inside]
+    assert opened >= 2
+    assert not [n for n in names if n.startswith(tracing.PREFIX)], names
+    assert not [n for n in names if launch_kind(n)], names
+    assert not [ev.name for ev in inside if _moves_data(ev)], names
+
+
+@pytest.mark.parametrize("name", ["a", "fir.step", "fir.check", "runtime.push"])
 def test_off_span_is_one_shared_no_op(name):
     off = tracing.span(name)
     assert off is tracing.span("b")
@@ -276,6 +311,7 @@ def test_slew_is_a_root_span_and_counts_the_streams_it_moved(kind):
     c = tracing.counters()
     assert c["fir.slews"] == moved > 0
     assert c["fir.steps"] == 0 and c["fir.async.spread"] == 0
+    assert c["fir.host_ns"] == 0  # the slew is a root of its own, outside the steps' time
 
 
 def test_async_spread_counted_after_each_step():
@@ -314,7 +350,6 @@ def test_runtime_counters_follow_the_carry_and_the_queue(synchronized):
     c = tracing.counters()
     assert c["runtime.steps"] == 12
     assert c["runtime.carried_frames"] == carried
-    assert c["runtime.staged_streams"] == staged
     assert c["runtime.values_refused"] == offered - accepted > 0
     assert c["runtime.fetch_reuses"] == 0  # a CPU fleet's output is read in place
     if synchronized:
@@ -324,6 +359,66 @@ def test_runtime_counters_follow_the_carry_and_the_queue(synchronized):
         # the vmapped fleet takes every frame drained (at most a chunk), so
         # the backlog waits in the pool and every batch row passes through
         assert carried == staged == 0
+
+
+#: each fleet's counters of its calls' host ns and of the steps they made
+HOST_NS = {
+    **dict.fromkeys(("tm", "farrow", "async", "vmapped", "slide"), ("fir.host_ns", "fir.steps")),
+    **dict.fromkeys(("fft", "fft_many"), ("fft.host_ns", "fft.chunks")),
+}
+
+
+def _host_ns_calls(kind):
+    """The fleet and its calls: ``[(call, steps it makes)]`` and a call with
+    a chunk of the wrong shape."""
+    if kind in ("fft", "fft_many"):
+        make, _ = _drive(kind)
+        fleet = make()
+        n = fleet.config.fft_size_input
+
+        def x(k, T=None):
+            shape = (B, C, n) if T is None else (T, B, C, n)
+            return torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, shape)
+                                    .astype(np.float32))
+
+        calls = [(lambda: fleet.resample(x(0)), 1), (lambda: fleet.resample_many(x(1, 3)), 3),
+                 (lambda: fleet.resample(x(2)), 1)]
+        bad = lambda: fleet.resample(x(3)[:, :, : n - 1])  # noqa: E731
+    else:
+        fleet = _fir(kind)
+        calls = [(lambda: fleet.resample(_chunks(0, n=1024)), 1),
+                 (lambda: fleet.resample_many(_chunks(1, n=1024, T=2)), 2),
+                 (lambda: fleet.resample(_chunks(2, n=1024)), 1)]
+        bad = lambda: fleet.resample(_chunks(3, n=1024)[:, :, :1])  # noqa: E731
+    return calls, bad
+
+
+@pytest.mark.parametrize("kind", sorted(HOST_NS))
+def test_host_ns_times_each_step_call_and_none_that_raises(kind):
+    """``fir.host_ns`` / ``fft.host_ns`` grow by each ``resample`` and
+    ``resample_many`` call's host time, no more than the clock read around
+    the call, with no profiler running; a call that raises adds nothing,
+    and neither fleet's calls touch the other's counter."""
+    import time
+
+    name, steps_name = HOST_NS[kind]
+    other = "fft.host_ns" if name == "fir.host_ns" else "fir.host_ns"
+    calls, bad = _host_ns_calls(kind)
+    tracing.reset_counters()
+    total, steps = 0, 0
+    for call, n in calls:
+        t0 = time.perf_counter_ns()
+        call()
+        outside = time.perf_counter_ns() - t0
+        c = tracing.counters()
+        grew = c[name] - total
+        assert 0 < grew <= outside
+        total, steps = c[name], steps + n
+        assert c[steps_name] == steps and c[other] == 0
+    with pytest.raises(ValueError):
+        bad()
+    c = tracing.counters()
+    assert c[name] == total and c[other] == 0 and c[steps_name] == steps
 
 
 @pytest.mark.parametrize("wrapper", sorted(_build.LAUNCHES))
