@@ -483,9 +483,11 @@ class BatchedResamplerFft:
         straight from slot ``t-1`` of the caller's stack, the ``[T, B*C,
         N]`` view of ``chunks``.  Only chunk 0, whose ``prev`` is the
         carry, takes the fleet step (kernel B4), under ``fft.contract``;
-        the B5 steps run under ``fft.pool`` and the outputs' assembly
-        under ``fft.stack``.  Other backends, and ``T < 2``, loop the
-        fleet step under ``fft.contract``."""
+        the B5 steps run under ``fft.pool``.  The result is allocated
+        once, under ``fft.stack``, and B4 and B5 store each chunk straight
+        into its slot ``out[t]`` (counted in ``fft.in_place``): nothing is
+        copied after them.  Other backends, and ``T < 2``, loop the fleet
+        step under ``fft.contract`` and stack its outputs there."""
         t0 = time.perf_counter_ns()
         with tracing.span("fft.step"):
             chunks, callers = self._chunks(chunks, 4)
@@ -501,22 +503,23 @@ class BatchedResamplerFft:
                 self._state = self._keep(state, callers)
             else:
                 C, N = self._config.channels, self._config.fft_size_input
+                M = self._config.fft_size_output
                 pool = chunks.reshape(T, self.n_streams * C, N)
+                with tracing.span("fft.stack"):
+                    outs = torch.empty((T, self.n_streams, C, M), dtype=torch.float32,
+                                       device=chunks.device)
                 with tracing.span("fft.contract"):
-                    _, out0 = self._step(self._state, chunks[0])
+                    self._step(self._state, chunks[0], out=outs[0])
                 with tracing.span("fft.pool"):
                     if self._pool_step is None:
                         self._pool_step = fft_engine.make_fft_fleet_step_pool(
                             self._config, self.n_streams, backend=self._backend,
                             device=self._device,
                         )
-                    outs = [out0]
                     for t in range(1, T):
-                        _, out = self._pool_step({"prev_idx": t - 1}, pool, t)
-                        outs.append(out)
+                        self._pool_step({"prev_idx": t - 1}, pool, t, out=outs[t])
                 tracing.count("fft.pool_steps", T - 1)
-                with tracing.span("fft.stack"):
-                    outs = torch.stack(outs)
+                tracing.count("fft.in_place", T)
                 self._state = self._keep({"prev": chunks[T - 1]}, callers)
         tracing.count("fft.host_ns", time.perf_counter_ns() - t0)
         return outs

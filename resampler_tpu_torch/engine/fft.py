@@ -291,9 +291,9 @@ def _split_design(name: str, n_in: int, n_out: int, device: torch.device, make):
 
 
 def _make_magsplit_op(config: FftConfig, device: torch.device):
-    """``f(prev [R, N], cur [R, N]) -> out [R, M]`` through kernel B4 on
-    the card (its plain version on the CPU), and the plan and weights for
-    the pool form."""
+    """``f(prev [R, N], cur [R, N], out=None) -> out [R, M]`` through
+    kernel B4 on the card (its plain version on the CPU), into ``out``
+    where given, and the plan and weights for the pool form."""
     from ..ops.fft_magsplit_kernel import magsplit_projector, magsplit_weights
 
     plan = _magsplit_plan(config)
@@ -305,8 +305,8 @@ def _make_magsplit_op(config: FftConfig, device: torch.device):
         )
     wh, wcorr = magsplit_weights(plan, device)
 
-    def chunk_op(prev, cur):
-        return magsplit_projector(prev, cur, wh, wcorr, plan=plan)
+    def chunk_op(prev, cur, out=None):
+        return magsplit_projector(prev, cur, wh, wcorr, plan=plan, out=out)
 
     return chunk_op, plan, wh, wcorr
 
@@ -418,6 +418,20 @@ def make_fft_step(config: FftConfig, *, backend: str = "auto", device="cuda"):
     return step
 
 
+def _rows(out, B: int, C: int, n_out: int):
+    """A fleet step's ``out [B, C, M]`` as the projector's ``[B*C, M]``
+    view of the same memory (``None`` stays ``None``)."""
+    if out is None:
+        return None
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"out must be a tensor, got {type(out).__name__}")
+    if tuple(out.shape) != (B, C, n_out):
+        raise ValueError(f"out must be [{B}, {C}, {n_out}], got {list(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    return out.view(B * C, n_out)
+
+
 def make_fft_fleet_step(
     config: FftConfig, n_streams: int, *, backend: str = "auto", mesh=None,
     device="cuda",
@@ -426,7 +440,10 @@ def make_fft_fleet_step(
     dimension of ONE device op (one kernel launch or one matmul).
     ``step(state, chunks [B, C, N]) -> (state, out [B, C, M])``; state is
     ``{"prev": [B, C, N]}`` for magsplit and conv (held by reference, as
-    in ``make_fft_step``), ``{"overlap": [B, C, M]}`` otherwise."""
+    in ``make_fft_step``), ``{"overlap": [B, C, M]}`` otherwise.  The
+    magsplit step also takes ``out=``, a contiguous ``[B, C, M]`` f32
+    tensor (a slot of a caller's ``[T, B, C, M]``) that kernel B4 stores
+    into and the step returns (``magsplit_projector``'s conditions)."""
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet (ROADMAP A11)")
     dev = resolve_device(device)
@@ -438,10 +455,11 @@ def make_fft_fleet_step(
     if backend == "magsplit":
         chunk_op = _make_magsplit_op(config, dev)[0]
 
-        def step(state: FftState, chunks):
+        def step(state: FftState, chunks, *, out=None):
             chunks = chunks.to(torch.float32).contiguous()
+            rows = _rows(out, B, C, n_out)
             out = chunk_op(
-                state["prev"].reshape(B * C, n_in), chunks.reshape(B * C, n_in)
+                state["prev"].reshape(B * C, n_in), chunks.reshape(B * C, n_in), rows
             )
             return {"prev": chunks}, out.reshape(B, C, n_out)
 
@@ -476,8 +494,9 @@ def make_fft_fleet_step_pool(
     ``prev`` and ``cur`` straight from their slots, with no per-step
     ``[B, C, N]`` staging copy.
 
-    ``step(state, pool [P, B*C, N], idx) -> (state', out [B, C, M])``
-    with ``state = {"prev_idx": int}`` and ``idx`` a host int.  Slot
+    ``step(state, pool [P, B*C, N], idx, *, out=None) -> (state', out
+    [B, C, M])`` with ``state = {"prev_idx": int}`` and ``idx`` a host
+    int; ``out``, as in ``make_fft_fleet_step``, receives B5's stores.  Slot
     layout: each slot is ``chunk.reshape(B*C, N)``.  Caller contract: slot
     ``state["prev_idx"]`` still holds the previous chunk when ``step``
     runs (pool depth >= 2; start a stream by zero-filling the initial
@@ -498,13 +517,14 @@ def make_fft_fleet_step_pool(
         )
     _, plan, wh, wcorr = _make_magsplit_op(config, dev)
 
-    def step(state, pool, idx: int):
+    def step(state, pool, idx: int, *, out=None):
         if pool.ndim != 3 or tuple(pool.shape[1:]) != (B * C, n_in):
             raise ValueError(
                 f"pool must be [P, {B * C}, {n_in}], got {tuple(pool.shape)}"
             )
         out = magsplit_projector_pool(
-            pool, state["prev_idx"], idx, wh, wcorr, plan=plan
+            pool, state["prev_idx"], idx, wh, wcorr, plan=plan,
+            out=_rows(out, B, C, n_out),
         )
         return {"prev_idx": idx}, out.reshape(B, C, n_out)
 

@@ -405,7 +405,7 @@ def _kernel_weights(wh, wcorr, plan: MagsplitPlan):
     return tp, packed, on_card
 
 
-def _check(prev, cur, wh, wcorr, plan: MagsplitPlan) -> None:
+def _check(prev, cur, wh, wcorr, plan: MagsplitPlan, out=None) -> None:
     for what, t in (("prev", prev), ("cur", cur)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.ndim != 2:
             raise TypeError(f"{what} must be a 2-D float32 tensor")
@@ -428,6 +428,20 @@ def _check(prev, cur, wh, wcorr, plan: MagsplitPlan) -> None:
             raise ValueError(f"operands on {t.device} and {prev.device}")
     if not 1 <= R < 1 << 31:
         raise ValueError(f"the kernel takes 1 to 2**31 - 1 rows, got {R}")
+    if out is None:
+        return
+    if not isinstance(out, torch.Tensor) or out.dtype != torch.float32:
+        raise TypeError("out must be a float32 tensor")
+    if tuple(out.shape) != (R, plan.n_out):
+        raise ValueError(f"out must be [{R}, {plan.n_out}], got {list(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if out.device != prev.device:
+        raise ValueError(f"out on {out.device}, the operands on {prev.device}")
+    lo, hi = out.data_ptr(), out.data_ptr() + out.nbytes
+    for t in (prev, cur):  # contiguous, so each spans [data_ptr, + nbytes)
+        if t.data_ptr() < hi and lo < t.data_ptr() + t.nbytes:
+            raise ValueError("out overlaps prev or cur: the kernel would read what it writes")
 
 
 def magsplit_projector_reference(prev, cur, wh, wcorr, *, plan: MagsplitPlan):
@@ -476,13 +490,20 @@ def _x_map(t: torch.Tensor) -> ctypes.Array:
     return buf
 
 
-def _launch_projector(prev, cur, wh, wcorr, plan):
+def _launch_projector(prev, cur, wh, wcorr, plan, out=None):
     """Launch B4's kernel on ``prev``, ``cur`` (``[R, N]`` views, for B5
-    two slots of the pool) on the current stream."""
+    two slots of the pool) on the current stream, into ``out`` (checked
+    by ``_check``) or, without it, a new ``[R, M]``.  The kernel stores
+    through a plain pointer, row ``r`` at ``out + r * M``, a float2 per
+    column pair where ``cols`` and ``M`` are even: such an ``out`` starts
+    on 8 bytes."""
     mp, mc = _x_map(prev), _x_map(cur)
     tp, _, (table, starts, wmap) = _kernel_weights(wh, wcorr, plan)
     R = prev.shape[0]
-    out = torch.empty((R, plan.n_out), dtype=torch.float32, device=prev.device)
+    if out is None:
+        out = torch.empty((R, plan.n_out), dtype=torch.float32, device=prev.device)
+    elif (plan.cols | plan.n_out) % 2 == 0 and out.data_ptr() % 8 != 0:
+        raise ValueError("kernel B4/B5 stores column pairs as 8-byte words: out must start on 8 bytes")
     launch(
         "fft_magsplit_projector", prev.device,
         *(ctypes.c_void_p(ctypes.addressof(m)) for m in (mp, mc, wmap)),
@@ -492,26 +513,40 @@ def _launch_projector(prev, cur, wh, wcorr, plan):
     return out
 
 
-def magsplit_projector(prev, cur, wh, wcorr, *, plan: MagsplitPlan):
+def _plain_into(out, prev, cur, wh, wcorr, plan):
+    """The plain version's result, copied into ``out`` where one is given."""
+    got = magsplit_projector_reference(prev, cur, wh, wcorr, plan=plan)
+    return got if out is None else out.copy_(got)
+
+
+def magsplit_projector(prev, cur, wh, wcorr, *, plan: MagsplitPlan, out=None):
     """``[prev | cur] @ T2`` by the banded magsplit:
     ``prev, cur [R, N] f32 -> [R, M] f32``.  CUDA tensors launch kernel
     B4 on the current stream; CPU tensors run the plain version; anything
-    else raises."""
-    _check(prev, cur, wh, wcorr, plan)
+    else raises.
+
+    ``out``, if given, receives the result and is returned: an ``[R, M]``
+    f32 tensor on the inputs' device, contiguous, sharing no byte with
+    ``prev`` or ``cur`` (``TypeError`` / ``ValueError`` before anything is
+    written).  A slot ``t`` of a contiguous ``[T, R, M]`` is such a
+    tensor.  Without it the result is a new tensor."""
+    _check(prev, cur, wh, wcorr, plan, out)
     if device_kind(prev) == "cpu":
-        return magsplit_projector_reference(prev, cur, wh, wcorr, plan=plan)
-    out = _launch_projector(prev, cur, wh, wcorr, plan)
+        return _plain_into(out, prev, cur, wh, wcorr, plan)
+    out = _launch_projector(prev, cur, wh, wcorr, plan, out)
     LAUNCHES["magsplit_projector"] += 1
     return out
 
 
 def magsplit_projector_pool(pool, idx_prev: int, idx_cur: int, wh, wcorr, *,
-                            plan: MagsplitPlan):
+                            plan: MagsplitPlan, out=None):
     """Rotating-pool form of ``magsplit_projector``: ``prev =
     pool[idx_prev]``, ``cur = pool[idx_cur]``, read in place from the
     caller's ``[P, R, N]`` f32 pool (no staging copy).  Slot indices are
-    host ints.  ``[R, M]`` f32.  CUDA tensors launch kernel B5 (B4's
-    kernel on two slot pointers); CPU tensors run the plain version."""
+    host ints.  ``[R, M]`` f32, into ``out`` if given (its conditions are
+    ``magsplit_projector``'s; it may share no byte with either slot).
+    CUDA tensors launch kernel B5 (B4's kernel on two slot pointers); CPU
+    tensors run the plain version."""
     if not isinstance(pool, torch.Tensor) or pool.ndim != 3:
         raise TypeError("pool must be a 3-D [P, R, N] tensor")
     P = pool.shape[0]
@@ -521,9 +556,9 @@ def magsplit_projector_pool(pool, idx_prev: int, idx_cur: int, wh, wcorr, *,
         if not 0 <= idx < P:
             raise IndexError(f"{what}={idx} outside the pool of {P} slots")
     prev, cur = pool[idx_prev], pool[idx_cur]
-    _check(prev, cur, wh, wcorr, plan)
+    _check(prev, cur, wh, wcorr, plan, out)
     if device_kind(pool) == "cpu":
-        return magsplit_projector_reference(prev, cur, wh, wcorr, plan=plan)
-    out = _launch_projector(prev, cur, wh, wcorr, plan)
+        return _plain_into(out, prev, cur, wh, wcorr, plan)
+    out = _launch_projector(prev, cur, wh, wcorr, plan, out)
     LAUNCHES["magsplit_projector_pool"] += 1
     return out

@@ -31,7 +31,8 @@ and the peak's work, ``fir.relayout_out`` the output's allocation and
 a root of its own); ``fft.step`` and in it ``fft.upload``,
 ``fft.contract``, ``fft.keep`` (on ``resample_many``'s pool path
 ``fft.contract`` holds chunk 0's fleet step alone, ``fft.pool`` the other
-chunks' pool steps, kernel B5, and ``fft.stack`` the outputs' assembly).
+chunks' pool steps, kernel B5, and ``fft.stack`` the result's
+allocation alone, no device work: B4 and B5 store into its slots).
 
 The ranges are recorded as operator-scope events
 (``torch._C._profiler._RecordFunctionFast``), not as user annotations
@@ -77,7 +78,11 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fft.pool_steps``: those of them that took the pool step (kernel B5 on
   the card, its plain version off it; the engaged share ``fft.pool_steps /
   fft.chunks`` is ``(T - 1) / T`` where ``resample_many`` pools, 0 where
-  it loops the fleet step).
+  it loops the fleet step);
+- ``fft.in_place``: chunks whose output B4 or B5 (their plain version
+  off the card) stored straight into its slot of ``resample_many``'s
+  result (the engaged share ``fft.in_place / fft.chunks`` is 1 where
+  ``resample_many`` pools, 0 on ``resample`` and where it loops).
 """
 
 from __future__ import annotations
@@ -97,7 +102,7 @@ _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.fetch_reuses",
      "runtime.values_refused", "fir.steps", "fir.host_ns", "fir.compactions",
      "fir.fused_epilogue", "fir.farrow_steps", "fir.slews", "fir.async.spread",
-     "fft.chunks", "fft.host_ns", "fft.pool_steps"),
+     "fft.chunks", "fft.host_ns", "fft.pool_steps", "fft.in_place"),
     0,
 )
 _LOCK = threading.Lock()  # producers push from threads of their own

@@ -755,6 +755,68 @@ def test_fft_pool_step_at_the_transcoders_width_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_resample_many_stores_each_chunk_into_its_slot_on_card(cuda):
+    """The transcoder's call (8192 stereo streams, 48000 -> 44100 Hz, T 8)
+    after a warm one, under the profiler: one B4 and seven B5 launches,
+    each storing its chunk straight into its slot of the call's result
+    (``fft.in_place`` 8 of ``fft.chunks`` 8), bit for bit eight ``resample``
+    calls.  ``fft.contract`` launches ``magsplit_kernel`` once and
+    ``fft.pool`` seven times, ``fft.stack`` (the result's allocation)
+    launches nothing, and no ATen cat or stack runs in ``fft.step``.  An
+    ``out`` off 8 bytes is refused before the launch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from perfbench import spans, trace
+
+    B, C, T, n_in = 8192, 2, 8, 1280
+    many = rt.BatchedResamplerFft(B, C, 48000, 44100, device=cuda)
+    one = rt.BatchedResamplerFft(B, C, 48000, 44100, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2**31 + 27)
+    xs = [torch.rand((T, B, C, n_in), generator=g, device=cuda).mul_(2.0).sub_(1.0)
+          for _ in range(2)]
+    many.resample_many(xs[0])
+    for t in range(T):
+        one.resample(xs[0][t])
+    torch.cuda.synchronize()
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(trace.STEP_LABEL):
+            got = many.resample_many(xs[1])
+            torch.cuda.synchronize()
+    c = tracing.counters()
+    assert (c["launches.magsplit_projector"], c["launches.magsplit_projector_pool"]) == (1, 7)
+    assert (c["fft.in_place"], c["fft.chunks"], c["fft.pool_steps"]) == (8, 8, 7)
+    assert got.shape == (T, B, C, 1176) and got.is_contiguous()
+    for t in range(T):
+        assert torch.equal(got[t], one.resample(xs[1][t])), t
+
+    # launches by the innermost span around them, from the host side (a
+    # later profiler session in one process may lose device events)
+    tr = trace.from_profiler(prof, 1)
+    every = spans.spans(tr)
+    by_stage = {}
+    for name, start, _ in tr.host:
+        if kind := spans.launch_kind(name):
+            by_stage.setdefault(spans.innermost(every, start), []).append(kind)
+    assert "fft.stack" in {sp[0] for sp in every} and "fft.stack" not in by_stage
+    assert by_stage["fft.contract"] == ["kernel"] and by_stage["fft.pool"] == ["kernel"] * 7
+    kernels = [name for name, _, _ in tr.device if spans.device_kind(name) == "kernel"]
+    assert any("magsplit_kernel" in name for name in kernels)
+    assert not any("CatArray" in name for name in kernels)
+    assert not any(ev.name in ("aten::cat", "aten::stack") for ev in prof.events())
+
+    # cols 294 and M 1176 are even: B4 stores column pairs as 8-byte words
+    plan = mag.plan_magsplit(n_in, 1176)
+    wh, wcorr = mag.magsplit_weights(plan, cuda)
+    R = B * C
+    odd = torch.empty(R * 1176 + 1, device=cuda)[1:].view(R, 1176)
+    with pytest.raises(ValueError, match="8 bytes"):
+        mag.magsplit_projector(xs[1][0].reshape(R, n_in), xs[1][1].reshape(R, n_in), wh, wcorr,
+                               plan=plan, out=odd)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["magsplit", "matmul", "conv", "fft", "rfft"])
 def test_fft_backends_on_card_match_cpu(cuda, backend):
     """Every FFT backend on the card against the same backend on the CPU
