@@ -316,6 +316,12 @@ def slide_in(buffers, chunks, to_copy: np.ndarray, valid_end: int):
 _U32 = (1 << 32) - 1
 
 
+def _scalars(*words) -> bool:
+    """Whether every word is one number (a Python int, or a 0-d array or
+    numpy scalar), not a ``[B]`` array."""
+    return all(type(w) is int or np.ndim(w) == 0 for w in words)
+
+
 class WideSchedule:
     """The wide schedule's static split tables and per-step arithmetic
     (``resampler_tpu.engine.fir._make_wide_step``, shared by the fleet).
@@ -329,18 +335,48 @@ class WideSchedule:
 
     def __init__(self, config: FirConfig, out_cap: int | None = None):
         L, M, N = config.ratio_num, config.ratio_den, out_cap or config.out_capacity
-        self.M, self.taps = M, config.taps
+        self.L, self.M, self.N, self.taps = L, M, N, config.taps
+        self.clamp = config.input_capacity + 2
         i = np.arange(N, dtype=np.int64)
-        self.j_lane = np.minimum((i * L) // M, config.input_capacity + 2).astype(np.uint32)
+        self.j_lane = np.minimum((i * L) // M, self.clamp).astype(np.uint32)
         self.s_lane = ((i * L) % M).astype(np.uint32)
         n = np.arange(N + 1, dtype=np.int64)
         self.nl_hi = np.minimum((n * L) // M, _U32).astype(np.uint32)
         self.nl_lo = ((n * L) % M).astype(np.uint32)
+        # the stride tables as Python ints, for one shared position
+        self._nl = list(zip(self.nl_hi.tolist(), self.nl_lo.tolist()))
 
     def emitted(self, pos_hi, pos_lo, avail):
         """Lanes whose taps window ends inside the ``avail`` buffered
-        frames (the emission mask, counted on the host): an int, or for
-        ``[B]`` arrays of words and frames one count per stream."""
+        frames (the emission mask's count, on the host): an int, or for
+        ``[B]`` arrays of words and frames one count per stream.  One
+        position takes the closed form, short of the u32 corners."""
+        if _scalars(pos_hi, pos_lo):
+            n = self._emitted_closed(int(pos_hi), int(pos_lo), int(avail))
+            if n is not None:
+                return n
+        return self.emitted_mask(pos_hi, pos_lo, avail)
+
+    def _emitted_closed(self, hi: int, lo: int, avail: int):
+        """``emitted`` for one position in closed form, or ``None`` where a
+        u32 sum of the mask could wrap.  Short of a wrap, lane ``i`` is
+        emitted iff ``j_lane + wrap <= a = avail - hi - taps``.  Below the
+        frame clamp ``j_lane + wrap = (i*L + lo) // M`` grows with ``i``;
+        the lanes held at the clamp read ``clamp`` or ``clamp + 1``, so
+        ``a == clamp``, the one value that splits them, takes the mask."""
+        M, a = self.M, avail - self.taps - hi
+        if not (0 <= lo < M and 0 <= hi and 2 * M <= _U32 + 1
+                and hi + self.clamp + 1 + self.taps <= _U32) or a == self.clamp:
+            return None
+        if a < 0:
+            return 0
+        if a > self.clamp:
+            return self.N
+        return min(self.N, ((a + 1) * M - lo - 1) // self.L + 1)
+
+    def emitted_mask(self, pos_hi, pos_lo, avail):
+        """``emitted`` lane by lane: the mask over every output lane, in the
+        JAX package's u32 arithmetic."""
         hi = np.asarray(pos_hi, np.uint32)[..., None]
         lo = np.asarray(pos_lo, np.uint32)[..., None]
         t = lo + self.s_lane
@@ -369,6 +405,17 @@ class WideSchedule:
         shared position), or int64 arrays of per-stream words (the async
         fleet), which all advance by the same stride and are consumed by
         their minimum."""
+        if _scalars(pos_hi, pos_lo):
+            # one shared position: the same u32 sums on Python ints
+            hi, lo, M = int(pos_hi), int(pos_lo), self.M
+            nl_hi, nl_lo = self._nl[n_out]
+            t2 = (lo + nl_lo) & _U32
+            carry = int(t2 < lo or t2 >= M)
+            lo_after = (t2 - M) & _U32 if carry else t2
+            hi_raw = (hi + nl_hi + carry) & _U32
+            hi_after = _U32 if hi_raw < hi else hi_raw
+            consumed = min(hi_after, avail)
+            return consumed, int(hi_after - consumed), lo_after
         hi_after, lo_after = self._stride(pos_hi, pos_lo, n_out)
         consumed = min(int(hi_after.min()), avail)
         hi_after -= consumed

@@ -22,8 +22,8 @@ The schedule scalars (``start``, ``fill``, ``pos_num`` or the wide
 are Python ints computed with the JAX package's integer formulas; the
 per-lane residues and Chebyshev or lerp coefficients come from the one
 residue word and static tables (on the card in the weights kernel), and
-the wide emission mask from static host tables, so a step needs no
-device-to-host sync.
+the wide emission count in closed form from the two words, so a step
+needs no device-to-host sync.
 The ring is updated IN PLACE (the JAX wrappers donate their state for the
 same reason): a 1024-stream stereo fleet's ring is ~600 MB.
 """
@@ -31,6 +31,7 @@ same reason): a 1024-stream stereo fleet's ring is ~600 MB.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -403,7 +404,11 @@ def make_fir_fleet_step_sync_tm(
       there); elsewhere ``farrow_weights``, their plain version, forms
       them from host residues.
       ``precision`` does not apply there (the JAX package's farrow
-      contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3."""
+      contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3.
+
+    Every step that returns adds the host ns of its two ``fir.schedule``
+    sites (the emission count, the consume) to ``fir.schedule_ns``, and a
+    step on the wide schedule counts once in ``fir.wide_steps``."""
     ring = _Ring(config, n_streams, max_chunk=max_chunk, out_cap=config.out_capacity,
                  out_layout=out_layout, mesh=mesh, device=device)
     if precision not in ("highest", "bf16x4"):
@@ -534,16 +539,20 @@ def make_fir_fleet_step_sync_tm(
     fused = (not plain and out_layout == "bm" and device.type == "cuda"
              and (precision == "highest" if path == "periodic" else fp["q"] >= 8))
 
+    clock = time.perf_counter_ns
+
     def step(state: dict, chunks_tm, n_valid: int):
         buffer, start, fill, avail, to_copy = ring.append(state, chunks_tm, n_valid)
         pos = (state["pos_hi"], state["pos_lo"]) if wide else state["pos_num"]
 
-        # ---- shared schedule; the wide one counts its emission mask ----
+        # ---- shared schedule: the emission count ----
+        t0 = clock()
         with tracing.span("fir.schedule"):
             if wide:
                 n_out = min(wide.emitted(*pos, avail), out_cap)
             else:
                 n_out = _compute_n_out(config, pos, avail, out_cap)
+        schedule_ns = clock() - t0
 
         # ---- fleet-wide contraction; a step that emits nothing skips it
         # (all its lanes are masked, and heavy downsampling carries pos
@@ -570,6 +579,7 @@ def make_fir_fleet_step_sync_tm(
             out = ring.relayout(out)
 
         # ---- consume: advance start, no data movement ----
+        t0 = clock()
         with tracing.span("fir.schedule"):
             if wide:
                 consumed, hi, lo = wide.advance(*pos, n_out, avail)
@@ -578,7 +588,11 @@ def make_fir_fleet_step_sync_tm(
                 pos_after = pos + n_out * L
                 consumed = min(pos_after // M, avail)
                 pos_state = dict(pos_num=pos_after - consumed * M)
+        schedule_ns += clock() - t0
         state = ring.compact(buffer, start + consumed, fill, pos_state)
+        tracing.count("fir.schedule_ns", schedule_ns)
+        if wide:
+            tracing.count("fir.wide_steps")
         if meter_peak:
             return state, out, to_copy, n_out, peak
         return state, out, to_copy, n_out

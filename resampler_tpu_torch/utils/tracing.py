@@ -58,6 +58,16 @@ snapshots them together with the kernel wrappers' launch counts
   and ``resample_many`` (the ``fir.step`` root; ``slew`` is not in it),
   summed over the calls that returned: ``fir.host_ns / fir.steps / 1e3``
   is the host us a step costs, with no profiler running;
+- ``fir.schedule_ns``: host nanoseconds in the tm fleet step's schedule,
+  both ``fir.schedule`` sites (the emission count before the contraction,
+  the consume's advance after it), on the int32 envelope and on the wide
+  schedule alike, summed over the steps that returned: ``fir.schedule_ns /
+  fir.steps / 1e3`` is the host us a step spends there (a closed form on
+  Python ints, on the wide schedule the count and the two-word stride of
+  ``WideSchedule``);
+- ``fir.wide_steps``: tm fleet steps on the wide two-word u32 schedule
+  (``FirConfig.wide``); 0 on the int32 envelope, ``fir.steps`` where
+  every step of the process is one;
 - ``fir.compactions``: ring compactions of the time-major fleets;
 - ``fir.fused_epilogue``: tm fleet steps whose outputs, zeroed rows and
   peak the contraction kernel wrote itself, B1 on the periodic path or B2
@@ -100,8 +110,9 @@ PREFIX = "rtt."
 
 _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.fetch_reuses",
-     "runtime.values_refused", "fir.steps", "fir.host_ns", "fir.compactions",
-     "fir.fused_epilogue", "fir.farrow_steps", "fir.slews", "fir.async.spread",
+     "runtime.values_refused", "fir.steps", "fir.host_ns", "fir.schedule_ns",
+     "fir.wide_steps", "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps",
+     "fir.slews", "fir.async.spread",
      "fft.chunks", "fft.host_ns", "fft.pool_steps", "fft.in_place"),
     0,
 )

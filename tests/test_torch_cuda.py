@@ -437,7 +437,7 @@ def _weights_words(fp, M: int, wide: bool) -> list[int]:
     words = {0, 1, 43, M - 1, *(M - s).tolist(), *(M - s - 1).tolist()}
     words |= set(np.random.default_rng(22).integers(0, M, 200).tolist())
     if wide:
-        words |= {*(U32 + 1 - s).tolist(), *(U32 - s).tolist()}
+        words |= {*(U32 + 1 - s).tolist(), *(U32 - s).tolist(), *range(64), *range(M - 64, M)}
     return sorted(words)
 
 
@@ -445,8 +445,8 @@ def _weights_words(fp, M: int, wide: bool) -> list[int]:
 @pytest.mark.parametrize(
     "in_hz,out_hz,basis",
     [(44100, 44101, "cheb"), (44100, 44101, "lerp"), (48000, 1601, "cheb"),
-     (600011, 600013, "cheb")],
-    ids=["farrow", "lerp", "packed", "wide"],
+     (600011, 600013, "cheb"), (48000000, 48000066, "cheb")],
+    ids=["farrow", "lerp", "packed", "wide", "bridge"],
 )
 def test_farrow_weights_kernel_matches_plain_on_card(cuda, in_hz, out_hz, basis):
     """The weights kernel against ``farrow_weights`` on the card at every
@@ -519,6 +519,59 @@ def test_farrow_weights_kernel_matches_plain_on_card(cuda, in_hz, out_hz, basis)
     assert kern.LAUNCHES["farrow_weights"] == before + 2 * len(words) + d1 * n_coef
     assert int(bad_band) == 0 and int(bad_zero) == 0 and int(bad_coef) == 0
     assert worst[0] <= 8 and worst[1] <= 16, worst.tolist()
+
+
+#: the ``fir.wide`` cell's pair (a bridge's rates in millihertz, L/M
+#: 8000000 / 8000011) and its limit (``perfbench/limits/fir.wide.json``)
+BRIDGE = (48000000, 48000066)
+BRIDGE_LIMIT = 1e-4
+
+
+@pytest.mark.cuda
+def test_wide_bridge_step_matches_interpret_on_card(cuda):
+    """The ``fir.wide`` cell's step at its width (1024 stereo streams,
+    4096-frame chunks) on the card: the fused step (the weights kernel on
+    ``pos_lo``, B2 storing ``[B, out_cap, C]``) against
+    ``contraction="dma_interpret"`` (``farrow_weights`` and B2's plain
+    version on the card's tensors) over 185 steps, across the ``pos_lo``
+    wrap at step 183: the same counts and state words every step, outputs
+    within the cell's limit, rows past ``n_out`` zero; one launch of the
+    weights kernel and of B2 a step, every step on the wide schedule."""
+    B, C, n, steps = 1024, 2, 4096, 185
+    L, M = rt.types.reduce_ratio(*BRIDGE)
+    cfg = tfir.FirConfig(channels=C, taps=128, ratio_num=L, ratio_den=M)
+    assert cfg.wide and (L, M) == (8000000, 8000011)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, BRIDGE[0] / BRIDGE[1])
+    )
+    kw = dict(max_chunk=n, horizon=16, device=cuda)
+    fused = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, **kw)
+    plain = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, contraction="dma_interpret", **kw)
+    s_f = fir_fleets.fir_fleet_init_sync_tm(cfg, B, **kw)
+    s_p = fir_fleets.fir_fleet_init_sync_tm(cfg, B, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    tracing.reset_counters()
+    worst = torch.zeros((), dtype=torch.float32, device=cuda)
+    past = torch.zeros((), dtype=torch.float32, device=cuda)
+    words = []
+    for _ in range(steps):
+        chunk = torch.rand((n, B * C), generator=gen, device=cuda).mul_(2.0).sub_(1.0)
+        words.append(s_f["pos_lo"])
+        s_f, out, c_f, p_f = fused(s_f, chunk, n)
+        s_p, want, c_p, p_p = plain(s_p, chunk, n)
+        assert (c_f, p_f) == (c_p, p_p) and p_f in (3969, 3970)
+        assert all(s_f[key] == s_p[key] for key in s_p if key != "buffer")
+        worst = torch.maximum(worst, (out[:, :p_f] - want[:, :p_f]).abs().max())
+        past = torch.maximum(past, out[:, p_f:].abs().max())
+    torch.cuda.synchronize()
+    # pos_lo falls 43,659 a step and wraps after step 183
+    assert words[183] < 11 * 3970 < words[182] < words[184]
+    assert float(worst) <= BRIDGE_LIMIT, float(worst)
+    assert float(past) == 0.0
+    counts = tracing.counters()
+    assert counts["fir.wide_steps"] == 2 * steps and counts["fir.fused_epilogue"] == steps
+    assert counts["launches.farrow_weights"] == counts["launches.dma_farrow_contract"] == steps
+    print(f"bridge step: worst |fused - interpret| {float(worst):.3e} over {steps} steps")
 
 
 def _launches_by_stage(fleet, x, steps: int) -> tuple[dict, list]:

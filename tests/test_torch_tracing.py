@@ -23,6 +23,9 @@ B, C = 3, 2
 FIR = (44100, 48000, rtt.Latency.Sample64, rtt.Attenuation.Db90)
 #: the same at a coprime pair (M 44101): the tm fleet takes the farrow path
 COPRIME = (44100, 44101, rtt.Latency.Sample64, rtt.Attenuation.Db90)
+#: the same at a clock-domain bridge's millihertz pair (L/M 8000000 /
+#: 8000011): the tm fleet takes the farrow path on the wide two-word schedule
+WIDE = (48000000, 48000066, rtt.Latency.Sample64, rtt.Attenuation.Db90)
 #: aten ops that move no data: the only ones a root span may run outside
 #: its leaf spans (``aten::to`` too, where it returns its input uncopied)
 VIEWS = {"aten::select", "aten::slice", "aten::view", "aten::reshape", "aten::as_strided",
@@ -43,10 +46,11 @@ def _chunks(seed, n=4096, T=None):
 def _fir(kind):
     kw = {"tm": dict(synchronized=True, max_chunk=4096, horizon=16),
           "farrow": dict(synchronized=True, max_chunk=4096, horizon=16),
+          "wide": dict(synchronized=True, max_chunk=4096, horizon=16),
           "vmapped": dict(),
           "async": dict(synchronized=True, sync_variant="async_tm", max_chunk=4096),
           "slide": dict(synchronized=True, sync_variant="slide")}[kind]
-    rates = COPRIME if kind == "farrow" else FIR
+    rates = {"farrow": COPRIME, "wide": WIDE}.get(kind, FIR)
     return rtt.BatchedResamplerFir(B, C, *rates, device="cpu", **kw)
 
 
@@ -419,6 +423,40 @@ def test_host_ns_times_each_step_call_and_none_that_raises(kind):
         bad()
     c = tracing.counters()
     assert c[name] == total and c[other] == 0 and c[steps_name] == steps
+
+
+@pytest.mark.parametrize("kind", ["wide", "farrow", "tm", "async", "vmapped"])
+def test_wide_steps_count_the_two_word_schedule(kind):
+    """``fir.wide_steps`` counts every step of the tm fleet on the wide
+    schedule and none on the int32 envelope or of the other fleets."""
+    fleet = _fir(kind)
+    assert fleet.config.wide == (kind == "wide")
+    tracing.reset_counters()
+    for k in range(3):
+        fleet.resample(_chunks(k))
+    c = tracing.counters()
+    assert c["fir.steps"] == 3
+    assert c["fir.wide_steps"] == (3 if kind == "wide" else 0)
+
+
+@pytest.mark.parametrize("kind", ["wide", "farrow", "tm", "async", "vmapped"])
+def test_schedule_ns_times_each_tm_step_and_none_that_raises(kind):
+    """``fir.schedule_ns`` grows on every step of the tm fleet, narrow or
+    wide, by no more than the call's own ``fir.host_ns``; a call that
+    raises adds nothing; the other fleets leave it at 0."""
+    calls, bad = _host_ns_calls(kind)
+    tm = kind in ("wide", "farrow", "tm")
+    tracing.reset_counters()
+    before = tracing.counters()
+    for call, _ in calls:
+        call()
+        c = tracing.counters()
+        grew = c["fir.schedule_ns"] - before["fir.schedule_ns"]
+        assert (0 < grew <= c["fir.host_ns"] - before["fir.host_ns"]) if tm else grew == 0
+        before = c
+    with pytest.raises(ValueError):
+        bad()
+    assert tracing.counters()["fir.schedule_ns"] == before["fir.schedule_ns"]
 
 
 @pytest.mark.parametrize("wrapper", sorted(_build.LAUNCHES))
