@@ -31,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    form + mask + relayout + ``abs().amax()``, timed in turns against
    it; the bound is the taps-wide work;
    one PyTorch ``matmul`` over the overlapping window view beside it.  B2
-   and B3 against their plain version at five cases; ptxas's registers,
+   and B3 against their plain version at five cases (B2 on its plan's band
+   and over the full width, timed in turns); ptxas's registers,
    shared memory and spills (none) of B2's two forms; at B2's main case
    (44.1 -> 44.101 kHz, 1024 x 2) its fused epilogue (the farrow / lerp /
    wide tm step's call) bit for bit against the time-major form + mask +
@@ -495,23 +496,26 @@ def b2_build_report() -> None:
         print("[3] B2 ptxas: not in the build log (cached build)")
 
 
-def b2_fused_epilogue(buf, a_blk, bb, rot, out_cap, C=2):
-    """B2's fused epilogue at a case's shapes (``dma_farrow_contract_bm``,
-    the farrow / lerp / wide tm step's call): its ``[R / C, out_cap, C]``
-    output and peak bit for bit against B2 time-major, then the cut to
-    ``out_cap``, the mask, the relayout and ``abs().amax()``, at ``n_out``
-    of ``out_cap - 2`` (a steady step's) and ``out_cap - 300`` (masked
-    tiles); timed in turns against that four-op form."""
+def b2_fused_epilogue(buf, a_blk, bb, band, rot, out_cap, C=2):
+    """B2's fused epilogue at a case's shapes (``dma_farrow_contract_bm``
+    on the band plan, the farrow / lerp / wide tm step's call): its ``[R /
+    C, out_cap, C]`` output and peak bit for bit against B2 time-major on
+    the band, then the cut to ``out_cap``, the mask, the relayout and
+    ``abs().amax()``, at ``n_out`` of ``out_cap - 2`` (a steady step's)
+    and ``out_cap - 300`` (masked tiles); timed in turns against that
+    four-op form."""
     R = buf.shape[1]
     B = R // C
 
     def fused(i, n_out=out_cap - 2):
         out = buf.new_empty((B, out_cap, C))
         peak = buf.new_zeros(())
-        return kern.dma_farrow_contract_bm(buf, rot[i % 8], a_blk, bb, out, peak, n_out=n_out)
+        return kern.dma_farrow_contract_bm(buf, rot[i % 8], a_blk, bb, out, peak, n_out=n_out,
+                                           band=band)
 
     def aten(i, n_out=out_cap - 2):
-        tm = kern.dma_farrow_contract(buf, rot[i % 8], a_blk, bb).reshape(-1, R)[:out_cap]
+        tm = kern.dma_farrow_contract(buf, rot[i % 8], a_blk, bb, band=band)
+        tm = tm.reshape(-1, R)[:out_cap]
         tm[n_out:] = 0.0
         out = tm.reshape(out_cap, B, C).permute(1, 0, 2).contiguous()
         return out, out.abs().amax()
@@ -694,24 +698,40 @@ def phase_farrow_kernels(device, cases):
               f"time a call; bound {1e3 * b_ms:.3f} us ({b_by}: {4 * K * q * w / 1e6:.3f} MB of "
               f"stores at {HBM_TBPS} TB/s)")
         kname = "dma_farrow_contract" if q >= 8 else "dma_farrow_contract_packed"
+        # B2 as the fleet calls it, on the plan's band (its full width,
+        # band=None, checked beside it); B3 takes no band
+        band = kern.FarrowBandPlan(fp["j_loc"], args[2], w) if q >= 8 else None
+        kw = {} if band is None else dict(band=band)
         fn = getattr(kern, kname)
         err = 0.0
         for a_blk in weights:
             for base in bases:
-                got = fn(buf, base, a_blk, bb)
+                got = fn(buf, base, a_blk, bb, **kw)
                 ref = kern.dma_farrow_contract_reference(buf, base, a_blk, bb)
                 err = max(err, float((got - ref).abs().max()))
+                if band is not None:
+                    err = max(err, float((fn(buf, base, a_blk, bb) - ref).abs().max()))
         torch.cuda.synchronize()
         check(err <= KERNEL_ATOL, f"{kname} vs plain {name}: {err:.3e} > {KERNEL_ATOL}")
         ring, R = buf.shape
         print(f"[3] {'B2' if q >= 8 else 'B3'} {name}: ring [{ring}, {R}] K {K} q {q} w {w}: "
-              f"max |kernel - plain| = {err:.3e} over {len(weights) * len(bases)} calls")
+              f"max |kernel - plain| = {err:.3e} over {len(weights) * len(bases)} calls"
+              + ("" if band is None else " (band and full width)"))
         a_blk = weights[1]
         rot = np.linspace(0, bases[-1], 8).astype(int).tolist()
         ms, plain_ms, t = timed_pair(
-            lambda i: fn(buf, rot[i % 8], a_blk, bb),
+            lambda i: fn(buf, rot[i % 8], a_blk, bb, **kw),
             lambda i: kern.dma_farrow_contract_reference(buf, rot[i % 8], a_blk, bb),
         )
+        if band is not None:
+            # the band against the full width, in turns
+            _, full_ms, tf = timed_pair(lambda i: fn(buf, rot[i % 8], a_blk, bb, band=band),
+                                        lambda i: fn(buf, rot[i % 8], a_blk, bb))
+            issued = 2 * band.issued() * R
+            print(f"    band: {tf[1]:.4f} / {tf[2]:.4f} ms per call, the full width "
+                  f"{tf[0]:.4f} / {tf[3]:.4f} ms ({full_ms / ((tf[1] + tf[2]) / 2):.2f}x); issued "
+                  f"{issued / 1e9:.3f} GFLOP of the full {2 * K * q * w * R / 1e9:.3f}, "
+                  f"{issued / ((tf[1] + tf[2]) / 2) / 1e9:.3f} TFLOP/s issued")
         covered = np.zeros(int(bb.max()) + w, bool)
         for b in bb:
             covered[b : b + w] = True
@@ -725,7 +745,7 @@ def phase_farrow_kernels(device, cases):
         if kname not in entries and q >= 8:
             in_hz, out_hz, taps = args[:3]
             L_r, M_r = reduce_ratio(in_hz, out_hz)
-            b2_fused_epilogue(buf, a_blk, bb, rot, FirConfig(
+            b2_fused_epilogue(buf, a_blk, bb, band, rot, FirConfig(
                 channels=2, taps=taps, ratio_num=L_r, ratio_den=M_r).out_capacity)
         entry = entries.setdefault(kname, dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,

@@ -11,15 +11,54 @@
 // B2 replaces resampler_tpu/ops/fir_dma_kernel.py:225 dma_farrow_contract
 // (body _farrow_kernel :91) for blocks of q >= 8 rows.  Bound on an H100: f32
 // FMA.  At 44.1 -> 44.101 kHz, 128 taps, 1024 stereo streams (K 63, q 64,
-// w 192, R 2048) a call is 2*K*q*w*R = 3.17 GFLOP, 47.3 us at 67 TFLOP/s,
-// against ~67 MB of compulsory traffic (the ~4,150 ring rows the blocks
-// cover, read once, plus the 33 MB output), ~20 us at 3.35 TB/s.  Design: the
-// tiled kernel of tiled_contract.cuh with a weight block and a row base per
-// block k; the 48 KB [64, 192] weight block is staged through
-// shared memory 16 columns at a time.  The tm fleet's farrow, lerp and wide
-// step with "bm" outputs launches its fused epilogue (tiled_contract.cuh):
-// the [B, out_cap, C] output, its rows past n_out zeroed and its peak
-// metered by B2's own store.
+// w 192, R 2048) the full contraction is 2*K*q*w*R = 3.17 GFLOP, 47.3 us at
+// 67 TFLOP/s, against ~67 MB of compulsory traffic (the ~4,150 ring rows the
+// blocks cover, read once, plus the 33 MB output), ~20 us at 3.35 TB/s.
+//
+// The band.  Row l of block k is zero outside the taps columns [j_loc[k, l]
+// + wrap, + taps), wrap 0 or 1 by the step's residue (the weights kernel
+// below).  A tile of TJ consecutive rows l0.. needs only the columns [lo,
+// hi) = [min j_loc, min(w, max j_loc + 1 + taps)) over its rows, the same
+// at every position; the host computes them once per plan and row tile
+// (ops/fir_dma_kernel.py FarrowBandPlan) and the kernel reads `tiles` [K,
+// n_tiles, 2].  tiles == nullptr is the full width in every tile (the
+// general contraction).  Columns outside [lo, hi) are never read.  At the
+// main shape TJ 32 takes 159-160 of the 192 columns: 2.634 GFLOP issued, 1.25x
+// the taps-wide work.
+//
+// Design (kernel B1's, csrc/fir_banded_contract.cu, on per-block weights
+// and row bases).  One block of 32 x 4 threads per (row tile t of 32 rows,
+// lane tile of 256 lanes, Farrow block k), t fastest, so the blocks that
+// read one k's ring rows run together and meet them in L2.  The band's
+// columns stream through a kStages-deep ring of slices in shared memory,
+// kDepth columns each: the tile's weights [kDepth][kAPitch] (transposed,
+// 4-byte cp.async from a_blk's [q, w] rows, 16 columns of a row per 16
+// threads) and the ring rows [kDepth][256] (16-byte cp.async.cg along the
+// lanes, bypassing L1; 4-byte where R is not a multiple of 4).  The next
+// slices' copies are in flight while this one is contracted; columns past
+// hi, rows past q and lanes past R are zero-filled, never read.  Each thread
+// keeps an 8 (rows) x 8 (lanes) register tile, its lanes two runs of 4
+// consecutive lanes 128 apart: per column 2 float4 broadcast weight loads
+// and 2 conflict-free float4 ring loads feed 64 FMAs.  Each output sums its
+// band's terms in ascending column, one accumulator: the full contraction's
+// fmaf chain less the terms whose weight is a structural zero.  Offsets are
+// 64-bit: (row) * R + r is ~1.5e8 at the 1024-stream stereo fleet.
+//
+// The fused epilogue (kBM: the tm fleet's farrow, lerp and wide step with
+// "bm" outputs).  The block stores its tile straight into the fleet's
+// output [B, out_cap, C] (lane r = b*C + c, output row o = k*q + l): rows
+// below n_out as computed, rows in [n_out, out_cap) as zeros, rows at or
+// past out_cap not at all; and folds |x| of every stored row below n_out
+// into *peak, an atomic max on the float's bits (|x| is non-negative, so
+// the bits order as the values do, and a NaN's, its sign cleared, lie above
+// +Inf's: the peak is NaN where any output is, as torch.amax's).  The
+// caller zeroes *peak first.  A tile whose first row is at or past n_out
+// skips the contraction; the rows kept are the same fmaf chain, in the same
+// order, as the time-major form's.  In the target layout a warp's 32 lanes
+// are 16 streams x 2 channels (at C 2), out_cap rows apart, so the tile is
+// staged through shared memory (the stages', free after the last slice) as
+// [32 rows][256 lanes] and stored stream by stream: a warp writes one
+// stream's rows x C consecutive floats, coalesced.
 //
 // B3 replaces :170 dma_farrow_contract_packed (body _farrow_packed_kernel
 // :127) for blocks of q < 8 rows (heavy coprime downsampling).  Bound: bytes.
@@ -65,7 +104,275 @@
 // each load in turn (6.5-9.5 us a call against 3.6 us, on an H100 at 44.1 ->
 // 44.101 kHz).
 
-#include "tiled_contract.cuh"
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace tiled {
+
+constexpr int kTX = 32;               // threads across lanes: one warp
+constexpr int kTY = 4;                // warps across rows
+constexpr int kThreads = kTX * kTY;
+constexpr int kRuns = 2;              // float4 lane runs per thread
+constexpr int kTR = kTX * 4 * kRuns;  // 256 lanes per block
+constexpr int kWJ = 8;                // rows per thread
+constexpr int kTJ = kWJ * kTY;        // 32 rows per block
+constexpr int kDepth = 16;            // band columns per slice
+constexpr int kStages = 3;            // slices in flight
+// a slice's weight row pitch: 16-byte rows for the float4 broadcasts, and
+// 4 mod 32, so a half-warp's copies down one row's 16 columns meet 2-way
+constexpr int kAPitch = kTJ + 4;
+constexpr int kStageFloats = kDepth * (kAPitch + kTR);
+constexpr int kSmem = 4 * kStages * kStageFloats;  // 56,064 B
+constexpr int kPitch = kTR + 4;  // floats per row of the fused epilogue's staged tile
+static_assert(kTJ * kPitch + kTY <= kStages * kStageFloats, "the staged tile fits the stages");
+
+// The fused epilogue's output geometry and peak (out_cap 0: the time-major form).
+struct Epilogue {
+  int out_cap, C, n_out;
+  unsigned* peak;  // the f32 peak's bits
+};
+
+// An asynchronous copy of `bytes` (0 or N) from global to shared memory;
+// 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The fused epilogue of one block (see the header): the tile's rows below
+// n_out metered into *peak and staged, the other rows staged as zeros, then
+// stored stream by stream into out [B, out_cap, C].  o0 is the tile's first
+// output row.
+__device__ __forceinline__ void store_bm(const float (&acc)[kWJ][4 * kRuns], float* smem,
+                                         float* __restrict__ out, int R, int M, int r0, int j0,
+                                         int o0, const Epilogue& ep) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 31, ty = tid >> 5;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages
+  unsigned top = 0;
+#pragma unroll
+  for (int p = 0; p < kWJ; ++p) {
+    const int jl = ty * kWJ + p;
+    const bool kept = j0 + jl < M && o0 + jl < ep.n_out;
+#pragma unroll
+    for (int q = 0; q < kRuns; ++q) {
+      const int rl = q * 4 * kTX + 4 * tx;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = kept ? acc[p][4 * q + e] : 0.0f;
+        if (r0 + rl + e < R) top = max(top, __float_as_uint(fabsf(v[e])));
+      }
+      *reinterpret_cast<float4*>(smem + jl * kPitch + rl) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  // the block's peak: each warp's, then one atomic
+  unsigned* warp_top = reinterpret_cast<unsigned*>(smem + kTJ * kPitch);
+  top = __reduce_max_sync(0xffffffffu, top);
+  if (tx == 0) warp_top[ty] = top;
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < kTY; ++w) top = max(top, warp_top[w]);
+    if (top != 0) atomicMax(ep.peak, top);
+  }
+  // the tile's rows [o0, o0 + rows) of lanes [r0, r_end): stream b's are
+  // rows x C consecutive floats at (b out_cap + o0) C.  A warp takes one
+  // stream at a time
+  const int C = ep.C;
+  const int rows = min(min(kTJ, M - j0), ep.out_cap - o0);
+  const int r_end = min(r0 + kTR, R);
+  if (C == 2) {
+    // stereo: lane i stores row i's two channels as one float2 (8-byte
+    // aligned: the stream's offset is even; r0 is, so no stream is split)
+    if (tx < rows) {
+      for (int b = r0 / 2 + ty; 2 * b < r_end; b += kTY) {
+        float2* seg =
+            reinterpret_cast<float2*>(out + (static_cast<int64_t>(b) * ep.out_cap + o0) * 2);
+        seg[tx] = *reinterpret_cast<const float2*>(smem + (2 * b - r0) + tx * kPitch);
+      }
+    }
+    return;
+  }
+  // any C: lane i stores the stream's elements i, i + 32, ... (row e / C,
+  // channel e % C, stepped without a division); a stream split between two
+  // lane tiles stores its lanes from each
+  const int n = rows * C;
+  const int dj = kTX / C, dc = kTX % C;
+  for (int b = r0 / C + ty; b * C < r_end; b += kTY) {
+    float* seg = out + (static_cast<int64_t>(b) * ep.out_cap + o0) * C;
+    const int rb = b * C - r0;  // the tile lane of the stream's channel 0
+    int jl = tx / C, c = tx % C;
+    for (int e = tx; e < n; e += kTX) {
+      const int rl = rb + c;
+      if (rl >= 0 && r0 + rl < r_end) seg[e] = smem[jl * kPitch + rl];
+      jl += dj;
+      c += dc;
+      if (c >= C) {
+        c -= C;
+        ++jl;
+      }
+    }
+  }
+}
+
+// Block k's rows start at base + block_base[k], its weights a_k = a + k*M*w
+// ([M, w] row-major; M is the plan's q).  kBM: the fused epilogue into ep's
+// [B, out_cap, C] output; else out is the time-major [K, M, R] and ep is
+// not read.
+template <bool kBM>
+__global__ void __launch_bounds__(kThreads)
+tiled_contract_kernel(const float* __restrict__ buffer, const float* __restrict__ a,
+                      const int64_t* __restrict__ block_base, const int* __restrict__ tiles,
+                      float* __restrict__ out, int R, int64_t base, int M, int w, int vec,
+                      Epilogue ep) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int tx = tid & 31, ty = tid >> 5;
+  const int t = blockIdx.x;
+  const int r0 = blockIdx.y * kTR;
+  const int k = blockIdx.z;
+  const int j0 = t * kTJ;
+  const int o0 = k * M + j0;  // the tile's first output row
+  if (kBM && o0 >= ep.out_cap) return;  // none of its rows is stored
+  int lo = 0, hi = w;
+  if (tiles != nullptr) {
+    const int2 band = reinterpret_cast<const int2*>(tiles)[k * gridDim.x + t];
+    lo = band.x;
+    hi = band.y;
+  }
+  if (kBM && o0 >= ep.n_out) hi = lo;  // every row it stores is a zero
+  const int width = hi - lo;
+  const int n_slices = width > 0 ? (width + kDepth - 1) / kDepth : 0;
+  const float* a_t = a + (static_cast<int64_t>(k) * M + j0) * w + lo;
+  const float* ring = buffer + (base + block_base[k] + lo) * R;
+
+  // slice i (band columns lo + i kDepth ..) into stage i % kStages
+  auto stage = [&](int i) {
+    float* as = smem + (i % kStages) * kStageFloats;  // [kDepth][kAPitch]
+    float* bs = as + kDepth * kAPitch;                // [kDepth][kTR]
+    const int s0 = i * kDepth;
+#pragma unroll
+    for (int n = 0; n < kDepth * kTJ / kThreads; ++n) {
+      const int e = tid + n * kThreads;
+      const int jj = e / kDepth, ss = e % kDepth;  // a_blk's rows run along the columns
+      const bool in = s0 + ss < width && j0 + jj < M;
+      cp_async4(as + ss * kAPitch + jj, in ? a_t + jj * w + s0 + ss : a, in ? 4 : 0);
+    }
+    if (vec) {
+#pragma unroll
+      for (int n = 0; n < kDepth * kTR / 4 / kThreads; ++n) {
+        const int e = tid + n * kThreads;
+        const int ss = e / (kTR / 4), r = r0 + 4 * (e % (kTR / 4));
+        const bool in = s0 + ss < width && r < R;
+        cp_async16(bs + 4 * e, in ? ring + static_cast<int64_t>(s0 + ss) * R + r : buffer,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kDepth * kTR; e += kThreads) {
+        const int ss = e / kTR, r = r0 + e % kTR;
+        const bool in = s0 + ss < width && r < R;
+        cp_async4(bs + e, in ? ring + static_cast<int64_t>(s0 + ss) * R + r : buffer, in ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[kWJ][4 * kRuns];
+#pragma unroll
+  for (int p = 0; p < kWJ; ++p)
+#pragma unroll
+    for (int q = 0; q < 4 * kRuns; ++q) acc[p][q] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_slices) stage(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_slices; ++i) {
+    cp_async_wait<kStages - 2>();  // slice i has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; and slice i - 1's stage is free
+    if (i + kStages - 1 < n_slices) stage(i + kStages - 1);
+    cp_async_commit();
+    const float* as = smem + (i % kStages) * kStageFloats + ty * kWJ;
+    const float* bs = smem + (i % kStages) * kStageFloats + kDepth * kAPitch + 4 * tx;
+#pragma unroll
+    for (int ss = 0; ss < kDepth; ++ss) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + ss * kAPitch);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + ss * kAPitch + 4);
+      const float av[kWJ] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float bv[4 * kRuns];
+#pragma unroll
+      for (int q = 0; q < kRuns; ++q) {
+        const float4 b = *reinterpret_cast<const float4*>(bs + ss * kTR + q * 4 * kTX);
+        bv[4 * q + 0] = b.x;
+        bv[4 * q + 1] = b.y;
+        bv[4 * q + 2] = b.z;
+        bv[4 * q + 3] = b.w;
+      }
+#pragma unroll
+      for (int p = 0; p < kWJ; ++p)
+#pragma unroll
+        for (int q = 0; q < 4 * kRuns; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
+    }
+  }
+
+  if constexpr (kBM) {
+    store_bm(acc, smem, out, R, M, r0, j0, o0, ep);
+  } else {
+#pragma unroll
+    for (int p = 0; p < kWJ; ++p) {
+      const int j = j0 + ty * kWJ + p;
+      if (j >= M) break;
+      float* orow = out + (static_cast<int64_t>(k) * M + j) * R;
+#pragma unroll
+      for (int q = 0; q < kRuns; ++q) {
+        const int r = r0 + q * 4 * kTX + 4 * tx;
+        const float* v = acc[p] + 4 * q;
+        if (vec) {
+          if (r < R) *reinterpret_cast<float4*>(orow + r) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (r + e < R) orow[r + e] = v[e];
+        }
+      }
+    }
+  }
+}
+
+template <bool kBM>
+cudaError_t launch(const float* buffer, const float* a, const int64_t* block_base,
+                   const int* tiles, float* out, int R, int64_t base, int K, int M, int w,
+                   int vec, const Epilogue& ep, cudaStream_t stream) {
+  const int64_t lane_tiles = (static_cast<int64_t>(R) + kTR - 1) / kTR;
+  if (lane_tiles > 65535 || K > 65535) return cudaErrorInvalidConfiguration;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      tiled_contract_kernel<kBM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((M + kTJ - 1) / kTJ, static_cast<unsigned>(lane_tiles), K);
+  tiled_contract_kernel<kBM><<<grid, kThreads, kSmem, stream>>>(buffer, a, block_base, tiles, out,
+                                                                R, base, M, w, vec, ep);
+  return cudaGetLastError();
+}
+
+}  // namespace tiled
 
 namespace {
 
@@ -289,18 +596,25 @@ farrow_weights_kernel(uint32_t word, uint32_t M, const uint32_t* __restrict__ s_
 // Both launch on `stream` and return cudaGetLastError() (0 on success).  The
 // caller checks shapes and contiguity, that rows [base + block_base[k],
 // + w) lie inside the ring for every k, and (B3, vec 4) that R % 4 == 0 and
-// the buffer is 16-byte aligned.  B2's out_cap 0: out is the time-major
-// [K, q, R]; out_cap > 0: the fused epilogue (tiled_contract.cuh), out the
-// [R / C, out_cap, C] output (out_cap <= K q) with rows past n_out zeroed,
-// and peak the zeroed f32 peak of the rows below n_out.
+// the buffer is 16-byte aligned.  B2's tiles: [K, ceil(q / 32), 2] band
+// columns (lo, hi) per block and 32-row tile, or nullptr for the full
+// width; vec: R % 4 == 0 and a 16-byte aligned buffer (16-byte ring copies,
+// and stores of the time-major output).  out_cap 0: out is the time-major
+// [K, q, R]; out_cap > 0: the fused epilogue, out the [R / C, out_cap, C]
+// output (out_cap <= K q) with rows past n_out zeroed, and peak the zeroed
+// f32 peak of the rows below n_out.
 extern "C" int fir_farrow_contract(const float* buffer, const float* a_blk,
-                                   const int64_t* block_base, float* out,
-                                   int R, int64_t base, int K, int q, int w,
+                                   const int64_t* block_base, const int* tiles, float* out,
+                                   int R, int64_t base, int K, int q, int w, int vec,
                                    int out_cap, int C, int n_out, float* peak,
                                    void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
   const tiled::Epilogue ep{out_cap, C, n_out, reinterpret_cast<unsigned*>(peak)};
-  return tiled::launch_tiled_contract(buffer, a_blk, block_base, out, R, base,
-                                      0, q, w, K, ep, stream);
+  return static_cast<int>(
+      out_cap > 0
+          ? tiled::launch<true>(buffer, a_blk, block_base, tiles, out, R, base, K, q, w, vec, ep, st)
+          : tiled::launch<false>(buffer, a_blk, block_base, tiles, out, R, base, K, q, w, vec, ep,
+                                 st));
 }
 
 extern "C" int fir_farrow_contract_packed(const float* buffer,

@@ -43,6 +43,7 @@ from ..ops.fir_async_kernel import (
 )
 from ..ops.fir_dma_kernel import (
     BandPlan,
+    FarrowBandPlan,
     FarrowWeightsKernel,
     dma_banded_contract,
     dma_banded_contract_bm,
@@ -401,8 +402,10 @@ def make_fir_fleet_step_sync_tm(
       ``"auto"`` or ``"dma"``), the weights are one launch of the weights
       kernel from the step's residue word, its tables uploaded at build
       (``LAUNCHES["farrow_weights"]``; a basis it cannot take raises
-      there); elsewhere ``farrow_weights``, their plain version, forms
-      them from host residues.
+      there), and B2 reads only each row tile's band of them, from a
+      ``FarrowBandPlan`` built and uploaded once (counter
+      ``fir.banded_steps``); elsewhere ``farrow_weights``, their plain
+      version, forms them from host residues.
       ``precision`` does not apply there (the JAX package's farrow
       contractions are fixed at HIGHEST), so ``"bf16x4"`` runs B2/B3.
 
@@ -524,13 +527,21 @@ def make_fir_fleet_step_sync_tm(
             with tracing.span("fir.weights"):
                 return start + base, weights(pos)
 
+        # B2, launched, reads only each row tile's band of the weights
+        banded = kernel is dma_farrow_contract and device.type == "cuda"
+        band = dict(band=FarrowBandPlan(fp["j_loc"], taps, fp["w_blk"])) if banded else {}
+
         def contract_bm(buffer, start: int, pos, n_out: int, out, peak):
             row, a_blk = blocks(start, pos)
-            dma_farrow_contract_bm(buffer, row, a_blk, fp["block_base"], out, peak, n_out=n_out)
+            tracing.count("fir.banded_steps")
+            dma_farrow_contract_bm(buffer, row, a_blk, fp["block_base"], out, peak, n_out=n_out,
+                                   **band)
 
         def contract(buffer, start: int, pos, avail: int):
             row, a_blk = blocks(start, pos)
-            out = kernel(buffer, row, a_blk, fp["block_base"])  # [K, q, R]
+            if banded:
+                tracing.count("fir.banded_steps")
+            out = kernel(buffer, row, a_blk, fp["block_base"], **band)  # [K, q, R]
             return out.reshape(fp["n_pad"], R)[:out_cap]
 
     assert region_rows <= ring.slack, (region_rows, ring.slack)

@@ -43,14 +43,13 @@ SMEM_MAX = 232448
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-#: one shared library per source; the headers are included by the B2 source
-#: (tiled_contract), by the B4, B6 and B7 sources (bf16_split) and by the B4
-#: and B7 sources (hopper_tma)
+#: one shared library per source; the headers are included by the B4, B6 and
+#: B7 sources (bf16_split) and by the B4 and B7 sources (hopper_tma)
 _SOURCES = (
     "fir_banded_contract.cu", "fir_farrow_contract.cu", "fft_magsplit.cu", "fir_async_combine.cu",
     "fir_fleet_step.cu", "matmul3.cu",
 )
-_HEADERS = ("tiled_contract.cuh", "bf16_split.cuh", "hopper_tma.cuh")
+_HEADERS = ("bf16_split.cuh", "hopper_tma.cuh")
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,9 +61,9 @@ _SIGNATURES = {
     # vec, out_cap, C, n_out (the fused epilogue's; out_cap 0: none), peak,
     # stream
     "fir_banded_contract": [_P, _P, _I64, _I64, _P, _P, _I, _I64] + [_I] * 9 + [_P, _P],
-    # buffer, a_blk, block_base, out, R, base, K, q, w, out_cap, C, n_out
-    # (the fused epilogue's; out_cap 0: none), peak, stream
-    "fir_farrow_contract": [_P, _P, _P, _P, _I, _I64] + [_I] * 6 + [_P, _P],
+    # buffer, a_blk, block_base, tiles, out, R, base, K, q, w, vec, out_cap,
+    # C, n_out (the fused epilogue's; out_cap 0: none), peak, stream
+    "fir_farrow_contract": [_P] * 5 + [_I, _I64] + [_I] * 7 + [_P, _P],
     # buffer, a_blk, block_base, out, R, base, K, q, w, the lanes per thread
     # (4 or 1), stream
     "fir_farrow_contract_packed": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],

@@ -22,7 +22,9 @@ Ports of ``resampler_tpu/ops/fir_dma_kernel.py``:
       out[k, l, r] = sum_{s < w} a_blk[k, l, s] * buffer[base + block_base[k] + s, r]
 
   ``a_blk [K, q, w]``, ``block_base [K]`` host ints (the plan's static
-  table); returns ``[K, q, R]``.  ``dma_farrow_contract_bm`` is B2 with
+  table); returns ``[K, q, R]``.  Each output's weights are zero outside
+  its taps: ``FarrowBandPlan`` gives B2 the columns each tile of rows
+  needs, once per plan.  ``dma_farrow_contract_bm`` is B2 with
   the tm fleet's output epilogue fused, as ``dma_banded_contract_bm`` is
   B1's: output rows ``k*q + l`` below ``out_cap`` stored as ``[B,
   out_cap, C]``, those past ``n_out`` as zeros, the peak metered.
@@ -68,6 +70,7 @@ __all__ = [
     "dma_farrow_contract_bm_reference",
     "dma_farrow_contract_packed",
     "dma_farrow_contract_reference",
+    "FarrowBandPlan",
     "FarrowWeightsKernel",
 ]
 
@@ -82,6 +85,9 @@ _WEIGHTS_D1_MAX = 16
 #: B1's tile (``csrc/fir_banded_contract.cu``): lanes per block, band
 #: columns per pipeline slice, slices in flight
 BAND_LANES, BAND_DEPTH, BAND_STAGES = 256, 16, 3
+#: B2's tile (``csrc/fir_farrow_contract.cu``): rows per block (its lanes,
+#: band columns per slice and slices in flight are B1's)
+FARROW_ROWS = 32
 
 
 def _check_tensors(buffer, name: str, weights, nd: int, weights_contiguous=True) -> None:
@@ -344,46 +350,115 @@ def dma_farrow_contract_reference(buffer, base: int, a_blk, block_base):
     return torch.einsum("kqw,kwr->kqr", a_blk, buffer[rows])
 
 
-def _check_b2(buffer, base, a_blk, block_base) -> np.ndarray:
+class FarrowBandPlan:
+    """B2's band plan for one Farrow plan (``engine/fir_fleets.py
+    _farrow_tm_plan``): ``j_loc [K, q]`` the outputs' local offsets in
+    their blocks, ``taps``, ``w`` the blocks' width.
+
+    Row ``l`` of block ``k`` is zero outside the columns ``[j_loc[k, l] +
+    wrap, + taps)`` (cut at ``w``), ``wrap`` 0 or 1 by the step's residue
+    (``farrow_weights``).  The kernel takes ``FARROW_ROWS`` consecutive rows
+    per tile; ``tiles[k, t] = (lo, hi)`` are the columns tile ``t`` of
+    block ``k`` needs at every position:
+
+    - ``lo = min(j_loc[k, rows of t])``;
+    - ``hi = min(w, max(j_loc[k, rows of t]) + 1 + taps)``, the ``+ 1``
+      for the wrap.
+
+    The plan is checked against ``a_blk``'s ``[K, q, w]`` at each call;
+    that its rows are zero outside it is the caller's to keep."""
+
+    def __init__(self, j_loc, taps: int, w: int):
+        j_loc = np.asarray(j_loc)
+        if j_loc.dtype.kind not in "iu" or j_loc.ndim != 2 or 0 in j_loc.shape:
+            raise ValueError(f"j_loc must be a non-empty [K, q] of ints, got {j_loc.dtype} "
+                             f"{j_loc.shape}")
+        if min(taps, w) < 1 or j_loc.min() < 0 or j_loc.max() >= w:
+            raise ValueError(f"taps, w must be >= 1 and j_loc in [0, w): taps {taps}, w {w}, "
+                             f"j_loc in [{j_loc.min()}, {j_loc.max()}]")
+        K, q = j_loc.shape
+        self.shape = (K, q, w)
+        self.n_tiles = -(-q // FARROW_ROWS)
+        pad = self.n_tiles * FARROW_ROWS - q  # the last row repeated: it widens no band
+        rows = np.pad(j_loc.astype(np.int64), ((0, 0), (0, pad)), mode="edge")
+        rows = rows.reshape(K, self.n_tiles, FARROW_ROWS)
+        lo = rows.min(-1)
+        hi = np.minimum(w, rows.max(-1) + 1 + taps)
+        self.tiles = np.stack([lo, hi], -1).astype(np.int32)  # [K, n_tiles, 2]
+        self._dev: dict = {}
+
+    def issued(self) -> int:
+        """Multiply-adds per lane of one call: each tile's rows below ``q``
+        times its band's columns."""
+        q = self.shape[1]
+        rows = np.minimum(FARROW_ROWS, q - FARROW_ROWS * np.arange(self.n_tiles))
+        return int((rows * (self.tiles[..., 1] - self.tiles[..., 0])).sum())
+
+    def check(self, shape: tuple) -> None:
+        if shape != self.shape:
+            raise ValueError(f"band plan is for a_blk {self.shape}, not {shape}")
+
+    def table(self, device: torch.device) -> torch.Tensor:
+        """``tiles`` (int32) on ``device``, uploaded once."""
+        tab = self._dev.get(device)
+        if tab is None:
+            tab = self._dev[device] = torch.from_numpy(self.tiles).to(device)
+        return tab
+
+
+def _check_b2(buffer, base, a_blk, block_base, band) -> np.ndarray:
     bb = _check_farrow(buffer, base, a_blk, block_base)
     if a_blk.shape[1] < 8:
         raise ValueError(f"B2 takes blocks of q >= 8 rows (q < 8: B3), got q={a_blk.shape[1]}")
+    if band is not None:
+        band.check(tuple(a_blk.shape))
     return bb
 
 
-def _farrow_launch(name: str, fn_name: str, buffer, base: int, a_blk, bb: np.ndarray, *extra,
-                   out=None):
-    """Launch ``fn_name``, the kernel's own arguments ``extra`` after the
-    shared ones, into ``out`` (``None``: a new time-major ``[K, q, R]``);
-    returns ``out``."""
-    K, q, w = a_blk.shape
-    R = buffer.shape[1]
-    key = (buffer.device, bb.tobytes())
+def _block_base_table(bb: np.ndarray, device) -> torch.Tensor:
+    """``block_base`` on ``device``, uploaded once per table."""
+    key = (device, bb.tobytes())
     bb_dev = _block_base_cache.get(key)
     if bb_dev is None:
-        bb_dev = _block_base_cache[key] = torch.from_numpy(bb).to(buffer.device)
-    if out is None:
-        out = torch.empty((K, q, R), dtype=torch.float32, device=buffer.device)
+        bb_dev = _block_base_cache[key] = torch.from_numpy(bb).to(device)
+    return bb_dev
+
+
+def _b2_launch(buffer, base: int, a_blk, bb: np.ndarray, band, out, out_cap=0, C=1, n_out=0,
+               peak=None):
+    """Launch B2 into ``out``: time-major ``[K, q, R]`` for ``out_cap`` 0,
+    else with the fused epilogue (``out [R / C, out_cap, C]``, ``peak``)."""
+    K, q, w = a_blk.shape
+    R = buffer.shape[1]
+    tiles = 0 if band is None else band.table(buffer.device).data_ptr()
+    # 16-byte ring copies and output stores need a lane count and row pitch
+    # that keep them aligned
+    vec = int(R % 4 == 0 and buffer.data_ptr() % 16 == 0)
     _launch(
-        fn_name, buffer.device,
-        _P(buffer.data_ptr()), _P(a_blk.data_ptr()), _P(bb_dev.data_ptr()),
-        _P(out.data_ptr()), _I(R), _I64(base), _I(K), _I(q), _I(w), *extra,
+        "fir_farrow_contract", buffer.device,
+        _P(buffer.data_ptr()), _P(a_blk.data_ptr()),
+        _P(_block_base_table(bb, buffer.device).data_ptr()), _P(tiles), _P(out.data_ptr()),
+        _I(R), _I64(base), _I(K), _I(q), _I(w), _I(vec),
+        _I(out_cap), _I(C), _I(n_out), _P(0 if peak is None else peak.data_ptr()),
     )
-    LAUNCHES[name] += 1
-    return out
+    LAUNCHES["dma_farrow_contract"] += 1
 
 
-def dma_farrow_contract(buffer, base: int, a_blk, block_base):
+def dma_farrow_contract(buffer, base: int, a_blk, block_base, band=None):
     """``out[k, l, r] = sum_s a_blk[k, l, s] * buffer[base + block_base[k]
     + s, r]``, ``[K, q, R]`` f32, for Farrow blocks of ``q >= 8`` rows.
-    CUDA tensors launch kernel B2; CPU tensors run the plain version."""
+    ``band``: a ``FarrowBandPlan`` of ``a_blk``'s plan, whose rows are zero
+    outside it; the kernel reads only the columns each row tile needs;
+    ``None`` reads the full width.  CUDA tensors launch kernel B2; CPU
+    tensors run the plain version, which ignores ``band``."""
     with tracing.span("fir.check"):
-        bb = _check_b2(buffer, base, a_blk, block_base)
+        bb = _check_b2(buffer, base, a_blk, block_base, band)
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_reference(buffer, base, a_blk, bb)
-    # out_cap 0: the time-major form
-    return _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb,
-                          _I(0), _I(1), _I(0), _P(0))
+    K, q, _ = a_blk.shape
+    out = torch.empty((K, q, buffer.shape[1]), dtype=torch.float32, device=buffer.device)
+    _b2_launch(buffer, base, a_blk, bb, band, out)
+    return out
 
 
 def dma_farrow_contract_bm_reference(buffer, base: int, a_blk, block_base, out, peak, *,
@@ -408,24 +483,24 @@ def dma_farrow_contract_bm_reference(buffer, base: int, a_blk, block_base, out, 
     return out, peak
 
 
-def dma_farrow_contract_bm(buffer, base: int, a_blk, block_base, out, peak, *, n_out: int):
+def dma_farrow_contract_bm(buffer, base: int, a_blk, block_base, out, peak, *, n_out: int,
+                           band=None):
     """B2 with the tm fleet's output epilogue fused, in place: the rows
     ``i = k*q + l < out_cap`` of ``dma_farrow_contract``'s output go to
     ``out [B, out_cap, C]`` f32 (``out[b, i, c]`` is lane ``b*C + c``;
     ``out_cap <= K*q``), rows ``i >= n_out`` as zeros; ``peak`` (0-d f32,
     zeroed by the caller) takes ``max |x|`` over the rows below ``n_out``,
-    NaN where any is NaN, as ``torch.amax``.  CUDA tensors launch kernel
-    B2 on the current stream (the same sums, in the same order, as its
-    time-major form); CPU tensors run the plain version.  Returns ``(out,
-    peak)``."""
+    NaN where any is NaN, as ``torch.amax``.  ``band`` as in
+    ``dma_farrow_contract``.  CUDA tensors launch kernel B2 on the current
+    stream (the same sums, in the same order, as its time-major form); CPU
+    tensors run the plain version.  Returns ``(out, peak)``."""
     with tracing.span("fir.check"):
-        bb = _check_b2(buffer, base, a_blk, block_base)
+        bb = _check_b2(buffer, base, a_blk, block_base, band)
         K, q, _ = a_blk.shape
         out_cap, C = _check_bm(buffer, out, peak, q, K, n_out)
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_bm_reference(buffer, base, a_blk, bb, out, peak, n_out=n_out)
-    _farrow_launch("dma_farrow_contract", "fir_farrow_contract", buffer, base, a_blk, bb,
-                   _I(out_cap), _I(C), _I(n_out), _P(peak.data_ptr()), out=out)
+    _b2_launch(buffer, base, a_blk, bb, band, out, out_cap, C, n_out, peak)
     return out, peak
 
 
@@ -443,12 +518,18 @@ def dma_farrow_contract_packed(buffer, base: int, a_blk, block_base):
             raise ValueError(f"B3's group weights ({-(-8 // q) * q} x {w}) exceed shared memory")
     if _device_kind(buffer) == "cpu":
         return dma_farrow_contract_reference(buffer, base, a_blk, bb)
+    R = buffer.shape[1]
     # 16-byte lane loads need a lane count and row pitch that keep them aligned
-    vec = 4 if buffer.shape[1] % 4 == 0 and buffer.data_ptr() % 16 == 0 else 1
-    return _farrow_launch(
-        "dma_farrow_contract_packed", "fir_farrow_contract_packed",
-        buffer, base, a_blk, bb, _I(vec),
+    vec = 4 if R % 4 == 0 and buffer.data_ptr() % 16 == 0 else 1
+    out = torch.empty((K, q, R), dtype=torch.float32, device=buffer.device)
+    _launch(
+        "fir_farrow_contract_packed", buffer.device,
+        _P(buffer.data_ptr()), _P(a_blk.data_ptr()),
+        _P(_block_base_table(bb, buffer.device).data_ptr()), _P(out.data_ptr()),
+        _I(R), _I64(base), _I(K), _I(q), _I(w), _I(vec),
     )
+    LAUNCHES["dma_farrow_contract_packed"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------

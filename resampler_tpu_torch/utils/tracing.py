@@ -76,6 +76,10 @@ snapshots them together with the kernel wrappers' launch counts
 - ``fir.farrow_steps``: tm fleet steps that ran the Farrow contraction
   (B2 or B3 on the card, their plain version off it; the farrow, lerp
   and wide paths; over ``fir.steps``, 1 where every step emits);
+- ``fir.banded_steps``: tm fleet steps whose B2 launch read the plan's
+  band table (each row tile's columns alone); the engaged share is
+  ``fir.banded_steps / fir.farrow_steps``, 1 on the card's B2, 0 on B3 and
+  off the card;
 - ``fir.slews``: streams whose applied slew was non-zero, summed over
   ``BatchedResamplerFir.slew`` calls;
 - ``fir.async.spread``: the async fleet's position spread ``max(pos) -
@@ -112,7 +116,7 @@ _COUNTS = dict.fromkeys(
     ("runtime.steps", "runtime.carried_frames", "runtime.fetch_reuses",
      "runtime.values_refused", "fir.steps", "fir.host_ns", "fir.schedule_ns",
      "fir.wide_steps", "fir.compactions", "fir.fused_epilogue", "fir.farrow_steps",
-     "fir.slews", "fir.async.spread",
+     "fir.banded_steps", "fir.slews", "fir.async.spread",
      "fft.chunks", "fft.host_ns", "fft.pool_steps", "fft.in_place"),
     0,
 )

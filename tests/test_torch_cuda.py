@@ -424,6 +424,158 @@ def test_coprime_fleet_on_card_matches_cpu(cuda, in_hz, out_hz, path, name):
     assert kern.LAUNCHES["farrow_weights"] == weights_before + produced_steps
 
 
+#: B2's band cases: the pair (its plan's q), the lanes (R 262: not a
+#: multiple of 4, so no 16-byte ring copies, nor of 256) and the channels
+#: of the fused form's ``[R / C, out_cap, C]`` output
+BAND_B2_CASES = {
+    "q64": ((44100, 44101), 512, 2),
+    "q64-ragged": ((44100, 44101), 262, 2),
+    "q16": ((48000, 12001), 512, 2),
+    "q16-ragged-mono": ((48000, 12001), 262, 1),
+    "q8": ((48000, 6001), 256, 2),
+    "q8-ragged": ((48000, 6001), 262, 2),
+}
+
+
+def _b2_band_case(pair, R, device, seed):
+    """The tm fleet's Farrow plan at ``pair`` (128 taps), its band plan,
+    three weight sets from the plain ``farrow_weights`` (positions on both
+    sides of a row's wrap) and a ring with room for the top bound."""
+    L, M = rt.types.reduce_ratio(*pair)
+    cfg = tfir.FirConfig(channels=1, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, pair[0] / pair[1])
+    )
+    fp = _farrow_tm_plan(cfg, coeffs)
+    band = kern.FarrowBandPlan(fp["j_loc"], 128, fp["w_blk"])
+    ashift2 = torch.from_numpy(fp["ashift2"]).to(device)
+    s = int(fp["s_pad"][0, 1])
+    weights = [fir_fleets.farrow_weights(fp, M, pos, ashift2) for pos in (0, M - s - 1, M - s)]
+    rng = np.random.default_rng(seed)
+    rows = int(fp["block_base"].max()) + fp["w_blk"]
+    buf = torch.from_numpy(rng.standard_normal((rows + 21, R), dtype=np.float32)).to(device)
+    return fp, band, weights, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BAND_B2_CASES))
+def test_banded_b2_matches_plain_on_card(cuda, case):
+    """B2 with the fleet's band plan, both forms, against its plain version
+    (the full contraction) and against B2 over the full width (``band=None``)
+    on the same weights: the time-major form within the kernels' tolerance
+    of both; the fused form with ``n_out`` inside a row tile bit for bit the
+    banded time-major form's rows below ``n_out`` (the same loop), zeros
+    past it, its peak that of those rows, and within the tolerance of the
+    plain fused version.  One launch a call."""
+    pair, R, C = BAND_B2_CASES[case]
+    fp, band, weights, buf = _b2_band_case(pair, R, cuda, seed=len(case))
+    K, q, w = band.shape
+    bb = fp["block_base"]
+    out_cap = K * q - 3
+    n_out = 32 * (out_cap // 32 - 2) + 13  # inside a row tile and a block
+    for a_blk in weights:
+        for base in (1, 21):  # an odd base and the top bound
+            ref = kern.dma_farrow_contract_reference(buf, base, a_blk, bb)
+            before = kern.LAUNCHES["dma_farrow_contract"]
+            got = kern.dma_farrow_contract(buf, base, a_blk, bb, band=band)
+            assert kern.LAUNCHES["dma_farrow_contract"] == before + 1
+            full = kern.dma_farrow_contract(buf, base, a_blk, bb)
+            out = torch.full((R // C, out_cap, C), 7.0, device=cuda)
+            peak = torch.zeros((), device=cuda)
+            kern.dma_farrow_contract_bm(buf, base, a_blk, bb, out, peak, n_out=n_out, band=band)
+            out_p = torch.full_like(out, 7.0)
+            peak_p = torch.zeros((), device=cuda)
+            kern.dma_farrow_contract_bm_reference(buf, base, a_blk, bb, out_p, peak_p, n_out=n_out)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert (got - ref).abs().max().item() <= KERNEL_ATOL
+            assert (got - full).abs().max().item() <= KERNEL_ATOL
+            tm = got.reshape(K * q, R)[:out_cap].clone()
+            tm[n_out:] = 0.0
+            want = tm.reshape(out_cap, R // C, C).permute(1, 0, 2).contiguous()
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(peak.view(torch.int32), want.abs().amax().view(torch.int32))
+            assert (out - out_p).abs().max().item() <= KERNEL_ATOL
+            assert abs(peak.item() - peak_p.item()) <= KERNEL_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(512, 2), (262, 2), (131, 1)], ids=["vec", "ragged", "mono"])
+def test_banded_b2_reads_nothing_outside_the_band_on_card(cuda, R, C):
+    """B2 never reads what lies outside every tile's band: on a plan whose
+    offsets give each 32-row tile a band far narrower than the blocks'
+    width (``j_loc = l // 8``, 64 taps, ``w`` 192), with blocks ``w + 5``
+    rows apart, the ring rows outside every band and the weight columns
+    outside each tile's band are NaN, and both forms give finite outputs,
+    within the tolerance of the plain version on the same inputs with the
+    NaN weights zeroed and the NaN rows read as zero."""
+    K, q, w, taps = 5, 64, 192, 64
+    j_loc = np.tile(np.arange(q) // 8, (K, 1)).astype(np.int32)
+    band = kern.FarrowBandPlan(j_loc, taps, w)
+    assert band.tiles[0].tolist() == [[0, 68], [4, 72]]
+    bb = np.arange(K, dtype=np.int64) * (w + 5)
+    base = 3
+    rng = np.random.default_rng(29)
+    ring = base + int(bb[-1]) + w + 4
+    buf = torch.from_numpy(rng.standard_normal((ring, R), dtype=np.float32))
+    a_blk = torch.from_numpy(rng.standard_normal((K, q, w), dtype=np.float32) / 8)
+    read = torch.zeros(ring, dtype=torch.bool)
+    cols = torch.arange(w)
+    for k in range(K):
+        for t, (lo, hi) in enumerate(band.tiles[k].tolist()):
+            read[base + bb[k] + lo : base + bb[k] + hi] = True
+            a_blk[k, t * 32 : (t + 1) * 32, (cols < lo) | (cols >= hi)] = float("nan")
+    assert 0 < int(read.sum()) < ring // 2
+    clean_buf, clean_a = buf.clone(), torch.nan_to_num(a_blk, nan=0.0)
+    clean_buf[~read] = 0.0
+    buf[~read] = float("nan")
+    ref = kern.dma_farrow_contract_reference(clean_buf, base, clean_a, bb)
+    buf, a_blk = buf.to(cuda), a_blk.to(cuda)
+    got = kern.dma_farrow_contract(buf, base, a_blk, bb, band=band)
+    out_cap = K * q - 7
+    out = torch.empty((R // C, out_cap, C), device=cuda)
+    peak = torch.zeros((), device=cuda)
+    kern.dma_farrow_contract_bm(buf, base, a_blk, bb, out, peak, n_out=out_cap - 40, band=band)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.isfinite(out).all() and torch.isfinite(peak)
+    assert (got.cpu() - ref).abs().max().item() <= KERNEL_ATOL
+    want = ref.reshape(K * q, R)[:out_cap].clone()
+    want[out_cap - 40 :] = 0.0
+    want = want.reshape(out_cap, R // C, C).permute(1, 0, 2)
+    assert (out.cpu() - want).abs().max().item() <= KERNEL_ATOL
+
+
+#: ``fir.banded_steps / fir.farrow_steps`` of the coprime tm fleet on the
+#: card: 1 where B2 contracts (farrow, lerp, wide; fused or time-major
+#: outputs), 0 where B3 does
+BANDED_SHARES = {"farrow": ((44100, 44101), "auto", "bm", 1),
+                 "lerp-tm": ((44100, 44101), "lerp", "tm", 1),
+                 "wide": ((600011, 600013), "auto", "bm", 1),
+                 "packed": ((48000, 1601), "auto", "bm", 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", sorted(BANDED_SHARES))
+def test_banded_steps_share_on_card(cuda, fleet):
+    (in_hz, out_hz), path, layout, share = BANDED_SHARES[fleet]
+    L, M = rt.types.reduce_ratio(in_hz, out_hz)
+    cfg = tfir.FirConfig(channels=2, taps=128, ratio_num=L, ratio_den=M)
+    coeffs = tfir.fir_coefficients(
+        128, rt.Attenuation.Db90, tfir.fir_cutoff(128, rt.Attenuation.Db90, in_hz / out_hz)
+    )
+    B, n, steps = 4, 512, 5
+    step = fir_fleets.make_fir_fleet_step_sync_tm(cfg, coeffs, B, max_chunk=n, path=path,
+                                                  out_layout=layout, device=cuda)
+    state = fir_fleets.fir_fleet_init_sync_tm(cfg, B, max_chunk=n, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    tracing.reset_counters()
+    for _ in range(steps):
+        state, _, _, produced = step(state, torch.randn((n, 2 * B), generator=gen, device=cuda), n)
+        assert produced > 0
+    c = tracing.counters()
+    assert c["fir.farrow_steps"] == steps and c["fir.banded_steps"] == share * steps
+
+
 U32 = (1 << 32) - 1
 
 
